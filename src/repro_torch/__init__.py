@@ -1,0 +1,9 @@
+"""ReXCam on PyTorch and CUDA: the port of ``repro`` to one NVIDIA H100.
+
+The layout mirrors ``repro`` (``core/``, ``kernels/``, ``runtime/``,
+``launch/``, ``api.py``) so every module has a counterpart there.  Plain
+array code is PyTorch; the one TPU kernel on the serving path (the
+segment-masked re-id top-k) is a hand-written CUDA kernel,
+``kernels/csrc/reid_topk.cu``.  Entry points take ``device=``, default
+``"cuda"``, and raise when no card is present unless given ``"cpu"``.
+"""

@@ -12,6 +12,11 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skipped without one")
+
+
 # ---------------------------------------------------------------------------
 # Fleet differential harness (tests/test_sharded_engine.py + its subprocess
 # re-entry).  Everything below is import-safe — jax/repro imports stay inside
