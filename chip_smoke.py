@@ -245,42 +245,68 @@ def device_share(torch, serve, ticks: int = 200):
                     f"x{e.count}" for e in top))
 
 
-def record_key(r):
+def record_key(r, with_idx=True):
     return (r["qid"], r["f_curr"], r["phase"], r["epoch"],
             tuple(bool(x) for x in r["mask"]), bool(r["matched"]),
-            int(r["match_cam"]), int(r["match_idx"]),
+            int(r["match_cam"]), int(r["match_idx"]) if with_idx else None,
             tuple((c, f) for _, c, f in r["topk"]))
 
 
+def same_record(a, b, with_idx=True):
+    vals_a = [a["match_val"]] + [v for v, _, _ in a["topk"]]
+    vals_b = [b["match_val"]] + [v for v, _, _ in b["topk"]]
+    return record_key(a, with_idx) == record_key(b, with_idx) and all(
+        abs(x - y) <= TOL * (1 + abs(y)) for x, y in zip(vals_a, vals_b))
+
+
 def compare_traces(gpu, cpu, match_thresh):
-    """Record by record: everything exact but the scores (1e-5).  A
-    difference is forgiven only where fp32 rounding may decide it (band 0
-    within 1e-5 of the match threshold, or bands 0 and 1 within 1e-5 of
-    each other); that record is printed and the comparison stops there,
-    since the two runs may rightly part from then on."""
+    """Query by query, record by record: everything exact but the scores
+    (1e-5).  The one difference forgiven is a record whose band-0 score
+    lies within 1e-5 of the match threshold, where fp32 rounding may
+    decide the match: it is printed and that query's later records are
+    not compared, since its two runs may rightly part there.  The other
+    queries' records are all compared; their ``match_idx`` only before the
+    forgiven record, because the parted query's admitted frames shift the
+    later round galleries' rows (band cameras and frames still name each
+    row).  Fails if a second query parts.  Returns the number of records
+    compared and the parted query (or None)."""
     if not gpu:
         fail("empty trace")
-    n = 0
-    for a, b in zip(gpu, cpu):
-        vals_a = [a["match_val"]] + [v for v, _, _ in a["topk"]]
-        vals_b = [b["match_val"]] + [v for v, _, _ in b["topk"]]
-        same = record_key(a) == record_key(b) and all(
-            abs(x - y) <= TOL * (1 + abs(y)) for x, y in zip(vals_a, vals_b))
-        if not same:
+    by_q = {}
+    for side, trace in enumerate((gpu, cpu)):
+        for pos, r in enumerate(trace):
+            by_q.setdefault(r["qid"], ([], []))[side].append((pos, r))
+    # pass 1: where each query first differs, row indices aside
+    parted = None           # (qid, cuda trace position of the record)
+    for qid, (ra, rb) in sorted(by_q.items()):
+        for (pos, a), (_, b) in zip(ra, rb):
+            if same_record(a, b, with_idx=False):
+                continue
             v0 = b["topk"][0][0]
-            near_thresh = abs((1.0 - v0) - match_thresh) <= TOL
-            near_tie = len(b["topk"]) > 1 and \
-                abs(b["topk"][0][0] - b["topk"][1][0]) <= TOL
-            if near_thresh or near_tie:
-                say(f"  record {n} differs at an fp32 near-"
-                    f"{'threshold' if near_thresh else 'tie'}; compared up "
-                    f"to here:\n    cuda {a}\n    cpu  {b}")
-                return n
-            fail(f"trace record {n} differs:\n  cuda {a}\n  cpu  {b}")
-        n += 1
-    if len(gpu) != len(cpu):
-        fail(f"trace lengths differ: cuda {len(gpu)}, cpu {len(cpu)}")
-    return n
+            if parted is None and abs((1.0 - v0) - match_thresh) <= TOL:
+                say(f"  query {qid} parts at an fp32 near-threshold "
+                    f"record; its later records are not compared:\n"
+                    f"    cuda {a}\n    cpu  {b}")
+                parted = (qid, pos)
+                break
+            fail(f"trace record of query {qid} differs:\n  cuda {a}\n  "
+                 f"cpu  {b}")
+        else:
+            if len(ra) != len(rb):
+                fail(f"query {qid}: cuda has {len(ra)} records, cpu "
+                     f"{len(rb)}")
+    # pass 2: the row indices, up to the parting
+    stop = len(gpu) if parted is None else parted[1]
+    n = 0
+    for qid, (ra, rb) in sorted(by_q.items()):
+        for (pos, a), (_, b) in zip(ra, rb):
+            if parted is not None and qid == parted[0] and pos >= stop:
+                break
+            if pos < stop and not same_record(a, b):
+                fail(f"trace record of query {qid} differs in match_idx:"
+                     f"\n  cuda {a}\n  cpu  {b}")
+            n += 1
+    return n, None if parted is None else parted[0]
 
 
 def main() -> int:
@@ -314,13 +340,12 @@ def main() -> int:
 
     # -- phase 2: build -------------------------------------------------
     t0 = time.perf_counter()
-    libs = build.build(["reid_topk"])
-    say(f"[2 build] nvcc sm_90a: {len(libs)} kernel source(s) in "
+    lib_path = build.build("reid_topk")
+    say(f"[2 build] nvcc sm_90a: reid_topk.cu in "
         f"{time.perf_counter() - t0:.2f} s")
-    for path in libs.values():
-        for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"  ptxas: {line.strip()}")
+    for line in lib_path.with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            say(f"  ptxas: {line.strip()}")
 
     # -- phase 3: kernel vs plain on synthetic inputs -------------------
     rng = np.random.default_rng(0)
@@ -416,13 +441,16 @@ def main() -> int:
     cpu_trace = []
     t0 = time.perf_counter()
     eng_cpu, _ = serve("cpu", cpu_trace)
-    n = compare_traces(gpu_trace, cpu_trace, policy.match_thresh)
-    if (eng_cpu.admitted_steps, eng_cpu.unique_frames) != \
-            (eng.admitted_steps, eng.unique_frames) and n == len(gpu_trace):
+    n, parted = compare_traces(gpu_trace, cpu_trace, policy.match_thresh)
+    if parted is None and (eng_cpu.admitted_steps, eng_cpu.unique_frames) \
+            != (eng.admitted_steps, eng.unique_frames):
         fail("cuda and cpu runs disagree on the cost counters")
     say(f"[4 main] cpu rerun (plain versions) in "
         f"{time.perf_counter() - t0:.1f} s: {n} of {len(gpu_trace)} trace "
-        f"records agree")
+        f"records agree"
+        + ("; cost counters equal" if parted is None else
+           f"; query {parted} parted at a near-threshold record, so the "
+           f"cost counters are not compared"))
 
     device_share(torch, serve)
 

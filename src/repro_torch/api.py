@@ -61,7 +61,10 @@ def serve(model: SpatioTemporalModel, embed_fn: Callable,
         raise NotImplementedError(
             f"serve({', '.join(named)}=...) is not ported yet (ROADMAP.md, "
             f"Queue 1): the port serves one engine, camera-granular")
+    if gallery not in ("auto", "local"):
+        raise ValueError(f"gallery={gallery!r}: the single engine keeps a "
+                         f"local gallery ('auto' or 'local')")
     cfg = EngineConfig(policy=policy, max_batch=max_batch,
-                       retention=retention, gallery=gallery, topk=topk,
+                       retention=retention, topk=topk,
                        consolidate=consolidate, topk_rerank=topk_rerank)
     return ServingEngine(model, embed_fn, cfg, geo_adj=geo_adj, device=device)

@@ -9,8 +9,8 @@ Each source compiles to its own shared library with a plain C interface
 
 The library lands in ``build/kernels/`` at the repository root, named by
 a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads at once.  Builds of several sources run in parallel.
-Nothing is built when a module is imported: the first launch builds.
+unchanged one loads at once.  Nothing is built when a module is imported:
+the first launch builds.
 """
 from __future__ import annotations
 
@@ -56,38 +56,29 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names) -> dict[str, Path]:
-    """Compile every ``csrc/<name>.cu`` whose library is missing, one nvcc
-    per source, all started together.  Returns name -> library path.  The
-    compiler's register and spill report goes to ``<library>.log``."""
-    names = list(names)
-    paths = {n: library_path(n) for n in names}
-    todo = [n for n in names if not paths[n].exists()]
-    if not todo:
-        return paths
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library exists; returns the
+    library path.  The compiler's register and spill report goes to
+    ``<library>.log``."""
+    path = library_path(name)
+    if path.exists():
+        return path
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for n in todo:
-        tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT,
-                                          text=True))
-    failed = []
-    for n, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        paths[n].with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{n}.cu (exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, paths[n])       # atomic: a reader never sees half a file
-    if failed:
-        raise BuildError("nvcc failed on " + "\n".join(failed))
-    return paths
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                           str(CSRC / f"{name}.cu")],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    path.with_suffix(".log").write_text(proc.stdout)
+    if proc.returncode != 0:
+        raise BuildError(f"nvcc failed on {name}.cu (exit {proc.returncode}):"
+                         f"\n{proc.stdout}")
+    os.replace(tmp, path)       # atomic: a reader never sees half a file
+    return path
 
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it on first use."""
-    return ctypes.CDLL(str(build([name])[name]))
+    return ctypes.CDLL(str(build(name)))

@@ -242,18 +242,22 @@ cudaError_t launch(const float* q, const int* q_tag, const uint8_t* admit,
 
 // All pointers are device pointers to contiguous arrays: q (Q, D) float32,
 // q_tag (Q,) int32, admit (Q, C) bool bytes, g (G, D) float32, gal_cam and
-// gal_tag (G,) int32; out_v (Q, k) float32 and out_i (Q, k) int32.  The
-// launch goes on `stream` and does not synchronise.  Returns the CUDA error
-// code of the launch (0 on success).
+// gal_tag (G,) int32; out_v (Q, k) float32 and out_i (Q, k) int32, all on
+// card `device`, whose stream `stream` is.  This library's runtime keeps its
+// own current device, so the launch first makes `device` current.  The
+// launch does not synchronise.  Returns the CUDA error code of the launch
+// (0 on success).
 extern "C" int reid_topk_segment_masked(const float* q, const int* q_tag,
                                         const uint8_t* admit, const float* g,
                                         const int* gal_cam, const int* gal_tag,
                                         float* out_v, int* out_i, int Q,
                                         int G, int D, int C, int k,
-                                        void* stream) {
+                                        int device, void* stream) {
   if (Q < 1 || G < 1 || D < 1 || C < 1 || C > MAX_CAMS || k < 1 ||
       k > MAX_K)
     return (int)cudaErrorInvalidValue;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return (int)set;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k == 1)
     return (int)launch<1>(q, q_tag, admit, g, gal_cam, gal_tag, out_v, out_i,

@@ -73,7 +73,7 @@ def _kernel():
     from repro_torch.kernels import build
 
     fn = build.load("reid_topk").reid_topk_segment_masked
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -88,10 +88,14 @@ def _launch(queries, q_tag, admit, gallery, gal_cam, gal_tag, k: int):
     fn = _kernel()
     out_v = torch.empty((Q, k), dtype=torch.float32, device=queries.device)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=queries.device)
+    device = queries.device.index
+    if device is None:
+        device = torch.cuda.current_device()
     stream = torch.cuda.current_stream(queries.device).cuda_stream
     err = fn(queries.data_ptr(), q_tag.data_ptr(), admit.data_ptr(),
              gallery.data_ptr(), gal_cam.data_ptr(), gal_tag.data_ptr(),
-             out_v.data_ptr(), out_i.data_ptr(), Q, G, D, C, k, stream)
+             out_v.data_ptr(), out_i.data_ptr(), Q, G, D, C, k, device,
+             stream)
     if err != 0:
         raise RuntimeError(f"reid_topk_segment_masked launch failed: CUDA "
                            f"error {err}")

@@ -45,8 +45,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.reid_topk import NEG_INF
 from repro_torch.runtime.gallery import (GalleryStore, LocalGalleryStore,
-                                         assemble_round_gallery,
-                                         l2_normalize, pow2)
+                                         assemble_round_gallery, l2_normalize)
 from repro_torch.runtime.stream_store import FrameStore
 
 # effectively "never": the live engine terminates queries via exit_t /
@@ -63,7 +62,6 @@ class EngineConfig:
     retention: int = 600
     embed_cache: bool = True          # gallery-plane embedding cache (§5.3)
     short_circuit_skips: bool = True  # host fast path for sampled-out rounds
-    gallery: str = "auto"             # "auto" / "local"; "sharded" is the fleet's
     # top-k candidate bands surfaced per query round in the trace records;
     # the argmax match path is always band 0
     topk: int = 1
@@ -173,7 +171,7 @@ def rank_advance_round(policy: SearchPolicy, windows, state: PhaseState,
                        q_feat, mask, gallery, gal_cam, gal_frame, k: int = 1,
                        topk_rerank: bool = False):
     """Rank the round's gallery with frame tags (``state.f_curr``), then run
-    the phase machine.  Padding rows (done, all-False mask) match nothing."""
+    the phase machine."""
     (matched, match_cam, match_emb, topk_val, topk_idx, topk_cam,
      topk_frame) = rank_round(q_feat, state.f_curr, mask, gallery, gal_cam,
                               gal_frame, policy.match_thresh, k, topk_rerank)
@@ -227,14 +225,13 @@ class RoundPlan:
 
     qs: list
     ps: PhaseState
-    slots: np.ndarray
     mask: np.ndarray                        # (N, C) admission, host copy
     admitted: int                           # per-(query, camera) steps
     cams_by_q: list
     work: list                              # sorted unique (cam, frame)
     want_count: dict                        # key -> wanting (q, cam) pairs
     seg_of_frame: dict                      # content frame -> segment id
-    q_seg: np.ndarray                       # (N,) int32, -1 on padding rows
+    q_seg: np.ndarray                       # (N,) int32
 
     def gallery_segments(self, batch_keys: list, key_emb: dict,
                          rows: int) -> np.ndarray:
@@ -275,7 +272,7 @@ class ServingEngine:
         self._geo_adj = torch.as_tensor(
             geo_adj if geo_adj is not None else np.ones((self.C, self.C), bool),
             dtype=torch.bool, device=self.device)
-        self.gallery = self._make_gallery()
+        self.gallery: GalleryStore = LocalGalleryStore(self.C, cfg.retention)
         self.store = FrameStore(self.C, cfg.retention, gallery=self.gallery)
         self.queries: dict[int, QueryState] = {}
         self.t = 0
@@ -299,12 +296,6 @@ class ServingEngine:
         self.sightings: collections.deque[tuple[int, int, int]] = \
             collections.deque()
         self._in_round = False       # swap_model atomicity guard
-        self._slots = np.zeros(0, np.int64)  # qs-index -> batch-row mapping
-        # growth-only padding of the batch and the round gallery (pow2
-        # high-water marks): padding rows are done/masked and rank to
-        # (NEG_INF, -1), so they never change a result
-        self._batch_hwm = 1
-        self._gal_rows_hwm = 1
         self._set_windows()
 
     def _set_windows(self) -> None:
@@ -337,16 +328,6 @@ class ServingEngine:
         return self.model_epoch
 
     # -- the gallery plane -------------------------------------------------
-    def _make_gallery(self) -> GalleryStore:
-        if self.cfg.gallery in ("auto", "local"):
-            return LocalGalleryStore(self.C, self.cfg.retention)
-        if self.cfg.gallery == "sharded":
-            raise ValueError(
-                "gallery='sharded' requires the sharded fleet; the single "
-                "engine is local-only")
-        raise ValueError(f"unknown gallery mode {self.cfg.gallery!r} "
-                         f"(expected 'auto', 'local' or 'sharded')")
-
     def gallery_report(self) -> dict:
         """The embedding plane's accounting, with rescue-failure cost in both
         conventions."""
@@ -363,43 +344,20 @@ class ServingEngine:
         self.sightings.append((qid, cam, frame))
 
     # -- batched state marshalling ---------------------------------------
-    def _layout(self, qs: list[QueryState]) -> tuple[int, np.ndarray]:
-        """(batch size N, slots): queries packed densely, the batch padded
-        to its pow2 high-water mark."""
-        self._batch_hwm = max(self._batch_hwm, pow2(len(qs)))
-        return self._batch_hwm, np.arange(len(qs))
-
-    def prime_batch(self, n_queries: int) -> None:
-        """Pre-size the padded batch for an expected peak of live queries."""
-        self._batch_hwm = max(self._batch_hwm, pow2(max(int(n_queries), 1)))
-
-    def prime_gallery(self, rows: int) -> None:
-        """Pre-size the padded round gallery for an expected peak of rows."""
-        self._gal_rows_hwm = max(self._gal_rows_hwm, pow2(max(int(rows), 1)))
-
-    @property
-    def padded_gallery_rows(self) -> int:
-        return self._gal_rows_hwm
-
     def _gather(self, qs: list[QueryState]) -> PhaseState:
-        """Engine QueryStates -> one batched PhaseState on the device; every
-        non-query row is padding (``done``).  The live frontier is the
-        engine wall clock."""
-        N, slots = self._layout(qs)
-        self._slots = slots
-
-        def col(vals, fill, dtype):
-            a = np.full(N, fill, dtype)
-            a[slots] = vals
-            return torch.from_numpy(a).to(self.device)
+        """Engine QueryStates -> one batched PhaseState on the device, row i
+        for ``qs[i]`` (no padding rows: eager PyTorch has no shapes to
+        hold fixed).  The live frontier is the engine wall clock."""
+        def col(vals, dtype):
+            return torch.from_numpy(np.asarray(vals, dtype)).to(self.device)
 
         return PhaseState(
-            f_q=col([q.f_q for q in qs], 0, np.int32),
-            c_q=col([q.c_q for q in qs], 0, np.int32),
-            f_curr=col([q.f_curr for q in qs], 0, np.int32),
-            phase=col([q.phase for q in qs], 1, np.int32),
-            live_f=col([float(self.t)] * len(qs), 0.0, np.float32),
-            done=col([False] * len(qs), True, np.bool_),
+            f_q=col([q.f_q for q in qs], np.int32),
+            c_q=col([q.c_q for q in qs], np.int32),
+            f_curr=col([q.f_curr for q in qs], np.int32),
+            phase=col([q.phase for q in qs], np.int32),
+            live_f=col([float(self.t)] * len(qs), np.float32),
+            done=col([False] * len(qs), np.bool_),
         )
 
     def _scatter(self, qs: list[QueryState], state: dict,
@@ -407,9 +365,7 @@ class ServingEngine:
                  match_emb: np.ndarray | None):
         """Write the advanced state (host arrays) back into the queries."""
         a = self.policy.feat_alpha
-        sl = self._slots
-        for i, q in enumerate(qs):
-            j = sl[i]
+        for j, q in enumerate(qs):
             if matched[j]:
                 emb = match_emb[j]
                 q.feat = l2_normalize((1 - a) * q.feat + a * emb)
@@ -430,9 +386,8 @@ class ServingEngine:
         deduplicated (cam, frame) demand with per-key want counts, and the
         injective content-frame -> segment relabeling."""
         ps = self._gather(qs)
-        sl = self._slots
         (mask,) = _to_host(admit(self.model, self.policy, ps, self._geo_adj))
-        cams_by_q = [np.flatnonzero(mask[sl[i]]) for i in range(len(qs))]
+        cams_by_q = [np.flatnonzero(row) for row in mask]
         want_count: dict[tuple[int, int], int] = {}
         for i, q in enumerate(qs):
             for cam in cams_by_q[i]:
@@ -440,11 +395,9 @@ class ServingEngine:
                 want_count[key] = want_count.get(key, 0) + 1
         seg_of_frame = {f: s for s, f in
                         enumerate(sorted({q.f_curr for q in qs}))}
-        q_seg = np.full(mask.shape[0], -1, np.int32)
-        for i, q in enumerate(qs):
-            q_seg[sl[i]] = seg_of_frame[q.f_curr]
-        return RoundPlan(qs=qs, ps=ps, slots=sl, mask=mask,
-                         admitted=int(mask[sl].sum()), cams_by_q=cams_by_q,
+        q_seg = np.array([seg_of_frame[q.f_curr] for q in qs], np.int32)
+        return RoundPlan(qs=qs, ps=ps, mask=mask,
+                         admitted=int(mask.sum()), cams_by_q=cams_by_q,
                          work=sorted(want_count), want_count=want_count,
                          seg_of_frame=seg_of_frame, q_seg=q_seg)
 
@@ -538,7 +491,7 @@ class ServingEngine:
                     return
 
         plan = self._plan_round(qs)
-        ps, sl, mask = plan.ps, plan.slots, plan.mask
+        ps, mask = plan.ps, plan.mask
         stats["admitted_steps"] += plan.admitted
         self.admitted_steps += plan.admitted
         stats["unique_frames"] += len(plan.work)
@@ -593,8 +546,7 @@ class ServingEngine:
                             f"engine tried to cache un-retained frame {key}")
                 pos += cnt
 
-        # one rank+advance pass over the whole round; padding rows come
-        # back as (False, NEG_INF, -1)
+        # one rank+advance pass over the whole round
         N = mask.shape[0]
         K = self.cfg.topk
         matched = np.zeros(N, bool)
@@ -606,12 +558,9 @@ class ServingEngine:
         match_emb = None
         dev = self.device
         if batch_keys:
-            gal, gal_cam, gal_frame = assemble_round_gallery(
-                batch_keys, key_emb, min_rows=self._gal_rows_hwm)
-            self._gal_rows_hwm = max(self._gal_rows_hwm, gal.shape[0])
-            q_feat = np.zeros((N, gal.shape[1]), np.float32)
-            for i, q in enumerate(qs):
-                q_feat[sl[i]] = q.feat
+            gal, gal_cam, gal_frame = assemble_round_gallery(batch_keys,
+                                                             key_emb)
+            q_feat = np.stack([q.feat for q in qs]).astype(np.float32)
 
             def dev_t(a):
                 return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -634,7 +583,7 @@ class ServingEngine:
              topk_val, topk_idx, topk_cam, topk_frame) = _to_host(
                 ps_next.f_q, ps_next.c_q, ps_next.f_curr, ps_next.phase,
                 ps_next.done, *out[1:])
-            stats["matches"] += int(matched[sl].sum())
+            stats["matches"] += int(matched.sum())
         else:
             ps_next = advance_round(self.policy, self._windows, ps)
             f_q, c_q, f_curr, phase, done = _to_host(
@@ -642,8 +591,7 @@ class ServingEngine:
                 ps_next.done)
 
         if trace is not None:
-            for i, q in enumerate(qs):
-                j = sl[i]
+            for j, q in enumerate(qs):
                 records[q.qid] = dict(
                     qid=q.qid, f_curr=q.f_curr, phase=q.phase,
                     epoch=self.model_epoch,

@@ -209,27 +209,21 @@ class LocalGalleryStore(GalleryStore):
 
 
 def assemble_round_gallery(batch_keys: list[tuple[int, int]],
-                           key_emb: dict[tuple[int, int], np.ndarray],
-                           min_rows: int = 1):
+                           key_emb: dict[tuple[int, int], np.ndarray]):
     """One round's deduplicated gallery, engine-ready: concatenate the
     per-key embedding blocks IN ``batch_keys`` ORDER (the engines pass
     camera-major sorted keys, which is what keeps the kernel's flat-argmin
     tie-breaking bit-identical to the tracker), tag every row with its
     (camera, frame), and pad rows to a power of two so the kernel sees
     few distinct shapes — padded rows carry cam/frame -1 and rank to
-    (NEG_INF, -1) inside the kernels.  ``min_rows`` lets the engines hold the
-    row count at
-    its high-water mark (growth-only padding, so the rank shape stays
-    fixed when a round's gallery shrinks — padded rows can never win
-    a tie, the kernel's flat argmin always resolves equal scores to the
-    lowest real column).  Returns (gallery (Gp, D), gal_cam (Gp,),
-    gal_frame (Gp,))."""
+    (NEG_INF, -1) inside the kernels, so they never win a tie.  Returns
+    (gallery (Gp, D), gal_cam (Gp,), gal_frame (Gp,))."""
     counts = [len(key_emb[k]) for k in batch_keys]
     gal = np.concatenate([key_emb[k] for k in batch_keys]).astype(np.float32)
     gal_cam = np.repeat([k[0] for k in batch_keys], counts).astype(np.int32)
     gal_frame = np.repeat([k[1] for k in batch_keys], counts).astype(np.int32)
     G = gal.shape[0]
-    Gp = max(pow2(G), pow2(min_rows))
+    Gp = pow2(G)
     if Gp > G:
         gal = np.concatenate(
             [gal, np.zeros((Gp - G, gal.shape[1]), np.float32)])

@@ -185,4 +185,4 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     if build.Path("/usr/local/cuda/bin/nvcc").is_file():
         pytest.skip("a CUDA toolkit is installed at /usr/local/cuda")
     with pytest.raises(build.BuildError, match="nvcc not found"):
-        build.build(["reid_topk"])
+        build.build("reid_topk")
