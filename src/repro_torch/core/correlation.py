@@ -37,6 +37,16 @@ class SpatioTemporalModel:
     bin_width: int = 1
     # model version: 0 = the offline profile, +1 per hot-swap
     epoch: int = 0
+    # CrossRoI-style sub-frame admission (kept out of FIELDS: a camera-
+    # granular model has none): tile_admit[c_s, c_d, t] says whether tile t
+    # of camera c_d's T x T grid ever receives c_s -> c_d handoff traffic.
+    # tile_grid = 0 means no tile plane.  tile_learned is True when the
+    # masks were profiled, False for the all-admitted tensor the engine
+    # synthesises for a tile-less model; it decides the self-camera column
+    # (``policy.tile_admission``).
+    tile_admit: torch.Tensor | None = None   # (C, C, T*T) bool, or None
+    tile_grid: int = 0
+    tile_learned: bool = False
 
     @property
     def n_cams(self) -> int:
@@ -51,6 +61,9 @@ class SpatioTemporalModel:
         return self.S.device
 
     def to(self, device) -> "SpatioTemporalModel":
-        """The same model with every tensor on ``device``."""
-        return dataclasses.replace(
-            self, **{f: getattr(self, f).to(device) for f in FIELDS})
+        """The same model with every tensor (``tile_admit`` too) on
+        ``device``."""
+        moved = {f: getattr(self, f).to(device) for f in FIELDS}
+        if self.tile_admit is not None:
+            moved["tile_admit"] = self.tile_admit.to(device)
+        return dataclasses.replace(self, **moved)

@@ -3,7 +3,8 @@
 The PyTorch counterpart of ``repro.core.policy`` (paper §5.1-§5.3,
 Algorithm 1).  ``SearchPolicy`` is the frozen search configuration,
 ``PhaseState`` the batched (Q,) per-query search state, ``admit`` the
-vectorized (Q, C) admission mask and ``advance`` the phase machine.  All
+vectorized (Q, C) admission mask, ``admit_tiles`` its (camera x tile)
+refinement and ``advance`` the phase machine.  All
 of them run on whatever device the model and state tensors live on.
 
 Thresholds are float32 arithmetic, as in the JAX reference: a threshold
@@ -246,6 +247,57 @@ def admit(model: "SpatioTemporalModel", policy: SearchPolicy,
     process = ~replay_sampled_out(policy, state.f_q, state.f_curr,
                                   state.behind)
     return mask & process[:, None] & (~state.done)[:, None]
+
+
+def tile_follow_mask(tile_q: torch.Tensor, T: int) -> torch.Tensor:
+    """(Q, T*T) bool: the 3x3 neighbourhood of each query's last-matched
+    tile on the T x T grid, clipped at the frame's edges.  ``tile_q < 0``
+    (no match yet) admits every tile.  ``//`` and ``%`` floor as ``jnp``'s
+    do, so a negative ``tile_q`` lands where the reference puts it."""
+    cells = torch.arange(T * T, dtype=torch.int32, device=tile_q.device)
+    cy, cx = cells // T, cells % T
+    qy, qx = tile_q[:, None] // T, tile_q[:, None] % T
+    near = ((cy[None, :] - qy).abs() <= 1) & ((cx[None, :] - qx).abs() <= 1)
+    return near | (tile_q < 0)[:, None]
+
+
+def tile_admission(model: "SpatioTemporalModel", policy: SearchPolicy,
+                   state: PhaseState, tile_q=None) -> torch.Tensor:
+    """(Q, C, T*T) bool: which tiles of each destination camera a query
+    searches, from the profiled masks ``model.tile_admit[c_q]``.
+
+    Phases >= 2 admit every tile.  The self camera: with a learned model
+    and ``tile_q`` given, inside the follow window its column is
+    ``tile_follow_mask``, outside it the learned diagonal; a synthesised
+    (tile-less) model keeps the whole frame inside the follow window,
+    which keeps it identical to camera-granular serving."""
+    C = model.n_cams
+    tiles = model.tile_admit[state.c_q]                  # (Q, C, TT)
+    cams = torch.arange(C, dtype=state.c_q.dtype, device=model.device)
+    self_cam = state.c_q[:, None] == cams[None, :]       # one_hot(c_q, C)
+    in_window = (state.elapsed <= policy.self_window)[:, None]
+    if model.tile_learned and tile_q is not None:
+        follow = tile_follow_mask(tile_q, model.tile_grid)     # (Q, TT)
+        diag = model.tile_admit[state.c_q, state.c_q]          # (Q, TT)
+        self_col = torch.where(in_window, follow, diag)
+        tiles = torch.where(self_cam[:, :, None], self_col[:, None, :],
+                            tiles)
+    else:
+        tiles = tiles | (self_cam & in_window)[:, :, None]
+    return tiles | (state.phase >= 2)[:, None, None]
+
+
+def admit_tiles(model: "SpatioTemporalModel", policy: SearchPolicy,
+                state: PhaseState, geo_adj=None, tile_q=None):
+    """Tile-granular admission: the (Q, C) camera mask (``admit``'s) and
+    the fused (Q, C*T*T) cell admission the tile kernel consumes,
+    ``mask_ct[q, c*T*T + t] = mask[q, c] & tile_admission[q, c, t]``.
+    ``tile_q`` (Q,) int32 is each query's last-matched tile (-1 before the
+    first match)."""
+    mask = admit(model, policy, state, geo_adj)
+    tiles = tile_admission(model, policy, state, tile_q)
+    mask_ct = (mask[:, :, None] & tiles).reshape(mask.shape[0], -1)
+    return mask, mask_ct
 
 
 # ---------------------------------------------------------------------------

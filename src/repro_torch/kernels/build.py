@@ -8,8 +8,8 @@ Each source compiles to its own shared library with a plain C interface
          src/repro_torch/kernels/csrc/<name>.cu
 
 The library lands in ``build/kernels/`` at the repository root, named by
-a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads at once.  Nothing is built when a module is imported:
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source or header rebuilds and an unchanged one loads at once.  Nothing is built when a module is imported:
 the first launch builds.
 """
 from __future__ import annotations
@@ -50,8 +50,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` goes, keyed by source + flags."""
+    """Where the build of ``csrc/<name>.cu`` goes, keyed by source, headers
+    and flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -13,18 +13,11 @@
 // index wins a tie, as the reference's merge and lax.top_k give.  Slots
 // with no eligible row are (-1e30, -1).
 //
-// Design.  A block owns QB = 32 query rows, their admit rows (QB x C bytes,
-// dynamic shared memory) and tags.  It walks the gallery in tiles of
-// GB = 64 rows; for each tile the feature axis is staged in chunks of
-// DC = 32, both operands transposed into shared memory, so every gallery
-// byte is read once per query block.  256 threads each own a 2 x 4
-// register micro-tile (2 query rows x 4 gallery rows): per depth step one
-// float2 and one float4 shared load feed 8 fp32 FMAs.  Scores are plain
-// fp32 FMA in depth order — no TF32, no tensor cores, which keeps the
-// scores within 1e-5 of an fp32 reference.  After a tile, each thread
-// pushes its eligible scores into a register top-K (one sorted list per
-// query row).  At the end the 16 threads of a half-warp that share a query
-// row merge their lists with xor shuffles, k rounds of "best head wins".
+// Design (the shared pieces are in topk.cuh).  A block owns QB = 32 query
+// rows, their admit rows (QB x C bytes, dynamic shared memory) and tags.
+// It walks the gallery in tiles of GB = 64 rows; after each tile's fp32
+// FMA product (score_tile) each thread pushes its eligible scores into a
+// register top-K, and at the end the half-warps merge (merge_and_store).
 // K is a template (1, 2, 4, 8, 16): k is rounded up to the next one, which
 // changes nothing, since the top-k is a prefix of the top-K under a total
 // order.
@@ -39,64 +32,13 @@
 // shape; splitting the gallery axis across blocks, TMA staging and a
 // tensor-core product are later work.
 
-#include <climits>
-#include <cstddef>
-#include <cstdint>
-
-#include <cuda_runtime.h>
+#include "topk.cuh"
 
 namespace {
 
-constexpr int QB = 32;            // query rows per block
-constexpr int GB = 64;            // gallery rows per staged tile
-constexpr int DC = 32;            // feature depth per staged chunk
-constexpr int THREADS = 256;      // 16 query pairs x 16 gallery quads
-constexpr int QS = QB + 2;        // padded transposed query row (float2-aligned)
-constexpr int GS = GB + 4;        // padded transposed gallery row (float4-aligned)
-constexpr int MAX_K = 16;
+using namespace reid;
+
 constexpr int MAX_CAMS = 4096;    // QB * MAX_CAMS bytes of dynamic shared memory
-constexpr float NEG_INF = -1e30f;
-
-// (v, i) ranks before (w, j): higher score first, lower index on ties.
-__device__ __forceinline__ bool better(float v, int i, float w, int j) {
-  return v > w || (v == w && i < j);
-}
-
-// Insert (v, i) into a list sorted by `better`, dropping the last entry.
-template <int K>
-__device__ __forceinline__ void push(float (&tv)[K], int (&ti)[K], float v,
-                                     int i) {
-  if (!better(v, i, tv[K - 1], ti[K - 1])) return;
-  bool placed = false;
-#pragma unroll
-  for (int s = K - 1; s > 0; --s) {
-    if (!placed) {
-      if (better(v, i, tv[s - 1], ti[s - 1])) {
-        tv[s] = tv[s - 1];
-        ti[s] = ti[s - 1];
-      } else {
-        tv[s] = v;
-        ti[s] = i;
-        placed = true;
-      }
-    }
-  }
-  if (!placed) {
-    tv[0] = v;
-    ti[0] = i;
-  }
-}
-
-template <int K>
-__device__ __forceinline__ void pop_front(float (&tv)[K], int (&ti)[K]) {
-#pragma unroll
-  for (int s = 0; s < K - 1; ++s) {
-    tv[s] = tv[s + 1];
-    ti[s] = ti[s + 1];
-  }
-  tv[K - 1] = NEG_INF;
-  ti[K - 1] = INT_MAX;
-}
 
 template <int K>
 __global__ void __launch_bounds__(THREADS)
@@ -131,14 +73,7 @@ reid_topk_segment_masked_kernel(const float* __restrict__ q,
 
   float tv[2][K];
   int ti[2][K];
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-#pragma unroll
-    for (int s = 0; s < K; ++s) {
-      tv[a][s] = NEG_INF;
-      ti[a][s] = INT_MAX;
-    }
-  }
+  init_topk<K>(tv, ti);
 
   for (int g0 = 0; g0 < G; g0 += GB) {
     __syncthreads();  // the previous tile's tags and operands are consumed
@@ -147,34 +82,8 @@ reid_topk_segment_masked_kernel(const float* __restrict__ q,
       gcam_s[r] = in ? gal_cam[g0 + r] : -1;
       gtag_s[r] = in ? gal_tag[g0 + r] : 0;
     }
-    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    for (int d0 = 0; d0 < D; d0 += DC) {
-      for (int e = tid; e < QB * DC; e += THREADS) {
-        const int r = e / DC, dd = e - r * DC;
-        const int row = q0 + r, col = d0 + dd;
-        q_s[dd][r] = (row < Q && col < D) ? q[(size_t)row * D + col] : 0.f;
-      }
-      for (int e = tid; e < GB * DC; e += THREADS) {
-        const int r = e / DC, dd = e - r * DC;
-        const int row = g0 + r, col = d0 + dd;
-        g_s[dd][r] = (row < G && col < D) ? g[(size_t)row * D + col] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int dd = 0; dd < DC; ++dd) {
-        const float2 a = *reinterpret_cast<const float2*>(&q_s[dd][tq * 2]);
-        const float4 b = *reinterpret_cast<const float4*>(&g_s[dd][tg * 4]);
-        acc[0][0] = fmaf(a.x, b.x, acc[0][0]);
-        acc[0][1] = fmaf(a.x, b.y, acc[0][1]);
-        acc[0][2] = fmaf(a.x, b.z, acc[0][2]);
-        acc[0][3] = fmaf(a.x, b.w, acc[0][3]);
-        acc[1][0] = fmaf(a.y, b.x, acc[1][0]);
-        acc[1][1] = fmaf(a.y, b.y, acc[1][1]);
-        acc[1][2] = fmaf(a.y, b.z, acc[1][2]);
-        acc[1][3] = fmaf(a.y, b.w, acc[1][3]);
-      }
-      __syncthreads();
-    }
+    float acc[2][4];
+    score_tile(q, g, q_s, g_s, Q, G, D, q0, g0, tid, tq, tg, acc);
 #pragma unroll
     for (int a = 0; a < 2; ++a) {
       const int r = tq * 2 + a;
@@ -191,33 +100,7 @@ reid_topk_segment_masked_kernel(const float* __restrict__ q,
     }
   }
 
-  // The 16 lanes of a half-warp share a query row: k rounds of "the best
-  // head wins", the winner pops it.  Sentinel heads tie across lanes; every
-  // lane holding one pops, which is harmless since all that is left is
-  // sentinels.
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    const int qg = q0 + tq * 2 + a;
-    for (int slot = 0; slot < k; ++slot) {
-      float bv = tv[a][0];
-      int bi = ti[a][0];
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        if (better(ov, oi, bv, bi)) {
-          bv = ov;
-          bi = oi;
-        }
-      }
-      if (tv[a][0] == bv && ti[a][0] == bi) pop_front<K>(tv[a], ti[a]);
-      if (tg == 0 && qg < Q) {
-        const bool real = bv > NEG_INF / 2;
-        out_v[(size_t)qg * k + slot] = real ? bv : NEG_INF;
-        out_i[(size_t)qg * k + slot] = real ? bi : -1;
-      }
-    }
-  }
+  merge_and_store<K>(tv, ti, tq, tg, q0, Q, k, out_v, out_i);
 }
 
 template <int K>
@@ -226,7 +109,7 @@ cudaError_t launch(const float* q, const int* q_tag, const uint8_t* admit,
                    float* out_v, int* out_i, int Q, int G, int D, int C,
                    int k, cudaStream_t stream) {
   const size_t dyn = (size_t)QB * C;
-  if (dyn > 48 * 1024 - sizeof(float) * DC * (QS + GS) - 4 * (QB + 2 * GB)) {
+  if (dyn > DEFAULT_SMEM - STATIC_SMEM) {
     const cudaError_t err = cudaFuncSetAttribute(
         reid_topk_segment_masked_kernel<K>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);

@@ -6,4 +6,5 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref  # noqa: F401  (re-exported for tests)
 from repro_torch.kernels.reid_topk import (reid_topk_masked,  # noqa: F401
-                                           reid_topk_segments)
+                                           reid_topk_segments,
+                                           reid_topk_tiles)

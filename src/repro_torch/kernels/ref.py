@@ -53,3 +53,15 @@ def reid_topk_segments_ref(queries, q_seg, admit, gallery, gal_cam,
     with the frame tags swapped for round-scoped segment ids."""
     return _segment_masked_ref(queries, q_seg, admit, gallery, gal_cam,
                                gal_seg, k)
+
+
+def reid_topk_tiles_ref(queries, q_tag, admit_ct, gallery, gal_ct, gal_tag,
+                        k: int):
+    """The tile-granular variant: query q may only score gallery row g when
+    ``admit_ct[q, gal_ct[g]]`` (the fused (camera, tile) cell is admitted)
+    and ``gal_tag[g] == q_tag[q]``.  A cell outside [0, C*T*T) (unlabeled
+    or padded rows carry -1) is never admitted, as in the Pallas kernel's
+    one-hot.  The segment version's math with the camera axis widened to
+    C*T*T cells."""
+    return _segment_masked_ref(queries, q_tag, admit_ct, gallery, gal_ct,
+                               gal_tag, k)

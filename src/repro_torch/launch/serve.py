@@ -9,6 +9,10 @@ first 3,000 steps) through ``repro_torch.api.serve``:
 
 ``--device cuda`` (the default) ranks through the hand-written CUDA kernel
 and raises without a card; ``--device cpu`` runs the plain PyTorch path.
+``--tile-grid T`` profiles per camera-pair entry-region masks on a T x T
+tile grid and serves through the tile-masked kernel:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --tile-grid 8
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ import numpy as np
 from repro_torch import api as rexcam
 from repro_torch.core.features import FeatureParams, make_features
 from repro_torch.core.simulate import (CameraNetwork, Visits, build_gallery,
-                                       duke_like_network, simulate_network)
+                                       duke_like_network, simulate_network,
+                                       tile_index)
 from repro_torch.device import resolve_device
 
 
@@ -49,9 +54,13 @@ def duke_world(n_queries: int = 100, n_entities: int = 2700,
 def run_stream(eng, world: World, ticks: int, trace: list | None = None):
     """Submit every query at its anchor, then stream ``ticks`` wall steps
     of detections into ``eng`` (stopping early once every query is done).
-    Returns the host-clock seconds of each tick; each tick ends with the
-    round's outcome on the host, so the clock covers the device work."""
+    A tile-mode engine also gets each detection's tile on its
+    ``eng.tile_grid`` grid.  Returns the host-clock seconds of each tick;
+    each tick ends with the round's outcome on the host, so the clock
+    covers the device work."""
     vis, gal, feats = world.vis, world.gal, world.feats
+    vis_tiles = tile_index(vis.tile_xy, eng.tile_grid) \
+        if eng.tile_grid > 0 else None
     t0 = int(vis.t_out[world.q_vids].min())
     eng.t = t0
     for i, q in enumerate(world.q_vids):
@@ -60,12 +69,14 @@ def run_stream(eng, world: World, ticks: int, trace: list | None = None):
     for t in range(t0, t0 + ticks):
         t_start = time.perf_counter()
         if t < vis.horizon:
-            frames = {}
+            frames, tiles = {}, {}
             for c in range(vis.n_cams):
                 vids = gal[c, t][gal[c, t] >= 0]
                 if len(vids):
                     frames[c] = feats[vids]
-            eng.ingest(frames)
+                    if vis_tiles is not None:
+                        tiles[c] = vis_tiles[vids]
+            eng.ingest(frames, tiles if vis_tiles is not None else None)
         eng.tick(record_trace=trace)
         tick_s.append(time.perf_counter() - t_start)
         if all(q.done for q in eng.queries.values()):
@@ -85,17 +96,23 @@ def main():
                     help="candidate bands surfaced per query round")
     ap.add_argument("--topk-rerank", action="store_true",
                     help="§5.2 top-k confidence re-ranking")
+    ap.add_argument("--tile-grid", type=int, default=0,
+                    help="sub-frame spatial admission: T > 0 profiles per "
+                         "camera-pair entry-region masks on a T x T grid "
+                         "and ranks through the tile-masked kernel")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args()
     resolve_device(args.device)     # no card: fail before building the world
 
     world = duke_world(args.queries)
-    model = rexcam.profile(world.vis, time_limit=3000, device=args.device)
+    model = rexcam.profile(world.vis, time_limit=3000,
+                           tile_grid=args.tile_grid, device=args.device)
     policy = rexcam.SearchPolicy(scheme=args.scheme, s_thresh=args.s_thresh,
                                  t_thresh=args.t_thresh)
     eng = rexcam.serve(model, embed_fn=lambda x: x, policy=policy,
                        geo_adj=world.net.geo_adjacent, topk=args.topk,
-                       topk_rerank=args.topk_rerank, device=args.device)
+                       topk_rerank=args.topk_rerank,
+                       tile_grid=args.tile_grid, device=args.device)
     tick_s = run_stream(eng, world, args.steps)
     wall = sum(tick_s)
 
@@ -109,6 +126,15 @@ def main():
           f"savings {naive_steps / max(eng.admitted_steps, 1):.1f}x)")
     print(f"inference plane: {eng.unique_frames} unique frames "
           f"({eng.frames_processed} embedded + {eng.cache_hits} cache-hot)")
+    if args.tile_grid > 0:
+        TT = args.tile_grid * args.tile_grid
+        base_tiles = TT * eng.admitted_steps
+        print(f"spatial plane [T={args.tile_grid}]: {eng.admitted_tiles} "
+              f"admitted tiles of {base_tiles} camera-granular "
+              f"(pixel-load savings "
+              f"{base_tiles / max(eng.admitted_tiles, 1):.1f}x; "
+              f"{eng.unique_tiles} deduplicated of "
+              f"{TT * eng.unique_frames})")
     matches = sum(len(q.matches) for q in eng.queries.values())
     rescues = sum(q.rescued for q in eng.queries.values())
     print(f"matches: {matches} (replay rescues: {rescues}, replay misses "

@@ -13,7 +13,9 @@ step over all live camera streams):
      ``reid_topk_segments`` call over the whole round (``consolidate=True``,
      the default) or ``reid_topk_masked`` with frame tags (the per-frame
      reference path) scores every query against exactly its admitted
-     galleries, camera-major, so the lower gallery index wins a tie,
+     galleries, camera-major, so the lower gallery index wins a tie;
+     with ``tile_grid=T > 0`` one ``reid_topk_tiles`` call ranks the round
+     over the fused (camera, tile) admission of ``policy.admit_tiles``,
   4. match outcomes feed ``policy.advance``; a query whose phase-1 windows
      exhaust rewinds to f_q + 1 and replays retained frames with relaxed
      thresholds (§5.3); frames evicted past retention surface as
@@ -26,8 +28,7 @@ pacing, the host short-circuit of sampled-out skip-mode rounds, both cost
 conventions (``admitted_steps`` per query camera-step, ``unique_frames``
 per deduplicated pair) and the trace records are the reference's.
 
-Not ported yet (they raise): ``tile_grid > 0`` (the tile plane),
-``prefetch`` and ``transport`` (the fleet).
+Not ported yet (they raise): ``prefetch`` and ``transport`` (the fleet).
 """
 from __future__ import annotations
 
@@ -39,8 +40,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.correlation import SpatioTemporalModel
-from repro_torch.core.policy import (PhaseState, SearchPolicy, admit, advance,
-                                     phase_windows, replay_sampled_out)
+from repro_torch.core.policy import (PhaseState, SearchPolicy, admit,
+                                     admit_tiles, advance, phase_windows,
+                                     replay_sampled_out)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.reid_topk import NEG_INF
@@ -70,7 +72,10 @@ class EngineConfig:
     # rank the whole round in one segment-ID kernel call; False keeps the
     # per-frame reference path (trace-identical)
     consolidate: bool = True
-    tile_grid: int = 0                # the tile plane: not ported yet
+    # sub-frame spatial admission: T > 0 ranks each round through the
+    # tile-masked kernel over a T x T tile grid; a model without tile data
+    # serves all tiles admitted, trace-identical to the camera path
+    tile_grid: int = 0
     # §5.2 top-k confidence re-ranking (bit-identical to argmax at topk=1)
     topk_rerank: bool = False
 
@@ -89,6 +94,10 @@ class QueryState:
     replay_credit: float = 0.0  # fractional replay-round carry (ff pacing)
     submit_t: int = 0      # engine wall tick the query was submitted at
     first_match_t: int = -1  # wall tick of the first confirmed match (delay)
+    # tile mode only: the tile of the last confirmed match (-1 before the
+    # first); a learned tile model narrows the self-camera follow window
+    # to its 3x3 neighbourhood (policy.tile_follow_mask)
+    tile_q: int = -1
 
 
 def _rank_outcome(sv, si, gallery, gal_cam, gal_frame, match_thresh,
@@ -167,6 +176,19 @@ def rank_round_seg(q_feat, q_seg, mask, gallery, gal_cam, gal_frame, gal_seg,
                          mask.shape[1], topk_rerank)
 
 
+def rank_round_tiles(q_feat, q_seg, mask_ct, gallery, gal_ct, gal_cam,
+                     gal_frame, gal_seg, match_thresh: float, k: int = 1,
+                     n_cams: int = 0, topk_rerank: bool = False):
+    """Tile-granular ``rank_round_seg``: the fused (camera, tile) mask
+    ``mask_ct`` (Q, C*T*T) and per-row cells ``gal_ct`` (G,) ranked through
+    ``reid_topk_tiles``; ``gal_cam`` / ``gal_frame`` ride along for the
+    outcome and the bands."""
+    sv, si = kernel_ops.reid_topk_tiles(q_feat, q_seg, mask_ct, gallery,
+                                        gal_ct, gal_seg, k)
+    return _rank_outcome(sv, si, gallery, gal_cam, gal_frame, match_thresh,
+                         n_cams, topk_rerank)
+
+
 def rank_advance_round(policy: SearchPolicy, windows, state: PhaseState,
                        q_feat, mask, gallery, gal_cam, gal_frame, k: int = 1,
                        topk_rerank: bool = False):
@@ -189,6 +211,23 @@ def rank_advance_round_seg(policy: SearchPolicy, windows, state: PhaseState,
      topk_frame) = rank_round_seg(q_feat, q_seg, mask, gallery, gal_cam,
                                   gal_frame, gal_seg, policy.match_thresh, k,
                                   topk_rerank)
+    nxt = advance(policy, windows, state, matched, match_cam, _NO_HORIZON)
+    return (nxt, matched, match_cam, match_emb, topk_val, topk_idx,
+            topk_cam, topk_frame)
+
+
+def rank_advance_round_tiles(policy: SearchPolicy, windows,
+                             state: PhaseState, q_feat, q_seg, mask_ct,
+                             gallery, gal_ct, gal_cam, gal_frame, gal_seg,
+                             k: int = 1, n_cams: int = 0,
+                             topk_rerank: bool = False):
+    """Tile-granular step body: one tile-masked kernel call, then the phase
+    machine."""
+    (matched, match_cam, match_emb, topk_val, topk_idx, topk_cam,
+     topk_frame) = rank_round_tiles(q_feat, q_seg, mask_ct, gallery, gal_ct,
+                                    gal_cam, gal_frame, gal_seg,
+                                    policy.match_thresh, k, n_cams,
+                                    topk_rerank)
     nxt = advance(policy, windows, state, matched, match_cam, _NO_HORIZON)
     return (nxt, matched, match_cam, match_emb, topk_val, topk_idx,
             topk_cam, topk_frame)
@@ -232,6 +271,8 @@ class RoundPlan:
     want_count: dict                        # key -> wanting (q, cam) pairs
     seg_of_frame: dict                      # content frame -> segment id
     q_seg: np.ndarray                       # (N,) int32
+    # tile mode only: the fused (camera, tile) admission (N, C*T*T)
+    mask_ct: np.ndarray | None = None
 
     def gallery_segments(self, batch_keys: list, key_emb: dict,
                          rows: int) -> np.ndarray:
@@ -252,16 +293,15 @@ class ServingEngine:
         if cfg.topk < 1:
             raise ValueError(f"topk={cfg.topk} must be >= 1 (band 0 is the "
                              f"argmax match path)")
-        if cfg.tile_grid > 0:
-            raise NotImplementedError(
-                "tile_grid > 0 is not ported yet (ROADMAP.md, Queue 1: the "
-                "tile plane)")
         if cfg.prefetch or cfg.transport is not None:
             raise NotImplementedError(
                 "prefetch= and transport= are not ported yet (ROADMAP.md, "
                 "Queue 1: the fleet, gallery and transport plane)")
         self.device = resolve_device(device)
+        self.tile_grid = int(cfg.tile_grid)
         self.model = model.to(self.device)
+        if self.tile_grid > 0:
+            self.model = self._resolve_tiles(self.model)
         self.embed_fn = embed_fn
         self.cfg = cfg
         self.policy = cfg.policy
@@ -281,6 +321,11 @@ class ServingEngine:
         self.replay_embeds = 0       # replay re-reads the cache missed
         self.admitted_steps = 0      # per-query camera-steps (tracker scale)
         self.unique_frames = 0       # deduplicated (cam, frame) pairs
+        # tile mode only: per-(query, camera, tile) admission steps, and the
+        # per-key unions of admitted tiles (camera-granular serving would
+        # charge T*T per admitted step / unique key)
+        self.admitted_tiles = 0
+        self.unique_tiles = 0
         self.content_steps = 0       # per-query content rounds charged
         self.replay_steps = 0        # content rounds behind the frontier
         self.skipped_steps = 0       # short-circuited sampled-out rounds
@@ -304,6 +349,24 @@ class ServingEngine:
         self._w1, self._w2 = _to_host(self._windows.w_end1,
                                       self._windows.w_end2)
 
+    def _resolve_tiles(self, model: SpatioTemporalModel) -> SpatioTemporalModel:
+        """Reconcile a model (on the engine's device) with ``cfg.tile_grid``:
+        a model without tile data gets the all-tiles-admitted tensor
+        (trace-identical to camera-granular serving); a model profiled at
+        another grid raises."""
+        if model.tile_grid not in (0, self.tile_grid):
+            raise ValueError(
+                f"tile_grid mismatch: engine serves T={self.tile_grid} but "
+                f"the model was profiled at T={model.tile_grid}; re-profile "
+                f"with profile(..., tile_grid={self.tile_grid})")
+        if model.tile_admit is None or model.tile_grid == 0:
+            C, TT = model.n_cams, self.tile_grid * self.tile_grid
+            model = dataclasses.replace(
+                model, tile_admit=torch.ones((C, C, TT), dtype=torch.bool,
+                                             device=self.device),
+                tile_grid=self.tile_grid, tile_learned=False)
+        return model
+
     def swap_model(self, model: SpatioTemporalModel) -> int:
         """Hot-swap M between rounds without dropping in-flight queries: the
         next round admits and ranks under the new model, the exhaustion
@@ -320,9 +383,20 @@ class ServingEngine:
                 f"NB={self.model.n_bins}, bin_width={self.model.bin_width}; "
                 f"got C={model.n_cams}, NB={model.n_bins}, "
                 f"bin_width={model.bin_width}")
+        model = model.to(self.device)
+        if self.tile_grid > 0:
+            # a model re-profiled without tile data keeps serving the
+            # incumbent masks; one with tile data at the serving grid
+            # swaps them like every other field
+            if model.tile_admit is None or model.tile_grid == 0:
+                model = dataclasses.replace(
+                    model, tile_admit=self.model.tile_admit,
+                    tile_grid=self.tile_grid,
+                    tile_learned=self.model.tile_learned)
+            else:
+                model = self._resolve_tiles(model)
         self.model_epoch += 1
-        self.model = dataclasses.replace(model.to(self.device),
-                                         epoch=self.model_epoch)
+        self.model = dataclasses.replace(model, epoch=self.model_epoch)
         self._set_windows()
         self.model_swaps.append((self.t, self.model_epoch))
         return self.model_epoch
@@ -386,7 +460,17 @@ class ServingEngine:
         deduplicated (cam, frame) demand with per-key want counts, and the
         injective content-frame -> segment relabeling."""
         ps = self._gather(qs)
-        (mask,) = _to_host(admit(self.model, self.policy, ps, self._geo_adj))
+        mask_ct = None
+        if self.tile_grid > 0:
+            # the (N, C) camera mask and the (N, C*T*T) tile-refined
+            # admission in one pass; tile_q -1 admits every self tile
+            tile_q = torch.tensor([q.tile_q for q in qs], dtype=torch.int32,
+                                  device=self.device)
+            mask, mask_ct = _to_host(*admit_tiles(
+                self.model, self.policy, ps, self._geo_adj, tile_q))
+        else:
+            (mask,) = _to_host(admit(self.model, self.policy, ps,
+                                     self._geo_adj))
         cams_by_q = [np.flatnonzero(row) for row in mask]
         want_count: dict[tuple[int, int], int] = {}
         for i, q in enumerate(qs):
@@ -399,13 +483,33 @@ class ServingEngine:
         return RoundPlan(qs=qs, ps=ps, mask=mask,
                          admitted=int(mask.sum()), cams_by_q=cams_by_q,
                          work=sorted(want_count), want_count=want_count,
-                         seg_of_frame=seg_of_frame, q_seg=q_seg)
+                         seg_of_frame=seg_of_frame, q_seg=q_seg,
+                         mask_ct=mask_ct)
 
     # -- per-tick ----------------------------------------------------------
-    def ingest(self, frames_by_cam: dict[int, Any]):
-        """New live frames at the current step (frame = detector crops)."""
+    def ingest(self, frames_by_cam: dict[int, Any],
+               tiles_by_cam: dict[int, Any] | None = None):
+        """New live frames at the current step (frame = detector crops).
+
+        Tile mode (``cfg.tile_grid > 0``) requires per-camera flat tile ids,
+        one per crop (``ty * T + tx``; ``core.simulate.tile_index`` maps
+        normalized positions to them); a missing or mismatched label set
+        raises."""
         for cam, frame in frames_by_cam.items():
-            self.store.append(cam, self.t, frame)
+            tile = None
+            if self.tile_grid > 0:
+                tile = None if tiles_by_cam is None else tiles_by_cam.get(cam)
+                if tile is None:
+                    raise ValueError(
+                        f"tile_grid={self.tile_grid} serving requires per-"
+                        f"detection tile labels: ingest(frames_by_cam, "
+                        f"tiles_by_cam) got none for camera {cam}")
+                if len(tile) != len(frame):
+                    raise ValueError(
+                        f"camera {cam}: {len(tile)} tile labels for "
+                        f"{len(frame)} detections at t={self.t}")
+                tile = np.asarray(tile, np.int32)
+            self.store.append(cam, self.t, frame, tile=tile)
 
     def tick(self, record_trace: list | None = None) -> dict:
         """One admission+inference round over all live queries at once.
@@ -420,7 +524,8 @@ class ServingEngine:
                  "batched": 0, "embedded": 0, "cache_hits": 0,
                  "replay_embeds": 0, "matches": 0, "replay_misses": 0,
                  "replay_miss_steps": 0, "content_steps": 0,
-                 "replay_steps": 0, "skipped_rounds": 0}
+                 "replay_steps": 0, "skipped_rounds": 0,
+                 "admitted_tiles": 0, "unique_tiles": 0}
         budget = {}
         for q in self.queries.values():
             if q.done:
@@ -496,6 +601,8 @@ class ServingEngine:
         self.admitted_steps += plan.admitted
         stats["unique_frames"] += len(plan.work)
         self.unique_frames += len(plan.work)
+        if self.tile_grid > 0:
+            self._account_tiles(plan, stats)
 
         # camera-major key order (plan.work is sorted): ascending gallery
         # index gives the lower row the tie within every query's admitted set
@@ -565,7 +672,20 @@ class ServingEngine:
             def dev_t(a):
                 return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-            if self.cfg.consolidate:
+            if self.tile_grid > 0:
+                # one tile-masked call whatever cfg.consolidate says (the
+                # relabeling is injective, so it changes nothing)
+                gal_ct = self._gallery_cells(batch_keys, key_emb,
+                                             gal.shape[0])
+                gal_seg = plan.gallery_segments(batch_keys, key_emb,
+                                                gal.shape[0])
+                out = rank_advance_round_tiles(
+                    self.policy, self._windows, ps, dev_t(q_feat),
+                    dev_t(plan.q_seg), dev_t(plan.mask_ct), dev_t(gal),
+                    dev_t(gal_ct), dev_t(gal_cam), dev_t(gal_frame),
+                    dev_t(gal_seg), k=K, n_cams=self.C,
+                    topk_rerank=self.cfg.topk_rerank)
+            elif self.cfg.consolidate:
                 gal_seg = plan.gallery_segments(batch_keys, key_emb,
                                                 gal.shape[0])
                 out = rank_advance_round_seg(
@@ -584,6 +704,9 @@ class ServingEngine:
                 ps_next.f_q, ps_next.c_q, ps_next.f_curr, ps_next.phase,
                 ps_next.done, *out[1:])
             stats["matches"] += int(matched.sum())
+            if self.tile_grid > 0:
+                self._follow_tiles(qs, matched, match_cam, topk_idx,
+                                   topk_cam, gal_ct)
         else:
             ps_next = advance_round(self.policy, self._windows, ps)
             f_q, c_q, f_curr, phase, done = _to_host(
@@ -606,6 +729,67 @@ class ServingEngine:
         self._scatter(qs, dict(f_q=f_q, c_q=c_q, f_curr=f_curr, phase=phase,
                                done=done),
                       matched, match_cam, match_emb)
+
+    def _account_tiles(self, plan: RoundPlan, stats: dict) -> None:
+        """Both cost conventions, tile-refined: ``admitted_tiles`` counts
+        (query, camera, tile) steps; ``unique_tiles`` the per-key union of
+        admitted tiles."""
+        TT = self.tile_grid * self.tile_grid
+        adm_tiles = int(plan.mask_ct.sum())
+        stats["admitted_tiles"] += adm_tiles
+        self.admitted_tiles += adm_tiles
+        tiles_by_key: dict[tuple[int, int], np.ndarray] = {}
+        for i, q in enumerate(plan.qs):
+            row = plan.mask_ct[i]
+            for cam in plan.cams_by_q[i]:
+                key = (int(cam), q.f_curr)
+                seg = row[key[0] * TT:(key[0] + 1) * TT]
+                if key in tiles_by_key:
+                    tiles_by_key[key] |= seg
+                else:
+                    tiles_by_key[key] = seg.copy()
+        uniq_tiles = sum(int(v.sum()) for v in tiles_by_key.values())
+        stats["unique_tiles"] += uniq_tiles
+        self.unique_tiles += uniq_tiles
+
+    def _gallery_cells(self, batch_keys: list, key_emb: dict,
+                       rows: int) -> np.ndarray:
+        """Per-row fused cells ``cam * T*T + tile`` of the round gallery in
+        ``batch_keys`` order, from the ingest-time labels; padding rows
+        carry -1."""
+        TT = self.tile_grid * self.tile_grid
+        gal_ct = np.full(rows, -1, np.int32)
+        pos = 0
+        for key in batch_keys:
+            cnt = len(key_emb[key])
+            tiles_k = self.store.get_tile(*key)
+            if tiles_k is None or len(tiles_k) != cnt:
+                # ingest enforces labels: this is a bookkeeping bug
+                raise RuntimeError(
+                    f"tile labels missing/mismatched for {key}: got "
+                    f"{None if tiles_k is None else len(tiles_k)} for {cnt} "
+                    f"gallery rows")
+            gal_ct[pos:pos + cnt] = key[0] * TT + np.asarray(tiles_k,
+                                                             np.int32)
+            pos += cnt
+        return gal_ct
+
+    def _follow_tiles(self, qs, matched, match_cam, topk_idx, topk_cam,
+                      gal_ct) -> None:
+        """A confirmed match pins the query to the matched row's tile; a
+        re-ranked match takes the first band of the winning camera."""
+        TT = self.tile_grid * self.tile_grid
+        for j, q in enumerate(qs):
+            if not matched[j]:
+                continue
+            mi = int(topk_idx[j, 0])
+            if self.cfg.topk_rerank:
+                for b in range(topk_idx.shape[1]):
+                    if topk_cam[j, b] == match_cam[j]:
+                        mi = int(topk_idx[j, b])
+                        break
+            if mi >= 0 and gal_ct[mi] >= 0:
+                q.tile_q = int(gal_ct[mi]) % TT
 
     def _skip_round(self, qs: list[QueryState], stats: dict,
                     records: dict | None) -> None:

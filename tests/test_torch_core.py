@@ -18,6 +18,8 @@ from repro.core import simulate as jsim
 from repro.core.features import FeatureParams as JFeatureParams
 from repro.core.features import make_features as j_make_features
 from repro.core.profiler import build_model as j_build_model
+from repro.core.profiler import \
+    tile_admit_from_visits as j_tile_admit_from_visits
 from repro.core.tracker import make_queries as j_make_queries
 from repro_torch.convert import model_from_numpy, model_to_numpy, \
     phase_state_from_numpy
@@ -25,7 +27,7 @@ from repro_torch.core import policy as tpol
 from repro_torch.core import simulate as tsim
 from repro_torch.core.correlation import FIELDS
 from repro_torch.core.features import FeatureParams, make_features
-from repro_torch.core.profiler import build_model
+from repro_torch.core.profiler import build_model, tile_admit_from_visits
 from repro_torch.core.tracker import make_queries
 
 NETWORKS = {
@@ -80,9 +82,49 @@ def test_build_model_fields_exact(kw):
     assert (tm.bin_width, tm.epoch) == (jm.bin_width, jm.epoch)
 
 
-def test_build_model_tiles_not_ported():
+TILE_PROFILES = [
+    dict(tile_grid=4, time_limit=252),
+    dict(tile_grid=8, time_limit=252),
+    dict(tile_grid=8, sample_every=3, time_limit=300, tile_keep=0.8),
+    dict(tile_grid=4, sample_every=2, bin_width=2, n_bins=64),
+]
+
+
+@pytest.mark.parametrize("kw", TILE_PROFILES, ids=lambda kw: "-".join(
+    f"{k}={v}" for k, v in kw.items()))
+def test_build_model_tiles_exact(kw):
     vis = make_serving_world()["vis"]
-    with pytest.raises(NotImplementedError, match="tile plane"):
+    args = (vis.ent, vis.cam, vis.t_in, vis.t_out, vis.n_cams)
+    jm = j_build_model(*args, tile_xy=vis.tile_xy, **kw)
+    tm = build_model(*args, tile_xy=vis.tile_xy, device="cpu", **kw)
+    got, want = model_to_numpy(tm), _j_fields(jm)
+    for f in FIELDS:
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+    assert tm.tile_admit.dtype == torch.bool
+    np.testing.assert_array_equal(tm.tile_admit.numpy(),
+                                  np.asarray(jm.tile_admit))
+    assert (tm.tile_grid, tm.tile_learned) == (jm.tile_grid, jm.tile_learned)
+    assert tm.tile_learned and not tm.tile_admit.all()
+    # the model moves with its tile masks
+    assert tm.to("cpu").tile_admit is not None
+
+
+@pytest.mark.parametrize("T,keep", [(4, 1.0), (8, 1.0), (8, 0.6)])
+def test_tile_admit_from_visits_exact_with_rows(T, keep):
+    vis = make_serving_world()["vis"]
+    args = (vis.ent, vis.cam, vis.t_in, vis.tile_xy, vis.n_cams, T, keep)
+    full = tile_admit_from_visits(*args)
+    np.testing.assert_array_equal(full, j_tile_admit_from_visits(*args))
+    rows = [1, 3, vis.n_cams - 1]
+    block = tile_admit_from_visits(*args, rows=rows)
+    np.testing.assert_array_equal(block,
+                                  j_tile_admit_from_visits(*args, rows=rows))
+    np.testing.assert_array_equal(block, full[rows])
+
+
+def test_build_model_tiles_need_positions():
+    vis = make_serving_world()["vis"]
+    with pytest.raises(ValueError, match="tile_xy"):
         build_model(vis.ent, vis.cam, vis.t_in, vis.t_out, vis.n_cams,
                     tile_grid=4, device="cpu")
 
@@ -202,3 +244,87 @@ def test_temporal_threshold_is_float32_arithmetic():
     np.testing.assert_array_equal(
         tpol.window_end(tm2, 0.0, t).numpy(),
         np.asarray(jpol.window_end(jm2, 0.0, t)))
+
+
+# -- the tile plane's admission ---------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _tile_models(T: int, learned: bool):
+    """(JAX model, port model) at grid T: profiled masks, or the
+    all-admitted tensor the engines synthesise for a tile-less model."""
+    world = make_serving_world()
+    vis = world["vis"]
+    if learned:
+        jm = j_build_model(vis.ent, vis.cam, vis.t_in, vis.t_out,
+                           vis.n_cams, time_limit=252, tile_xy=vis.tile_xy,
+                           tile_grid=T)
+    else:
+        jm = world["model"]
+        jm = dataclasses.replace(
+            jm, tile_admit=jnp.ones((jm.n_cams, jm.n_cams, T * T), bool),
+            tile_grid=T, tile_learned=False)
+    tm = model_from_numpy(_j_fields(jm), jm.bin_width, jm.epoch,
+                          tile_admit=np.asarray(jm.tile_admit),
+                          tile_grid=jm.tile_grid,
+                          tile_learned=jm.tile_learned)
+    return jm, tm
+
+
+def _tile_q(rng, Q, T):
+    """-1, the four corners, edges and interior tiles."""
+    TT = T * T
+    special = np.array([-1, 0, T - 1, TT - T, TT - 1, T // 2,
+                        (T // 2) * T, (T // 2) * T + T // 2], np.int32)
+    return np.where(rng.random(Q) < 0.5, rng.choice(special, Q),
+                    rng.integers(-1, TT, Q)).astype(np.int32)
+
+
+def test_tile_follow_mask_exact_and_floors_negatives():
+    for T in (2, 4, 8):
+        tq = np.arange(-T * T - 3, T * T, dtype=np.int32)
+        got = tpol.tile_follow_mask(torch.from_numpy(tq), T).numpy()
+        want = np.asarray(jpol.tile_follow_mask(jnp.asarray(tq), T))
+        np.testing.assert_array_equal(got, want)
+    # floor division and modulo on negative ids, as jnp computes them
+    neg = torch.tensor([-1, -5, -9], dtype=torch.int32)
+    assert (neg // 4).tolist() == [-1, -2, -3]
+    assert (neg % 4).tolist() == [3, 3, 3]
+    np.testing.assert_array_equal(np.asarray(jnp.asarray([-1, -5, -9]) // 4),
+                                  [-1, -2, -3])
+
+
+@pytest.mark.parametrize("learned", [True, False], ids=["learned",
+                                                        "synthesised"])
+@pytest.mark.parametrize("T", [4, 8])
+@pytest.mark.parametrize("scheme", ["rexcam", "all", "geo", "spatial_only"])
+def test_admit_tiles_exact(scheme, T, learned):
+    jm, tm = _tile_models(T, learned)
+    C = tm.n_cams
+    geo = make_serving_world()["net"].geo_adjacent
+    rng = np.random.default_rng(T * 10 + learned)
+    for pkw in (dict(scheme=scheme),
+                dict(scheme=scheme, exhaustive_final=True, replay_skip=2,
+                     self_window=12)):
+        jp, tp = jpol.SearchPolicy(**pkw), tpol.SearchPolicy(**pkw)
+        s = _random_state(rng, 96, C)
+        s["f_curr"] = s["f_q"] + rng.integers(0, 20, 96)   # follow window
+        s["phase"] = rng.integers(1, 4, 96)
+        js, ts = _j_state(s), phase_state_from_numpy(s)
+        tq = _tile_q(rng, 96, T)
+        for q in (tq, None):
+            jq = None if q is None else jnp.asarray(q)
+            tqq = None if q is None else torch.from_numpy(q)
+            want = np.asarray(jpol.tile_admission(jm, jp, js, jq))
+            got = tpol.tile_admission(tm, tp, ts, tqq).numpy()
+            np.testing.assert_array_equal(got, want)
+            jmask, jct = jpol.admit_tiles(jm, jp, js, jnp.asarray(geo), jq)
+            tmask, tct = tpol.admit_tiles(tm, tp, ts, torch.from_numpy(geo),
+                                          tqq)
+            np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask))
+            np.testing.assert_array_equal(tct.numpy(), np.asarray(jct))
+            assert tct.shape == (96, C * T * T)
+        if learned:
+            # the follow column differs from the whole frame somewhere
+            full = tpol.tile_admission(tm, tp, ts, None).numpy()
+            assert (tpol.tile_admission(tm, tp, ts, torch.from_numpy(tq))
+                    .numpy() != full).any()

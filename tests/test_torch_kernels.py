@@ -1,4 +1,5 @@
-"""The port's segment-masked re-id top-k against the JAX reference.
+"""The port's re-id top-k (segment-masked and tile-masked) against the JAX
+reference.
 
 On the CPU the wrappers run the plain PyTorch version (``kernels/ref.py``);
 it is held to the Pallas kernel in interpret mode (``repro.kernels.ops``)
@@ -14,7 +15,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import build, ops, ref, reid_topk
 from repro_torch.runtime.engine import _rank_outcome
-from torch_cases import CASES, make_inputs as _inputs
+from torch_cases import (CASES, TILE_CASES, camera_to_tiles,
+                         make_inputs as _inputs, make_tile_inputs)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -186,3 +188,105 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         pytest.skip("a CUDA toolkit is installed at /usr/local/cuda")
     with pytest.raises(build.BuildError, match="nvcc not found"):
         build.build("reid_topk")
+
+
+# -- the tile-masked variant ------------------------------------------------
+
+@pytest.mark.parametrize("Q,G,D,C,T,k,opts", TILE_CASES)
+def test_tiles_plain_matches_pallas_and_ref(Q, G, D, C, T, k, opts):
+    arrays = make_tile_inputs(Q * 1000 + G, Q, G, D, C, T, **opts)
+    pv, pi = _port(ref.reid_topk_tiles_ref, arrays, k)
+    assert pv.shape == (Q, k) and pv.dtype == np.float32
+    assert pi.dtype == np.int32
+    wv, wi = _port(ops.reid_topk_tiles, arrays, k)
+    np.testing.assert_array_equal(wv, pv)
+    np.testing.assert_array_equal(wi, pi)
+    jv, ji = _jax(jops.reid_topk_tiles, arrays, k)
+    np.testing.assert_allclose(pv, jv, **TOL)
+    np.testing.assert_array_equal(pi, ji)
+    kk = min(k, G)
+    rv, ri = _jax(jref.reid_topk_tiles_ref, arrays, kk)
+    np.testing.assert_allclose(pv[:, :kk], rv, **TOL)
+    np.testing.assert_array_equal(pi[:, :kk], ri)
+    assert (pi[:, kk:] == -1).all() and (pv[:, kk:] < -1e29).all()
+    if opts.get("masked_row"):
+        assert (pi[0] == -1).all() and (pv[0] < -1e29).all()
+    if opts.get("unlabeled"):
+        unlabeled = np.flatnonzero(arrays[4] < 0)
+        assert not np.isin(pi, unlabeled).any()
+
+
+def test_tiles_out_of_range_cells_match_pallas_not_clamping():
+    """Cells at or past CT are never eligible, as in the Pallas kernel's
+    one-hot; ``repro.kernels.ref`` gathers them clamped to the last
+    cell."""
+    Q, G, D, C, T, k = 6, 60, 8, 3, 2, 6
+    arrays = list(make_tile_inputs(9, Q, G, D, C, T, out_of_range=25,
+                                   n_tags=1))
+    arrays[2][:] = True                 # every cell is admitted
+    far = np.flatnonzero(arrays[4] >= C * T * T)
+    assert len(far) == 25
+    pv, pi = _port(ops.reid_topk_tiles, arrays, k)
+    jv, ji = _jax(jops.reid_topk_tiles, arrays, k)
+    np.testing.assert_allclose(pv, jv, **TOL)
+    np.testing.assert_array_equal(pi, ji)
+    assert not np.isin(pi, far).any()
+    _, clamped = _jax(jref.reid_topk_tiles_ref, arrays, k)
+    assert np.isin(clamped, far).any()
+
+
+@pytest.mark.parametrize("Q,G,D,C,k,opts", CASES)
+@pytest.mark.parametrize("T", [2, 8])
+def test_tiles_all_admitted_bit_identical_to_segments(T, Q, G, D, C, k,
+                                                       opts):
+    arrays = _inputs(Q * 1000 + G, Q, G, D, C, pad_rows=min(G // 4, 9),
+                     **opts)
+    sv, si = _port(ops.reid_topk_segments, arrays, k)
+    tv, ti = _port(ops.reid_topk_tiles, camera_to_tiles(arrays, T), k)
+    np.testing.assert_array_equal(tv, sv)
+    np.testing.assert_array_equal(ti, si)
+
+
+def test_tiles_empty_inputs_and_cpu_never_count_launches():
+    before = (reid_topk.LAUNCHES, reid_topk.TILE_LAUNCHES)
+    for Q, G in ((4, 0), (0, 5)):
+        a = make_tile_inputs(1, max(Q, 1), max(G, 1), 8, 3, 2)
+        a = (a[0][:Q], a[1][:Q], a[2][:Q], a[3][:G], a[4][:G], a[5][:G])
+        sv, si = _port(ops.reid_topk_tiles, a, 3)
+        assert sv.shape == (Q, 3) and (si == -1).all() and (sv < -1e29).all()
+        jv, ji = _jax(jops.reid_topk_tiles, a, 3)
+        np.testing.assert_array_equal(sv, jv)
+        np.testing.assert_array_equal(si, ji)
+    _port(ops.reid_topk_tiles, make_tile_inputs(2, 9, 30, 8, 3, 4), 2)
+    assert (reid_topk.LAUNCHES, reid_topk.TILE_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "k", "shape", "device_mix",
+                                 "contiguous"])
+def test_tiles_wrapper_rejects_bad_inputs(bad):
+    t = [torch.from_numpy(a) for a in make_tile_inputs(5, 4, 10, 8, 3, 2)]
+    k = 2
+    if bad == "dtype":
+        t[4] = t[4].long()
+    elif bad == "k":
+        k = 0
+    elif bad == "shape":
+        t[2] = t[2][:-1]
+    elif bad == "device_mix":
+        t[5] = t[5].to("meta")
+    elif bad == "contiguous":
+        t[0] = torch.from_numpy(np.asfortranarray(t[0].numpy()))
+    with pytest.raises((TypeError, ValueError), match="|".join(
+            ["gal_ct", "k=", "admit_ct", "gal_tag", "queries"])):
+        ops.reid_topk_tiles(*t, k)
+
+
+def test_tile_kernel_limits_and_source():
+    """The wrapper's cell limit is what the kernel's shared memory holds
+    (32 packed admit rows beside its static operands), and it covers
+    130 cameras at T = 8."""
+    assert reid_topk.MAX_CELLS == 54688 >= 130 * 64
+    src = (build.CSRC / "reid_topk_tiles.cu").read_text()
+    assert "MAX_SMEM - STATIC_SMEM" in src and "__syncthreads_or" in src
+    assert build.library_path("reid_topk_tiles") != \
+        build.library_path("reid_topk")
