@@ -7,25 +7,28 @@ Phases, one line or block each:
 
   1. environment: torch / CUDA versions, the card, its power limit; TF32
      off for matmul and cuDNN (the plain versions must be full fp32);
-  2. build: every CUDA source of the serving path, with nvcc for sm_90a,
-     one nvcc per source, all started together;
-  3. each kernel against its plain PyTorch version on the card, on ragged,
-     tied, masked, k > G, G == 0, C = 130 (and C*T*T = 8,320 cells) inputs
-     and at a stress shape: scores within rtol/atol 1e-5, indices exact on
-     integer-valued inputs and exact elsewhere except between scores
-     within 1e-5 of each other; every shape is timed (kernel, plain
-     version, library yardstick) beside its bound; the tile kernel with
-     every tile admitted must equal the camera kernel bit for bit;
+  2. build: all six CUDA sources (the serving path's two re-id kernels and
+     the kernel benchmark's four), with nvcc for sm_90a, one nvcc per
+     source, all started together; each kernel's registers and spills;
+  3. each serving kernel against its plain PyTorch version on the card, on
+     ragged, tied, masked, k > G, G == 0, C = 130 (and C*T*T = 8,320
+     cells) inputs and at a stress shape: scores within rtol/atol 1e-5,
+     indices exact on integer-valued inputs and exact elsewhere except
+     between scores within 1e-5 of each other; every shape is timed
+     (kernel, plain version, library yardstick) beside its bound; the tile
+     kernel with every tile admitted must equal the camera kernel bit for
+     bit;
   4. the camera-granular main path: the duke world at the benchmark's
-     scale (8 cameras, 2,700 entities, 5,100 steps, 100 queries) served for
-     600 ticks through ``repro_torch.api.serve(device="cuda")``; every
-     kernel's launch count is reset just before and read just after: the
-     camera kernel's must equal the rounds that ranked a non-empty gallery,
-     the tile kernel's must be 0.  The same ticks run again with
-     ``device="cpu"`` (the plain versions) and the two traces must agree;
+     scale (8 cameras, 2,700 entities, 5,100 steps, 100 queries) served
+     through ``repro_torch.api.serve(device="cuda")`` until every query is
+     done or the world's horizon ends; every kernel's launch count is reset
+     just before and read just after: the camera kernel's must equal the
+     rounds that ranked a non-empty gallery, the tile kernel's must be 0.
+     The same ticks run again with ``device="cpu"`` (the plain versions)
+     and the two traces must agree;
   5. the camera kernel against its plain version at every round shape
-     phase 4 produced, timed as in phase 3; the most frequent one's times
-     go into the kernels line, beside the stress shape's;
+     phase 4 produced; the most frequent and the largest are timed as in
+     phase 3 and go into the kernels line, beside the stress shape;
   6. the tile path: the same world profiled with ``tile_grid=8`` and served
      with ``api.serve(tile_grid=8, topk=3)`` until every query is done or
      the world's horizon ends; the counts are reset just before and read
@@ -35,16 +38,41 @@ Phases, one line or block each:
      also counts the (32-row, 64-row) tiles of each round that hold an
      eligible pair, the kernel's live tiles;
   7. the tile kernel against its plain version at every round shape phase
-     6 produced; the most frequent and the largest are timed.
+     6 produced; the most frequent and the largest are timed;
+  8. the kernel benchmark's four kernels (unmasked re-id top-k, flash
+     attention, decode attention, Mamba scan) against their plain versions
+     on edge inputs: ragged Q and G, integer-valued ties, k > G, G == 0 and
+     Q == 0; MHA, GQA and MQA at hd 32, 64 and 128, causal or not, S != T,
+     float32 and bfloat16; decode lengths of 0, 1, partial, T and past T;
+     scan state sizes 4, 8 and 16.  Top-k scores within 1e-5 (indices as
+     in phase 3), attention within 2e-5 in float32 and 2e-2 in bfloat16,
+     the scan within 1e-4;
+  9. the kernel benchmark path: ``repro_torch.benchmarks.kernels_bench
+     .run(device="cuda")``, the four kernels at the JAX benchmark's shapes;
+     the four counts are reset just before and read just after, and each
+     must equal the calls the benchmark made; every output is held to its
+     plain version, the CSV rows are printed, and each kernel's library
+     yardstick is timed beside the benchmark's kernel and plain times;
+ 10. the same kernels held and timed at the widths of models the repo
+     configures: flash attention at yi-6b's layout (H = 32, KV = 4,
+     hd = 128) over ``train_4k``'s 4,096 tokens, causal; decode attention
+     at that layout over ``decode_32k``'s 32,768-key cache with batch 8
+     (cut from 128) and lengths drawn in [1, T]; the scan at
+     falcon-mamba-7b's D = 8,192, N = 16 over 4,096 steps.  Attention and
+     scan within 1e-4.
 
 Times are device times per call: CUDA-graph replays of back-to-back calls,
-timed with CUDA events, median over replays.  ``bound_ms`` is the larger of
-the bytes the call must move (each input read once, each output written
-once) over 3.35 TB/s and the fp32 operations this run's data needs (two
-per eligible (query, gallery row) pair and feature) over 67 TFLOP/s, the
-H100 SXM data sheet's peaks.  ``library_ms`` times one PyTorch composition
-of the same function (``torch.matmul``, masking, ``torch.topk``), which
-the port never calls.
+timed with CUDA events, median over replays
+(``repro_torch.benchmarks.kernels_bench.device_ms``).  ``bound_ms`` is the
+larger of the bytes the call must move (each input read once, each output
+written once) over 3.35 TB/s and the fp32 operations this run's data needs
+(for the re-id kernels two per eligible (query, gallery row) pair and
+feature; for attention four per (query, key) pair the mask or the lengths
+leave, per head dim) over 67 TFLOP/s, the H100 SXM data sheet's peaks.
+``library_ms`` times one PyTorch call of the same function, which the port
+never calls: ``torch.matmul`` with masking and ``torch.topk`` for the re-id
+kernels, ``scaled_dot_product_attention`` for attention; the scan has
+none.
 
 Exits non-zero, before the last line, on any failed phase, and without a
 result when no card is present or the repository is not beside it.  The
@@ -53,7 +81,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
-import statistics
+import re
 import subprocess
 import sys
 import time
@@ -64,7 +92,10 @@ ROOT = Path(__file__).resolve().parent
 FP32_FLOPS = 67e12          # H100 SXM, fp32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, HBM3
 TOL = 1e-5
-TICKS = 600
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+MODEL_TOL = 1e-4            # attention and scan at model widths
+SCAN_TOL = 1e-4
+TICKS = 600                 # ticks of the tile path's profiled window
 DEVICE = "cuda"
 TILE_GRID = 8
 CAMERA = dict(name="reid_topk_segment_masked", route="cuda",
@@ -73,6 +104,38 @@ CAMERA = dict(name="reid_topk_segment_masked", route="cuda",
 TILES = dict(name="reid_topk_tiles", route="cuda",
              source="src/repro_torch/kernels/csrc/reid_topk_tiles.cu",
              replaces="src/repro/kernels/reid_topk.py:265")
+#: the kernel benchmark's four kernels, in the benchmark's order
+BENCH = {
+    "reid_topk": dict(name="reid_topk", route="cuda",
+                      source="src/repro_torch/kernels/csrc/reid_topk_plain.cu",
+                      replaces="src/repro/kernels/reid_topk.py:63"),
+    "flash_attention": dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:22"),
+    "decode_attention": dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:21"),
+    "mamba_scan": dict(name="mamba_scan", route="cuda",
+                       source="src/repro_torch/kernels/csrc/mamba_scan.cu",
+                       replaces="src/repro/kernels/mamba_scan.py:19"),
+}
+#: phase 10's shapes: yi-6b's attention layout (configs/yi_6b.py) at
+#: train_4k's length and at decode_32k's cache (batch cut from 128 to 8, so
+#: the plain version's scores fit), falcon-mamba-7b's scan
+#: (configs/falcon_mamba_7b.py: d_model 4,096 x expand 2, N = 16) over
+#: 4,096 steps
+MODEL_SHAPES = {
+    "flash_attention": dict(B=1, H=32, KV=4, S=4096, T=4096, hd=128,
+                            causal=True),
+    "decode_attention": dict(B=8, H=32, KV=4, T=32768, hd=128,
+                             length="random"),
+    "mamba_scan": dict(B=1, L=4096, D=8192, N=16),
+    # no model layer runs the re-id top-k; phase 3's stress width, a
+    # ResNet-50 re-id embedding's 2,048 features
+    "reid_topk": dict(Q=256, G=8192, D=2048, k=16),
+}
 QB, GB = 32, 64             # the kernels' (query, gallery) tile
 
 
@@ -88,33 +151,6 @@ def say(msg: str) -> None:
 # ---------------------------------------------------------------------------
 # timing and bounds
 # ---------------------------------------------------------------------------
-
-def device_ms(torch, fn, calls: int = 10, replays: int = 25) -> float:
-    """Median device time of one ``fn()`` call: ``calls`` back-to-back
-    calls captured in a CUDA graph, replayed ``replays`` times."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(replays):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
-
 
 def eligible(torch, q_tag, admit, gal_cam, gal_tag):
     """(Q, G) bool: the pairs a kernel may score (cell or camera in range
@@ -169,12 +205,13 @@ def library_call(torch, neg_inf):
 # kernel vs plain version
 # ---------------------------------------------------------------------------
 
-def check_against_plain(torch, kern, name, args, k, exact_idx):
+def check_against_plain(torch, kern, name, args, k, exact_idx, got=None):
     """Kernel vs plain version on the same card inputs; returns the max
     absolute score error.  Slots past the plain version's k + 1-th band let
     a near-tie at the last slot be recognised.  ``kern`` holds the wrapper
-    (``call``) and the plain version (``plain``)."""
-    kv, ki = kern["call"](*args, k)
+    (``call``) and the plain version (``plain``); ``got``, when given, is
+    the kernel's output on ``args``, computed elsewhere."""
+    kv, ki = kern["call"](*args, k) if got is None else got
     pv, pi = kern["plain"](*args, k + 1)
     torch.cuda.synchronize()
     if kv.shape != (args[0].shape[0], k) or ki.dtype != torch.int32:
@@ -222,11 +259,13 @@ def synthetic_inputs(torch, rng, Q, G, D, C, *, ties=False, n_tags=3,
 
 
 def measure(torch, kern, lib, args, k):
+    from repro_torch.benchmarks.kernels_bench import device_ms
+
     b_ms, b_by = bound(torch, args, k)
     return dict(
-        ms=device_ms(torch, lambda: kern["call"](*args, k)),
-        plain_ms=device_ms(torch, lambda: kern["plain"](*args, k)),
-        library_ms=(device_ms(torch, lambda: lib(*args, k))
+        ms=device_ms(lambda: kern["call"](*args, k)),
+        plain_ms=device_ms(lambda: kern["plain"](*args, k)),
+        library_ms=(device_ms(lambda: lib(*args, k))
                     if args[3].shape[0] >= k else None),
         bound_ms=b_ms, bound_by=b_by)
 
@@ -346,6 +385,80 @@ def compare_traces(gpu, cpu, match_thresh):
     return n, None if parted is None else parted[0]
 
 
+def close_enough(torch, name, got, want, tol):
+    """Fail unless ``got`` (the kernel) equals ``want`` (the plain version)
+    in shape and dtype and within rtol = atol = ``tol``, compared in
+    float32; returns the max absolute error."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name}: kernel returned {tuple(got.shape)} {got.dtype}, "
+             f"plain {tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        fail(f"{name}: non-finite kernel output")
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    if not torch.allclose(g, w, rtol=tol, atol=tol):
+        fail(f"{name}: differs from the plain version (max abs {err:.3g}, "
+             f"tolerance {tol})")
+    return err
+
+
+def library_yardstick(torch, name, args, kwargs):
+    """One PyTorch call computing ``ops.<name>`` on the same inputs, as a
+    zero-argument callable, or None where there is none (the scan)."""
+    F = torch.nn.functional
+    if name == "reid_topk":
+        q, g, k = args
+        return lambda: torch.topk(torch.matmul(q, g.T), k, dim=1)
+    if name == "flash_attention":
+        q, k, v = args
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=kwargs["causal"], enable_gqa=True)
+    if name == "decode_attention":
+        q, k, v, length = args
+        mask = (torch.arange(k.shape[2], device=q.device)[None]
+                < length[:, None])[:, None, None, :]
+        return lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+    return None
+
+
+def hold_output(torch, name, label, args, kwargs, out, tol):
+    """Hold a benchmark kernel's output ``out`` on ``args`` to its plain
+    version: the re-id top-k as in phase 3, the others within rtol = atol
+    = ``tol``; returns the max absolute error."""
+    from repro_torch.benchmarks.kernels_bench import plain
+
+    if name == "reid_topk":
+        kern = dict(call=None, plain=plain(name))
+        return check_against_plain(torch, kern, label, args[:2], args[2],
+                                   exact_idx=False, got=out)
+    return close_enough(torch, label, out, plain(name)(*args, **kwargs), tol)
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One ``kernel<template args>: R registers, S/L bytes spilled`` item
+    per entry function of an ``nvcc -Xptxas -v`` log."""
+    out, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = re.search(r"\d+([a-z_]+)I(.*?)EEv", m.group(1))
+            entry = m.group(1) if name is None else (
+                f"{name.group(1)}<"
+                + name.group(2).replace("13__nv_bfloat16", "bf16")
+                .replace("Li", "").replace("E", ",").rstrip(",") + ">")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry:
+            spill = f"{m.group(1)}/{m.group(2)} B spilled"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.append(f"{entry} {m.group(1)} regs, {spill}")
+            entry = None
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -377,16 +490,16 @@ def main() -> int:
 
     # -- phase 2: build, one nvcc per source, all started together -------
     t0 = time.perf_counter()
-    sources = ("reid_topk", "reid_topk_tiles")
+    sources = ("reid_topk", "reid_topk_tiles", "reid_topk_plain",
+               "flash_attention", "decode_attention", "mamba_scan")
     with ThreadPoolExecutor(len(sources)) as pool:
         futures = {name: pool.submit(build.build, name) for name in sources}
         lib_paths = {name: f.result() for name, f in futures.items()}
     say(f"[2 build] nvcc sm_90a: {', '.join(f'{n}.cu' for n in sources)} "
         f"in {time.perf_counter() - t0:.2f} s")
     for name, path in lib_paths.items():
-        for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"  ptxas {name}: {line.strip()}")
+        say(f"  ptxas {name}.cu: "
+            + "; ".join(ptxas_summary(path.with_suffix(".log").read_text())))
 
     camera = dict(CAMERA, call=ops.reid_topk_segments,
                   plain=ref.reid_topk_segments_ref, axis="C")
@@ -470,11 +583,13 @@ def main() -> int:
     max_err[TILES["name"]] = max(max_err[TILES["name"]], err)
     del stress, stress_t
 
-    # -- phase 4: the camera-granular main path ---------------------------
+    # -- phase 4: the camera-granular main path, until every query is done
     t0 = time.perf_counter()
     world = duke_world(100)
     model = api.profile(world.vis, time_limit=3000, device=DEVICE)
     policy = api.SearchPolicy()
+    horizon_ticks = world.vis.horizon - int(world.vis.t_out[world.q_vids]
+                                            .min())
     say(f"[4 main] duke world: {world.net.n_cams} cameras, "
         f"{len(world.vis)} visits, horizon {world.vis.horizon}, "
         f"{len(world.q_vids)} queries; built in "
@@ -496,7 +611,7 @@ def main() -> int:
             return real(*a)
         return real, call
 
-    def serve(device, trace, ticks=TICKS):
+    def serve(device, trace, ticks=horizon_ticks):
         eng = api.serve(model.to(device), lambda x: x, policy,
                         geo_adj=world.net.geo_adjacent, topk=3,
                         consolidate=True, device=device)
@@ -522,8 +637,9 @@ def main() -> int:
     rescues = sum(q.rescued for q in eng.queries.values())
     lat = np.asarray(tick_s) * 1e3
     served = len({r["qid"] for r in gpu_trace})
-    say(f"[4 main] cuda: {len(tick_s)} ticks, {served} of "
-        f"{len(world.q_vids)} queries reached their anchor and were served, "
+    done = sum(q.done for q in eng.queries.values())
+    say(f"[4 main] cuda: {len(tick_s)} ticks (horizon {horizon_ticks}), "
+        f"{served} of {len(world.q_vids)} queries served, {done} done, "
         f"{len(rounds)} ranked rounds, "
         f"reid_topk launches {launches} (= non-empty rounds), "
         f"reid_topk_tiles launches 0; "
@@ -554,25 +670,34 @@ def main() -> int:
     # -- phase 5: the camera path's round shapes --------------------------
     shapes = sorted(kept, key=lambda s: s[0] * s[1])
     main_shape = max(kept, key=lambda s: (rounds.count(s), s[0] * s[1]))
-    say(f"[5 rounds] {len(shapes)} round shapes (Q, G) with their round "
-        f"counts: {[(s, rounds.count(s)) for s in shapes]}")
-    timings = {}
+    largest = shapes[-1]
     for shape in shapes:
         args, k = kept[shape]
-        err, timings[shape] = check_and_time(
-            torch, camera, lib, f"round {shape}", args, k, exact_idx=False)
+        err = check_against_plain(torch, camera, f"round {shape}", args, k,
+                                  exact_idx=False)
         max_err[CAMERA["name"]] = max(max_err[CAMERA["name"]], err)
+    say(f"[5 rounds] {len(shapes)} round shapes (Q, G), all agree with the "
+        f"plain version (max abs err {max_err[CAMERA['name']]:.3g}); the "
+        f"most frequent is Q={main_shape[0]} G={main_shape[1]} "
+        f"({rounds.count(main_shape)} rounds), the largest Q={largest[0]} "
+        f"G={largest[1]}")
+    timings = {}
+    for shape in dict.fromkeys((main_shape, largest)):
+        args, k = kept[shape]
+        _, timings[shape] = check_and_time(
+            torch, camera, lib, f"round {shape}", args, k, exact_idx=False)
     row = timings[main_shape]
     args, k = kept[main_shape]
-    say(f"[5 rounds] all agree (max abs err {max_err[CAMERA['name']]:.3g}); "
-        f"the most frequent round shape is Q={main_shape[0]} "
-        f"G={main_shape[1]} ({rounds.count(main_shape)} rounds)")
+    big = timings[largest]
     camera_row = dict(
         launches=launches, max_abs_err=max_err[CAMERA["name"]], ms=row["ms"],
         plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row["library_ms"],
         shape=dict(Q=main_shape[0], G=main_shape[1], D=int(args[0].shape[1]),
                    C=int(args[2].shape[1]), k=k),
+        largest=dict(Q=largest[0], G=largest[1], ms=big["ms"],
+                     plain_ms=big["plain_ms"], library_ms=big["library_ms"],
+                     bound_ms=big["bound_ms"], bound_by=big["bound_by"]),
         stress=dict(Q=256, G=8192, D=2048, C=130, k=16, ms=st["ms"],
                     plain_ms=st["plain_ms"], library_ms=st["library_ms"],
                     bound_ms=st["bound_ms"], bound_by=st["bound_by"]))
@@ -582,8 +707,6 @@ def main() -> int:
     t0 = time.perf_counter()
     tile_model = api.profile(world.vis, time_limit=3000, tile_grid=TILE_GRID,
                              device=DEVICE)
-    horizon_ticks = world.vis.horizon - int(world.vis.t_out[world.q_vids]
-                                            .min())
     say(f"[6 tiles] profiled with tile_grid={TILE_GRID} in "
         f"{time.perf_counter() - t0:.1f} s: "
         f"{int(tile_model.tile_admit.sum())} of "
@@ -701,10 +824,196 @@ def main() -> int:
                     library_ms=st_t["library_ms"],
                     bound_ms=st_t["bound_ms"], bound_by=st_t["bound_by"]))
 
+    # -- phase 8: the benchmark's kernels on edge inputs ------------------
+    from repro_torch.benchmarks import kernels_bench
+    from repro_torch.benchmarks.kernels_bench import device_ms
+    from repro_torch.kernels import decode_attention, flash_attention, \
+        mamba_scan
+
+    errs = {name: 0.0 for name in BENCH}
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+
+    def randn(*size, dtype=torch.float32, scale=1.0):
+        return (torch.randn(size, generator=gen, device=DEVICE)
+                * scale).to(dtype)
+
+    unmasked = dict(call=ops.reid_topk, plain=ref.reid_topk_ref)
+    topk_cases = ((33, 517, 16, 5, False), (7, 70, 8, 3, False),
+                  (1, 1, 64, 1, False), (64, 513, 64, 16, False),
+                  (40, 300, 16, 5, True), (130, 1000, 32, 16, True),
+                  (5, 3, 16, 8, False))
+    for Q, G, D, k, ties in topk_cases:
+        if ties:
+            q = torch.randint(0, 2, (Q, D), generator=gen, device=DEVICE)
+            g = torch.randint(0, 2, (G, D), generator=gen, device=DEVICE)
+            q, g = q.float(), g.float()
+        else:
+            q, g = randn(Q, D), randn(G, D)
+        errs["reid_topk"] = max(errs["reid_topk"], check_against_plain(
+            torch, unmasked, f"reid_topk {Q}x{G}x{D} k{k}", (q, g), k,
+            exact_idx=ties or G < k))
+    for Q, G in ((4, 0), (0, 12)):
+        before = reid_topk.UNMASKED_LAUNCHES
+        ev, ei = ops.reid_topk(randn(Q, 8), randn(G, 8), 3)
+        if reid_topk.UNMASKED_LAUNCHES != before or ev.shape != (Q, 3) or \
+                (ei != -1).any() or not (ev < -1e29).all():
+            fail(f"reid_topk Q={Q} G={G}: must return sentinel bands "
+                 f"without a launch")
+    say(f"[8 edge] reid_topk: {len(topk_cases)} shapes (ragged, ties on "
+        f"integer-valued inputs with exact indices, k > G) agree with the "
+        f"plain version (max abs err {errs['reid_topk']:.3g}); G == 0 and "
+        f"Q == 0 give sentinels without a launch")
+
+    n_flash = 0
+    for hd in (32, 64, 128):
+        for H, KV in ((4, 4), (8, 2), (8, 1)):          # MHA, GQA, MQA
+            for causal in (True, False):
+                for dtype in (torch.float32, torch.bfloat16):
+                    for S, T in ((192, 192), (100, 260), (260, 100)):
+                        q = randn(2, H, S, hd, dtype=dtype)
+                        k = randn(2, KV, T, hd, dtype=dtype)
+                        v = randn(2, KV, T, hd, dtype=dtype)
+                        label = (f"flash H={H} KV={KV} S={S} T={T} hd={hd} "
+                                 f"causal={causal} {dtype}")
+                        errs["flash_attention"] = max(
+                            errs["flash_attention"], close_enough(
+                                torch, label,
+                                ops.flash_attention(q, k, v, causal=causal),
+                                ref.flash_attention_ref(q, k, v,
+                                                        causal=causal),
+                                ATTN_TOL[str(dtype).split(".")[1]]))
+                        n_flash += 1
+    say(f"[8 edge] flash_attention: {n_flash} cases (MHA, GQA, MQA; hd 32, "
+        f"64, 128; causal or not; S = T, S < T, S > T; float32 and "
+        f"bfloat16) agree with the plain version (max abs err "
+        f"{errs['flash_attention']:.3g})")
+
+    n_dec = 0
+    T = 700                 # not a whole number of the kernel's chunks
+    length = torch.tensor([0, 1, 333, T, T + 5], dtype=torch.int32,
+                          device=DEVICE)
+    for hd in (32, 64, 128):
+        for H, KV in ((4, 4), (8, 2), (8, 1)):
+            for dtype in (torch.float32, torch.bfloat16):
+                q = randn(5, H, hd, dtype=dtype)
+                k = randn(5, KV, T, hd, dtype=dtype)
+                v = randn(5, KV, T, hd, dtype=dtype)
+                out = ops.decode_attention(q, k, v, length)
+                if (out[0] != 0).any():
+                    fail("decode_attention: length 0 must give zeros")
+                errs["decode_attention"] = max(
+                    errs["decode_attention"], close_enough(
+                        torch, f"decode H={H} KV={KV} hd={hd} {dtype}", out,
+                        ref.decode_attention_ref(q, k, v, length),
+                        ATTN_TOL[str(dtype).split(".")[1]]))
+                n_dec += 1
+    say(f"[8 edge] decode_attention: {n_dec} cases (MHA, GQA, MQA; hd 32, "
+        f"64, 128; float32 and bfloat16; lengths 0, 1, 333, T = {T} and "
+        f"T + 5) agree with the plain version (max abs err "
+        f"{errs['decode_attention']:.3g}); length 0 gives zeros")
+
+    scan_cases = ((2, 300, 200, 4), (2, 300, 200, 8), (2, 300, 200, 16),
+                  (1, 33, 64, 16))
+    for B, L, D, N in scan_cases:
+        args, _ = kernels_bench.make_inputs(
+            "mamba_scan", dict(B=B, L=L, D=D, N=N), DEVICE, seed=L + N)
+        errs["mamba_scan"] = max(errs["mamba_scan"], close_enough(
+            torch, f"mamba_scan B={B} L={L} D={D} N={N}",
+            ops.mamba_scan(*args), kernels_bench.plain("mamba_scan")(*args),
+            SCAN_TOL))
+    say(f"[8 edge] mamba_scan: {len(scan_cases)} cases (N = 4, 8, 16; L and "
+        f"D ragged) agree with the plain version (max abs err "
+        f"{errs['mamba_scan']:.3g})")
+
+    # -- phase 9: the kernel benchmark path -------------------------------
+    counters = {"reid_topk": (reid_topk, "UNMASKED_LAUNCHES"),
+                "flash_attention": (flash_attention, "LAUNCHES"),
+                "decode_attention": (decode_attention, "LAUNCHES"),
+                "mamba_scan": (mamba_scan, "LAUNCHES")}
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    reid_topk.LAUNCHES = reid_topk.TILE_LAUNCHES = 0
+    record = {}
+    t0 = time.perf_counter()
+    try:
+        rows = kernels_bench.run(device=DEVICE, record=record)
+    finally:
+        bench_launches = {name: getattr(mod, attr)
+                          for name, (mod, attr) in counters.items()}
+        stray = (reid_topk.LAUNCHES, reid_topk.TILE_LAUNCHES)
+    say(f"[9 bench] kernels_bench.run(device='cuda') in "
+        f"{time.perf_counter() - t0:.1f} s:")
+    say("  name,us_per_call,derived")
+    bench = {}
+    for row_name, us, derived in rows:
+        say(f"  {row_name},{us:.1f},{derived}")
+        name = row_name.split("/", 1)[1]
+        fields = dict(f.split("=") for f in derived.split(";"))
+        calls = int(fields["calls"])
+        if bench_launches[name] != calls or calls == 0:
+            fail(f"{name}: {bench_launches[name]} launches, but the "
+                 f"benchmark made {calls} calls")
+        args, kwargs, out = record[name]
+        errs[name] = max(errs[name], hold_output(
+            torch, name, f"bench {name}", args, kwargs, out,
+            SCAN_TOL if name == "mamba_scan" else ATTN_TOL["float32"]))
+        b_ms, b_by = kernels_bench.bound_ms(
+            *kernels_bench.cost(name, args, kwargs))
+        lib = library_yardstick(torch, name, args, kwargs)
+        bench[name] = dict(
+            ms=us / 1e3, plain_ms=float(fields["plain_us"]) / 1e3,
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=None if lib is None else device_ms(lib),
+            shape=kernels_bench.SHAPES[name])
+    if stray != (0, 0):
+        fail(f"the benchmark launched the serving kernels {stray} times")
+    say("[9 bench] launches " + ", ".join(
+        f"{n} {c}" for n, c in bench_launches.items())
+        + " (= the benchmark's calls); every output agrees with its plain "
+        "version; per call at the benchmark's shapes:")
+    for name, t in bench.items():
+        lib_ms = "none" if t["library_ms"] is None \
+            else f"{t['library_ms']:.4f} ms"
+        say(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+            f"ms, library {lib_ms}, bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']})")
+    del record
+
+    # -- phase 10: the kernels at model widths ----------------------------
+    widths = {}
+    for name, shape in MODEL_SHAPES.items():
+        t0 = time.perf_counter()
+        args, kwargs = kernels_bench.make_inputs(name, shape, DEVICE, seed=1)
+        op, base = getattr(ops, name), kernels_bench.plain(name)
+        err = hold_output(torch, name, f"{name} {shape}", args, kwargs,
+                          op(*args, **kwargs), MODEL_TOL)
+        errs[name] = max(errs[name], err)
+        b_ms, b_by = kernels_bench.bound_ms(
+            *kernels_bench.cost(name, args, kwargs))
+        lib = library_yardstick(torch, name, args, kwargs)
+        widths[name] = dict(
+            shape, ms=device_ms(lambda: op(*args, **kwargs)),
+            plain_ms=device_ms(lambda: base(*args, **kwargs), calls=1,
+                               replays=3),
+            library_ms=None if lib is None else device_ms(lib),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        t = widths[name]
+        lib_ms = "none" if t["library_ms"] is None \
+            else f"{t['library_ms']:.4f} ms"
+        say(f"[10 model] {name} {shape}: agrees (max abs err {err:.3g}); "
+            f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"library {lib_ms}, bound {b_ms:.6f} ms ({b_by}); "
+            f"{time.perf_counter() - t0:.1f} s")
+        del args, kwargs, lib
+        torch.cuda.empty_cache()
+
     say(smi)
     say(json.dumps({"kernels": [
         dict(CAMERA, **camera_row),
-        dict(TILES, **tiles_row)]}))
+        dict(TILES, **tiles_row)]
+        + [dict(BENCH[name], launches=bench_launches[name],
+                max_abs_err=errs[name], **bench[name], model=widths[name])
+           for name in BENCH]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -85,3 +85,31 @@ def build(name: str) -> Path:
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it on first use."""
     return ctypes.CDLL(str(build(name)))
+
+
+@functools.cache
+def launcher(name: str, symbol: str, argtypes: tuple):
+    """The C launcher ``symbol`` of ``csrc/<name>.cu`` with its argument
+    types (``ctypes.c_void_p`` for each pointer and the stream, so none is
+    cut to 32 bits), returning its CUDA error code; built on first use."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def device_and_stream(t) -> tuple[int, int]:
+    """The card index of CUDA tensor ``t`` and PyTorch's current stream on
+    it, as the ints a launcher takes."""
+    import torch
+
+    index = t.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return index, torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(err: int, symbol: str) -> None:
+    """Raise unless a launcher returned 0 (``cudaSuccess``)."""
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")

@@ -20,21 +20,13 @@ def _segment_masked_ref(queries, q_tag, admit, gallery, gal_cam, gal_tag,
                         k: int):
     Q, C = admit.shape
     G = gallery.shape[0]
-    dev = queries.device
     s = queries.to(torch.float32) @ gallery.to(torch.float32).T
     # cam outside [0, C) (padded rows carry -1) is "no camera": ineligible
     cam_ok = (gal_cam >= 0) & (gal_cam < C)
     cams = torch.where(cam_ok, gal_cam, 0).to(torch.int64)
     valid = admit.gather(1, cams[None, :].expand(Q, G)) & cam_ok[None, :] & \
         (gal_tag[None, :] == q_tag[:, None])
-    masked = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    if G < k:
-        masked = torch.cat([masked, torch.full((Q, k - G), NEG_INF,
-                                               dtype=torch.float32,
-                                               device=dev)], dim=1)
-    sv, si = torch.sort(masked, dim=1, descending=True, stable=True)
-    sv, si = sv[:, :k].contiguous(), si[:, :k].to(torch.int32)
-    return sv, torch.where(sv > NEG_INF / 2, si, torch.full_like(si, -1))
+    return _topk_rows(torch.where(valid, s, torch.full_like(s, NEG_INF)), k)
 
 
 def reid_topk_masked_ref(queries, q_frame, admit, gallery, gal_cam,
@@ -65,3 +57,90 @@ def reid_topk_tiles_ref(queries, q_tag, admit_ct, gallery, gal_ct, gal_tag,
     C*T*T cells."""
     return _segment_masked_ref(queries, q_tag, admit_ct, gallery, gal_ct,
                                gal_tag, k)
+
+
+def _topk_rows(scores, k: int):
+    """(Q, k) best of each row in the order (score desc, index asc), with
+    the ``(NEG_INF, -1)`` tail past the row length and wherever the score
+    is a sentinel."""
+    Q, G = scores.shape
+    if G < k:
+        scores = torch.cat([scores, torch.full((Q, k - G), NEG_INF,
+                                               dtype=torch.float32,
+                                               device=scores.device)], dim=1)
+    sv, si = torch.sort(scores, dim=1, descending=True, stable=True)
+    sv, si = sv[:, :k].contiguous(), si[:, :k].to(torch.int32)
+    return sv, torch.where(sv > NEG_INF / 2, si, torch.full_like(si, -1))
+
+
+def reid_topk_ref(queries, gallery, k: int):
+    """Top-k of the inner products ``queries @ gallery.T`` (any float
+    dtype, computed in float32): (scores (Q, k) float32, idx (Q, k)
+    int32), best first.  As the Pallas kernel and unlike
+    ``repro.kernels.ref.reid_topk_ref``, k > G gives a ``(NEG_INF, -1)``
+    tail, and Q == 0 or G == 0 gives sentinels."""
+    Q, G = queries.shape[0], gallery.shape[0]
+    if Q == 0 or G == 0:
+        return (torch.full((Q, k), NEG_INF, dtype=torch.float32,
+                           device=queries.device),
+                torch.full((Q, k), -1, dtype=torch.int32,
+                           device=queries.device))
+    s = queries.to(torch.float32) @ gallery.to(torch.float32).T
+    return _topk_rows(s, k)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """Prefill attention.  q (B, H, S, hd); k, v (B, KV, T, hd) with
+    H % KV == 0, q head h reading kv head h // (H / KV); softmax in float32
+    with scale hd**-0.5; ``causal`` masks key positions past the query's
+    (both counted from 0) with NEG_INF.  Returns (B, H, S, hd) in q's
+    dtype."""
+    B, H, S, hd = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    qr = q.reshape(B, KV, H // KV, S, hd).to(torch.float32)
+    s = torch.einsum("bkgqh,bkth->bkgqt", qr, k.to(torch.float32)) \
+        * hd ** -0.5
+    if causal:
+        mask = torch.arange(S, device=q.device)[:, None] >= \
+            torch.arange(T, device=q.device)[None, :]
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqt,bkth->bkgqh", p, v.to(torch.float32))
+    return o.reshape(B, H, S, hd).to(q.dtype)
+
+
+def decode_attention_ref(q, k_cache, v_cache, length):
+    """One-token attention over a cache.  q (B, H, hd); caches
+    (B, KV, T, hd); length (B,) valid keys per row (a length past T means
+    T).  Returns (B, H, hd) in q's dtype.  A row with ``length <= 0`` is
+    zeros, as the Pallas kernel gives (every tile skipped); the softmax of
+    ``repro.kernels.ref.decode_attention_ref`` would give the mean of V."""
+    B, H, hd = q.shape
+    KV, T = k_cache.shape[1], k_cache.shape[2]
+    qr = q.reshape(B, KV, H // KV, hd).to(torch.float32)
+    s = torch.einsum("bkgh,bkth->bkgt", qr, k_cache.to(torch.float32)) \
+        * hd ** -0.5
+    length = length.to(device=q.device, dtype=torch.int64)
+    mask = torch.arange(T, device=q.device)[None] < length[:, None]
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgt,bkth->bkgh", p, v_cache.to(torch.float32))
+    o = torch.where((length > 0)[:, None, None, None], o,
+                    torch.zeros_like(o))
+    return o.reshape(B, H, hd).to(q.dtype)
+
+
+def mamba_scan_ref(u, dt, Bm, Cm, A, h0):
+    """The Mamba1 selective scan, one step at a time, in float32:
+    ``h_t = exp(dt_t * A) * h_{t-1} + (dt_t * u_t) * B_t`` and
+    ``y_t = h_t . C_t``.  u, dt (B, L, D); Bm, Cm (B, L, N); A (D, N);
+    h0 (B, D, N).  Returns (y (B, L, D), h_L (B, D, N))."""
+    u, dt, Bm, Cm, A = (x.to(torch.float32) for x in (u, dt, Bm, Cm, A))
+    h = h0.to(torch.float32)
+    ys = []
+    for t in range(u.shape[1]):
+        da = torch.exp(dt[:, t, :, None] * A)                  # (B, D, N)
+        h = da * h + (dt[:, t] * u[:, t])[..., None] * Bm[:, t, None, :]
+        ys.append((h * Cm[:, t, None, :]).sum(-1))
+    y = torch.stack(ys, 1) if ys else u.new_zeros(u.shape)
+    return y, h

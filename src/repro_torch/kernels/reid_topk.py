@@ -1,8 +1,9 @@
 """Fused gallery ranking: similarity GEMM + masked running top-k.
 
 The wrappers of the CUDA kernels ``csrc/reid_topk.cu`` (camera-masked:
-``reid_topk_masked``, ``reid_topk_segments``) and ``csrc/reid_topk_tiles.cu``
-(camera x tile masked: ``reid_topk_tiles``), the counterparts of
+``reid_topk_masked``, ``reid_topk_segments``), ``csrc/reid_topk_tiles.cu``
+(camera x tile masked: ``reid_topk_tiles``) and ``csrc/reid_topk_plain.cu``
+(unmasked: ``reid_topk``), the counterparts of
 ``repro.kernels.reid_topk``'s entry points.  Query q scores gallery row g
 only when ``admit[q, gal_cam[g]]`` (or ``admit_ct[q, gal_ct[g]]``) and the
 tags agree (frames for ``reid_topk_masked``, round-scoped segment ids for
@@ -14,12 +15,12 @@ and slots past G as (NEG_INF, -1).
 Dispatch is by the tensors' device: on the CPU the plain version in
 ``ref.py`` runs; on a CUDA tensor the kernel launches or the wrapper
 raises.  ``LAUNCHES`` counts the camera kernel's launches,
-``TILE_LAUNCHES`` the tile kernel's.
+``TILE_LAUNCHES`` the tile kernel's, ``UNMASKED_LAUNCHES`` the unmasked
+kernel's.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -38,6 +39,8 @@ MAX_CELLS = (232448 - 13696) // (4 * 32) * 32
 LAUNCHES = 0
 #: tile kernel launches since the last reset
 TILE_LAUNCHES = 0
+#: unmasked kernel (``reid_topk``) launches since the last reset
+UNMASKED_LAUNCHES = 0
 
 
 def _empty(Q: int, k: int, device):
@@ -78,37 +81,26 @@ def _check(queries, q_tag, admit, gallery, gal_cam, gal_tag, k: int,
                          f"{tuple(gal_tag.shape)} do not match G={G}")
 
 
-@functools.cache
-def _kernel(source: str, symbol: str):
-    """The launcher ``symbol`` of ``csrc/<source>.cu``, built on first use
-    (never at import)."""
-    from repro_torch.kernels import build
-
-    fn = getattr(build.load(source), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+_MASKED_ARGS = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 6
+                + (ctypes.c_void_p,))
 
 
 def _launch(source: str, symbol: str, queries, q_tag, admit, gallery,
             gal_cam, gal_tag, k: int):
     """Launch ``symbol`` of ``csrc/<source>.cu`` on the tensors' card and
     stream; the caller counts the launch."""
+    from repro_torch.kernels import build
+
     Q, D = queries.shape
     G = gallery.shape[0]
-    fn = _kernel(source, symbol)
+    fn = build.launcher(source, symbol, _MASKED_ARGS)
     out_v = torch.empty((Q, k), dtype=torch.float32, device=queries.device)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=queries.device)
-    device = queries.device.index
-    if device is None:
-        device = torch.cuda.current_device()
-    stream = torch.cuda.current_stream(queries.device).cuda_stream
-    err = fn(queries.data_ptr(), q_tag.data_ptr(), admit.data_ptr(),
-             gallery.data_ptr(), gal_cam.data_ptr(), gal_tag.data_ptr(),
-             out_v.data_ptr(), out_i.data_ptr(), Q, G, D, admit.shape[1], k,
-             device, stream)
-    if err != 0:
-        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
+    build.check(fn(queries.data_ptr(), q_tag.data_ptr(), admit.data_ptr(),
+                   gallery.data_ptr(), gal_cam.data_ptr(), gal_tag.data_ptr(),
+                   out_v.data_ptr(), out_i.data_ptr(), Q, G, D,
+                   admit.shape[1], k, *build.device_and_stream(queries)),
+                symbol)
     return out_v, out_i
 
 
@@ -183,3 +175,47 @@ def reid_topk_tiles(queries, q_tag, admit_ct, gallery, gal_ct, gal_tag,
                   admit_ct, gallery, gal_ct, gal_tag, k)
     TILE_LAUNCHES += 1
     return out
+
+
+def reid_topk(queries, gallery, k: int):
+    """Plain gallery ranking, the counterpart of ``repro.kernels.reid_topk``:
+    the k best rows of ``queries @ gallery.T`` with only the padding
+    masked.  queries (Q, D) and gallery (G, D) of any float dtype (scored
+    in float32).  Returns (scores (Q, k) float32, idx (Q, k) int32) in the
+    order (score descending, index ascending); slots past G, and every
+    slot when Q == 0 or G == 0, are (NEG_INF, -1)."""
+    global UNMASKED_LAUNCHES
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} must be in [1, {MAX_K}]")
+    for name, t in (("queries", queries), ("gallery", gallery)):
+        if not isinstance(t, torch.Tensor) or t.ndim != 2 or \
+                not t.is_floating_point():
+            raise TypeError(f"{name} must be a 2-d float tensor")
+    if gallery.device != queries.device:
+        raise ValueError(f"gallery is on {gallery.device}, queries on "
+                         f"{queries.device}")
+    if gallery.shape[1] != queries.shape[1]:
+        raise ValueError(f"gallery depth {gallery.shape[1]} != query depth "
+                         f"{queries.shape[1]}")
+    Q, D = queries.shape
+    G = gallery.shape[0]
+    if Q == 0 or G == 0:
+        return _empty(Q, k, queries.device)
+    if queries.device.type == "cpu":
+        return ref.reid_topk_ref(queries, gallery, k)
+    if queries.device.type != "cuda":
+        raise ValueError(f"no kernel for device {queries.device}")
+    from repro_torch.kernels import build
+
+    queries = queries.to(torch.float32).contiguous()
+    gallery = gallery.to(torch.float32).contiguous()
+    fn = build.launcher("reid_topk_plain", "reid_topk_unmasked",
+                        (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
+                        + (ctypes.c_void_p,))
+    out_v = torch.empty((Q, k), dtype=torch.float32, device=queries.device)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=queries.device)
+    build.check(fn(queries.data_ptr(), gallery.data_ptr(), out_v.data_ptr(),
+                   out_i.data_ptr(), Q, G, D, k,
+                   *build.device_and_stream(queries)), "reid_topk_unmasked")
+    UNMASKED_LAUNCHES += 1
+    return out_v, out_i

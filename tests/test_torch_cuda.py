@@ -1,4 +1,5 @@
-"""The port on the card: the CUDA kernels against their plain versions,
+"""The port on the card: the CUDA kernels against their plain versions
+(the serving path's re-id top-k kernels and the kernel benchmark's four),
 the tie rule of ``torch.argmax`` there, and small served worlds (camera-
 and tile-granular) traced on the card and on the CPU.  Every test needs an NVIDIA GPU and nvcc and skips
 without them; the module imports neither ``jax`` nor ``repro``, so it runs
@@ -11,10 +12,14 @@ import pytest
 import torch
 
 from repro_torch import api
-from repro_torch.kernels import ops, ref, reid_topk
+from repro_torch.benchmarks import kernels_bench
+from repro_torch.kernels import (decode_attention, flash_attention,
+                                 mamba_scan, ops, ref, reid_topk)
 from repro_torch.launch.serve import duke_world, run_stream
-from torch_cases import (CASES, TILE_CASES, camera_to_tiles, make_inputs,
-                         make_tile_inputs)
+from torch_cases import (CASES, DECODE_CASES, FLASH_CASES, SCAN_CASES,
+                         TILE_CASES, TOPK_CASES, attention_inputs,
+                         attention_tol, camera_to_tiles, make_inputs,
+                         make_tile_inputs, scan_inputs, topk_inputs)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -169,3 +174,90 @@ def test_cuda_tile_engine_trace_equals_cpu(card):
     for f in ("admitted_steps", "unique_frames", "admitted_tiles",
               "unique_tiles"):
         assert getattr(eng_card, f) == getattr(eng_cpu, f), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,G,D,k,ties", TOPK_CASES + [
+    (256, 8192, 64, 16, False), (130, 1000, 32, 16, True)])
+def test_cuda_unmasked_topk_matches_plain(card, Q, G, D, k, ties):
+    q, g = (torch.from_numpy(a).to(card) for a in topk_inputs(Q + G, Q, G,
+                                                               D, ties))
+    before = reid_topk.UNMASKED_LAUNCHES
+    kv, ki = ops.reid_topk(q, g, k)
+    torch.cuda.synchronize()
+    assert reid_topk.UNMASKED_LAUNCHES == before + 1
+    pv, pi = ref.reid_topk_ref(q, g, k)
+    torch.testing.assert_close(kv, pv, **TOL)
+    if ties or G < 100:
+        assert torch.equal(ki, pi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,S,T,hd,causal,bf16", FLASH_CASES + [
+    (1, 8, 2, 1024, 1024, 64, True, False),
+    (1, 8, 8, 100, 77, 128, False, False),
+    (2, 4, 1, 77, 100, 32, True, True)])
+def test_cuda_flash_attention_matches_plain(card, B, H, KV, S, T, hd,
+                                            causal, bf16):
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    q, k, v = (torch.from_numpy(a).to(card, dtype) for a in
+               attention_inputs(S + T, B, H, KV, S, T, hd))
+    before = flash_attention.LAUNCHES
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == before + 1 and out.dtype == dtype
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), want.float(),
+                               **attention_tol(bf16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,T,hd,bf16", DECODE_CASES + [
+    (4, 8, 2, 8192, 64, False), (2, 32, 4, 1000, 128, True)])
+def test_cuda_decode_attention_matches_plain(card, B, H, KV, T, hd, bf16):
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    q, k, v = (torch.from_numpy(a).to(card, dtype) for a in
+               attention_inputs(T + hd, B, H, KV, 0, T, hd))
+    lengths = np.random.default_rng(T).integers(1, T + 1, B)
+    if B > 1:
+        lengths[-1] = 0                    # zeros, as the Pallas kernel
+    if B > 2:
+        lengths[0], lengths[1] = T, T + 50   # past T means T
+    length = torch.from_numpy(lengths.astype(np.int32)).to(card)
+    before = decode_attention.LAUNCHES
+    out = ops.decode_attention(q, k, v, length)
+    torch.cuda.synchronize()
+    assert decode_attention.LAUNCHES == before + 1 and out.dtype == dtype
+    assert B == 1 or (out[-1] == 0).all()
+    want = ref.decode_attention_ref(q, k, v, length)
+    torch.testing.assert_close(out.float(), want.float(),
+                               **attention_tol(bf16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,D,N", SCAN_CASES + [(1, 1024, 256, 16),
+                                                  (2, 100, 70, 8)])
+def test_cuda_mamba_scan_matches_plain(card, B, L, D, N):
+    arrays = [torch.from_numpy(a).to(card)
+              for a in scan_inputs(L + D, B, L, D, N)]
+    before = mamba_scan.LAUNCHES
+    y = ops.mamba_scan(*arrays)
+    torch.cuda.synchronize()
+    assert mamba_scan.LAUNCHES == before + 1
+    want, _ = ref.mamba_scan_ref(*arrays, torch.zeros((B, D, N),
+                                                      device=card))
+    torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_bench_launches_every_kernel(card):
+    counters = (reid_topk, "UNMASKED_LAUNCHES"), (flash_attention,
+                                                  "LAUNCHES"), \
+        (decode_attention, "LAUNCHES"), (mamba_scan, "LAUNCHES")
+    for mod, attr in counters:
+        setattr(mod, attr, 0)
+    rows = kernels_bench.run("cuda")
+    for (name, us, derived), (mod, attr) in zip(rows, counters):
+        fields = dict(f.split("=") for f in derived.split(";"))
+        assert fields["device"] == "cuda" and us > 0
+        assert getattr(mod, attr) == int(fields["calls"]) > 0, name

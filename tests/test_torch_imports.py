@@ -26,8 +26,11 @@ def _run(code, cwd=REPO):
 
 def test_every_port_module_imports_without_jax_or_repro():
     mods = _port_modules()
-    assert "repro_torch.runtime.engine" in mods
-    assert "repro_torch.kernels.reid_topk" in mods
+    for name in ("runtime.engine", "kernels.reid_topk",
+                 "kernels.flash_attention", "kernels.decode_attention",
+                 "kernels.mamba_scan", "kernels.ops", "kernels.build",
+                 "benchmarks.kernels_bench"):
+        assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
