@@ -9,15 +9,20 @@ Phases, one line or block each:
      off for matmul and cuDNN (the plain versions must be full fp32);
   2. build: all six CUDA sources (the serving path's two re-id kernels and
      the kernel benchmark's four), with nvcc for sm_90a, one nvcc per
-     source, all started together; each kernel's registers and spills;
+     source, all started together; each kernel's registers and spills,
+     the gallery-split kernels' merge pass (``merge_slices``) among them;
   3. each serving kernel against its plain PyTorch version on the card, on
      ragged, tied, masked, k > G, G == 0, C = 130 (and C*T*T = 8,320
      cells) inputs and at a stress shape: scores within rtol/atol 1e-5,
      indices exact on integer-valued inputs and exact elsewhere except
      between scores within 1e-5 of each other; every shape is timed
-     (kernel, plain version, library yardstick) beside its bound; the tile
-     kernel with every tile admitted must equal the camera kernel bit for
-     bit;
+     (kernel, plain version, library yardstick) beside its bound and its
+     plan (q-blocks x gallery slices S, ``reid_topk.split_plan``); the
+     camera kernel also on split edge cases (ties across slice boundaries,
+     k = 16 over one-tile slices, wholly masked slices, G one past a
+     tile), with exact indices; the tile kernel with every tile admitted
+     must equal the camera kernel bit for bit, at a split shape too
+     (Q = 256, G = 8,192, C = 130); the stress shape must split (S > 1);
   4. the camera-granular main path: the duke world at the benchmark's
      scale (8 cameras, 2,700 entities, 5,100 steps, 100 queries) served
      through ``repro_torch.api.serve(device="cuda")`` until every query is
@@ -28,7 +33,8 @@ Phases, one line or block each:
      and the two traces must agree;
   5. the camera kernel against its plain version at every round shape
      phase 4 produced; the most frequent and the largest are timed as in
-     phase 3 and go into the kernels line, beside the stress shape;
+     phase 3 and go into the kernels line, beside the stress shape; the
+     most frequent must run unsplit (S = 1);
   6. the tile path: the same world profiled with ``tile_grid=8`` and served
      with ``api.serve(tile_grid=8, topk=3)`` until every query is done or
      the world's horizon ends; the counts are reset just before and read
@@ -42,7 +48,8 @@ Phases, one line or block each:
   8. the kernel benchmark's four kernels (unmasked re-id top-k, flash
      attention, decode attention, Mamba scan) against their plain versions
      on edge inputs: ragged Q and G, integer-valued ties, k > G, G == 0 and
-     Q == 0; MHA, GQA and MQA at hd 32, 64 and 128, causal or not, S != T,
+     Q == 0, and for the unmasked top-k the split edge cases of phase 3;
+     MHA, GQA and MQA at hd 32, 64 and 128, causal or not, S != T,
      float32 and bfloat16; decode lengths of 0, 1, partial, T and past T;
      scan state sizes 4, 8 and 16.  Top-k scores within 1e-5 (indices as
      in phase 3), attention within 2e-5 in float32 and 2e-2 in bfloat16,
@@ -52,7 +59,8 @@ Phases, one line or block each:
      the four counts are reset just before and read just after, and each
      must equal the calls the benchmark made; every output is held to its
      plain version, the CSV rows are printed, and each kernel's library
-     yardstick is timed beside the benchmark's kernel and plain times;
+     yardstick is timed beside the benchmark's kernel and plain times (the
+     re-id top-k with its plan, which must split);
  10. the same kernels held and timed at the widths of models the repo
      configures: flash attention at yi-6b's layout (H = 32, KV = 4,
      hd = 128) over ``train_4k``'s 4,096 tokens, causal; decode attention
@@ -136,7 +144,8 @@ MODEL_SHAPES = {
     # ResNet-50 re-id embedding's 2,048 features
     "reid_topk": dict(Q=256, G=8192, D=2048, k=16),
 }
-QB, GB = 32, 64             # the kernels' (query, gallery) tile
+QB, GB = 32, 64             # the tile kernel's (query, gallery) tile; 64
+                            # gallery rows are the split kernels' tile too
 
 
 def fail(msg: str) -> None:
@@ -236,7 +245,12 @@ def check_against_plain(torch, kern, name, args, k, exact_idx, got=None):
 
 
 def synthetic_inputs(torch, rng, Q, G, D, C, *, ties=False, n_tags=3,
-                     p_admit=0.6, masked_row=False, pad_rows=0):
+                     p_admit=0.6, masked_row=False, pad_rows=0,
+                     boundary_ties=False, masked_slices=False):
+    """Seeded inputs of a masked top-k.  ``boundary_ties`` makes the rows
+    either side of every 64-row slice boundary equal; ``masked_slices``
+    gives the gallery's second and fourth 64-row tiles one camera that no
+    query admits."""
     import numpy as np
 
     if ties:
@@ -245,10 +259,17 @@ def synthetic_inputs(torch, rng, Q, G, D, C, *, ties=False, n_tags=3,
     else:
         qf = rng.normal(size=(Q, D)).astype(np.float32)
         gf = rng.normal(size=(G, D)).astype(np.float32)
+    if boundary_ties:
+        for b in range(GB, G - 1, GB):
+            gf[b] = gf[b - 1]
+            gf[b + 1] = gf[b - 2]
     q_tag = rng.integers(0, n_tags, Q).astype(np.int32)
     gal_tag = rng.integers(0, n_tags, G).astype(np.int32)
     admit = rng.random((Q, C)) < p_admit
     gal_cam = rng.integers(0, C, G).astype(np.int32)
+    if masked_slices:
+        gal_cam[GB:2 * GB] = gal_cam[3 * GB:4 * GB] = C - 1
+        admit[:, C - 1] = False
     if masked_row and Q:
         admit[0] = False
     if pad_rows:
@@ -279,11 +300,13 @@ def check_and_time(torch, kern, lib, label, args, k, exact_idx):
     lib_ms = "n/a (k > G)" if t["library_ms"] is None \
         else f"{t['library_ms']:.4f} ms"
     live, total = live_tiles(torch, args)
+    t["plan"] = kern["plan"](Q, args[3].shape[0])
     say(f"  {label}: Q={Q} G={args[3].shape[0]} D={D} "
         f"{kern['axis']}={args[2].shape[1]} k={k} agree (max abs err "
-        f"{err:.3g}); kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
-        f"ms, library {lib_ms}, bound {t['bound_ms']:.6f} ms "
-        f"({t['bound_by']}); live tiles {live}/{total}")
+        f"{err:.3g}); plan {t['plan']}; kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, library {lib_ms}, bound "
+        f"{t['bound_ms']:.6f} ms ({t['bound_by']}); live tiles "
+        f"{live}/{total}")
     return err, t
 
 
@@ -312,11 +335,11 @@ def device_share(torch, serve, tag: str, ticks: int = 200):
     wall_ms = sum(tick_s) * 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
     rank_ms = sum(e.self_device_time_total for e in events
-                  if "reid_topk" in e.key) / 1e3
+                  if "reid_topk" in e.key or "merge_slices" in e.key) / 1e3
     say(f"{tag} profiled {len(tick_s)} ticks: device busy "
         f"{busy_ms:.3f} ms of {wall_ms:.3f} ms host clock "
         f"({100 * busy_ms / wall_ms:.2f} % busy), of it the re-id top-k "
-        f"kernels {rank_ms:.3f} ms; most device time: "
+        f"kernels (and their merges) {rank_ms:.3f} ms; most device time: "
         + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms "
                     f"x{e.count}" for e in top))
 
@@ -483,8 +506,10 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     say(f"[1 env] torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device '{kind}' x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
+        f"device '{kind}' x{torch.cuda.device_count()} ({n_sms} SMs); "
+        f"nvidia-smi: {smi}; "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
@@ -501,10 +526,18 @@ def main() -> int:
         say(f"  ptxas {name}.cu: "
             + "; ".join(ptxas_summary(path.with_suffix(".log").read_text())))
 
+    def plan_of(Q, G):
+        """q-blocks x gallery slices of the camera and unmasked kernels."""
+        nq, S = reid_topk.split_plan(Q, G, n_sms)
+        return f"{nq}x{S}"
+
     camera = dict(CAMERA, call=ops.reid_topk_segments,
-                  plain=ref.reid_topk_segments_ref, axis="C")
+                  plain=ref.reid_topk_segments_ref, axis="C",
+                  plan=plan_of)
+    # the tile kernel: one block per 32 query rows, the whole gallery each
     tiles = dict(TILES, call=ops.reid_topk_tiles,
-                 plain=ref.reid_topk_tiles_ref, axis="CT")
+                 plain=ref.reid_topk_tiles_ref, axis="CT",
+                 plan=lambda Q, G: f"{-(-Q // QB)}x1")
 
     # -- phase 3: kernels vs plain on synthetic inputs -------------------
     rng = np.random.default_rng(0)
@@ -543,6 +576,26 @@ def main() -> int:
         err, _ = check_and_time(torch, kern, lib, name, args, k,
                                 exact_idx=kw.get("ties", False))
         max_err[kern["name"]] = max(max_err[kern["name"]], err)
+    # the gallery split's edge cases, on their own seed: every shape splits
+    split_rng = np.random.default_rng(15)
+    split_cases = [
+        # name, Q, G, D, C, k, inputs
+        ("split ties across slice boundaries 64x2048 int", 64, 2048, 16, 8,
+         16, dict(ties=True, boundary_ties=True)),
+        ("split one-tile slices 33x700 k16 int", 33, 700, 16, 8, 16,
+         dict(ties=True)),
+        ("split masked slices 40x1000 int", 40, 1000, 16, 8, 8,
+         dict(ties=True, masked_slices=True, pad_rows=9)),
+        ("split G one past a tile 256x8193 130cams", 256, 8193, 64, 130, 16,
+         dict(pad_rows=20)),
+    ]
+    for name, Q, G, D, C, k, kw in split_cases:
+        if reid_topk.split_plan(Q, G, n_sms)[1] < 2:
+            fail(f"{name}: the plan does not split Q={Q} G={G}")
+        args = synthetic_inputs(torch, split_rng, Q, G, D, C, **kw)
+        err, _ = check_and_time(torch, camera, lib, name, args, k,
+                                exact_idx=kw.get("ties", False))
+        max_err[CAMERA["name"]] = max(max_err[CAMERA["name"]], err)
     for kern in (camera, tiles):
         empty = synthetic_inputs(torch, rng, 4, 0, 64, 8)
         before = (reid_topk.LAUNCHES, reid_topk.TILE_LAUNCHES)
@@ -554,7 +607,8 @@ def main() -> int:
     say("  G=0: sentinel bands, no launch (both kernels)")
     # every tile of each admitted camera admitted: the camera kernel's
     # eligibility and FMA order, so its exact bits
-    for Q, G, C, k in ((33, 517, 8, 3), (64, 1000, 130, 16)):
+    for Q, G, C, k in ((33, 517, 8, 3), (64, 1000, 130, 16),
+                       (256, 8192, 130, 16)):
         cam_args = synthetic_inputs(torch, rng, Q, G, 64, C, pad_rows=9)
         tile_of = torch.from_numpy(rng.integers(0, TT, G).astype(
             np.int32)).to(DEVICE)
@@ -569,12 +623,15 @@ def main() -> int:
             fail(f"all tiles admitted: the tile kernel differs from the "
                  f"camera kernel at Q={Q} G={G} C={C} k={k}")
     say("  all tiles admitted: the tile kernel equals the camera kernel bit "
-        "for bit (Q=33 G=517 C=8 k=3; Q=64 G=1000 C=130 k=16)")
+        "for bit (Q=33 G=517 C=8 k=3; Q=64 G=1000 C=130 k=16; Q=256 G=8192 "
+        f"C=130 k=16, camera plan {plan_of(256, 8192)})")
 
     stress = synthetic_inputs(torch, rng, 256, 8192, 2048, 130, n_tags=2,
                               p_admit=0.75, pad_rows=80)
     err, st = check_and_time(torch, camera, lib, "stress", stress, 16,
                              exact_idx=False)
+    if reid_topk.split_plan(256, 8192, n_sms)[1] < 2:
+        fail("the stress shape does not split the gallery")
     max_err[CAMERA["name"]] = max(max_err[CAMERA["name"]], err)
     stress_t = synthetic_inputs(torch, rng, 256, 8192, 2048, 130 * TT,
                                 n_tags=2, p_admit=0.75, pad_rows=80)
@@ -676,6 +733,8 @@ def main() -> int:
         err = check_against_plain(torch, camera, f"round {shape}", args, k,
                                   exact_idx=False)
         max_err[CAMERA["name"]] = max(max_err[CAMERA["name"]], err)
+    if reid_topk.split_plan(*main_shape, n_sms)[1] != 1:
+        fail(f"the main round shape {main_shape} splits the gallery")
     say(f"[5 rounds] {len(shapes)} round shapes (Q, G), all agree with the "
         f"plain version (max abs err {max_err[CAMERA['name']]:.3g}); the "
         f"most frequent is Q={main_shape[0]} G={main_shape[1]} "
@@ -694,13 +753,15 @@ def main() -> int:
         plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row["library_ms"],
         shape=dict(Q=main_shape[0], G=main_shape[1], D=int(args[0].shape[1]),
-                   C=int(args[2].shape[1]), k=k),
+                   C=int(args[2].shape[1]), k=k, plan=row["plan"]),
         largest=dict(Q=largest[0], G=largest[1], ms=big["ms"],
                      plain_ms=big["plain_ms"], library_ms=big["library_ms"],
-                     bound_ms=big["bound_ms"], bound_by=big["bound_by"]),
+                     bound_ms=big["bound_ms"], bound_by=big["bound_by"],
+                     plan=big["plan"]),
         stress=dict(Q=256, G=8192, D=2048, C=130, k=16, ms=st["ms"],
                     plain_ms=st["plain_ms"], library_ms=st["library_ms"],
-                    bound_ms=st["bound_ms"], bound_by=st["bound_by"]))
+                    bound_ms=st["bound_ms"], bound_by=st["bound_by"],
+                    plan=st["plan"]))
     del kept
 
     # -- phase 6: the tile path, until every query is done ----------------
@@ -841,12 +902,20 @@ def main() -> int:
     topk_cases = ((33, 517, 16, 5, False), (7, 70, 8, 3, False),
                   (1, 1, 64, 1, False), (64, 513, 64, 16, False),
                   (40, 300, 16, 5, True), (130, 1000, 32, 16, True),
-                  (5, 3, 16, 8, False))
+                  (5, 3, 16, 8, False),
+                  # the gallery split: ties across slice boundaries, k = 16
+                  # over one-tile slices, G one past a tile
+                  (64, 2048, 16, 16, "boundary"), (33, 700, 16, 16, True),
+                  (256, 8193, 64, 16, False))
     for Q, G, D, k, ties in topk_cases:
         if ties:
             q = torch.randint(0, 2, (Q, D), generator=gen, device=DEVICE)
             g = torch.randint(0, 2, (G, D), generator=gen, device=DEVICE)
             q, g = q.float(), g.float()
+            if ties == "boundary":
+                for b in range(GB, G - 1, GB):
+                    g[b] = g[b - 1]
+                    g[b + 1] = g[b - 2]
         else:
             q, g = randn(Q, D), randn(G, D)
         errs["reid_topk"] = max(errs["reid_topk"], check_against_plain(
@@ -860,7 +929,9 @@ def main() -> int:
             fail(f"reid_topk Q={Q} G={G}: must return sentinel bands "
                  f"without a launch")
     say(f"[8 edge] reid_topk: {len(topk_cases)} shapes (ragged, ties on "
-        f"integer-valued inputs with exact indices, k > G) agree with the "
+        f"integer-valued inputs with exact indices, k > G, split plans "
+        + ", ".join(plan_of(Q, G) for Q, G, *_ in topk_cases[-3:])
+        + ") agree with the "
         f"plain version (max abs err {errs['reid_topk']:.3g}); G == 0 and "
         f"Q == 0 give sentinels without a launch")
 
@@ -965,6 +1036,12 @@ def main() -> int:
             bound_ms=b_ms, bound_by=b_by,
             library_ms=None if lib is None else device_ms(lib),
             shape=kernels_bench.SHAPES[name])
+        if name == "reid_topk":
+            bench[name]["shape"] = dict(bench[name]["shape"], plan=plan_of(
+                args[0].shape[0], args[1].shape[0]))
+            if reid_topk.split_plan(args[0].shape[0], args[1].shape[0],
+                                    n_sms)[1] < 2:
+                fail("the benchmark's re-id shape does not split the gallery")
     if stray != (0, 0):
         fail(f"the benchmark launched the serving kernels {stray} times")
     say("[9 bench] launches " + ", ".join(
@@ -974,7 +1051,9 @@ def main() -> int:
     for name, t in bench.items():
         lib_ms = "none" if t["library_ms"] is None \
             else f"{t['library_ms']:.4f} ms"
-        say(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+        plan = t["shape"].get("plan")
+        say(f"  {name}: " + (f"plan {plan}; " if plan else "")
+            + f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
             f"ms, library {lib_ms}, bound {t['bound_ms']:.6f} ms "
             f"({t['bound_by']})")
     del record
@@ -997,11 +1076,14 @@ def main() -> int:
                                replays=3),
             library_ms=None if lib is None else device_ms(lib),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        if name == "reid_topk":
+            widths[name]["plan"] = plan_of(shape["Q"], shape["G"])
         t = widths[name]
         lib_ms = "none" if t["library_ms"] is None \
             else f"{t['library_ms']:.4f} ms"
         say(f"[10 model] {name} {shape}: agrees (max abs err {err:.3g}); "
-            f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            + (f"plan {t['plan']}; " if "plan" in t else "")
+            + f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
             f"library {lib_ms}, bound {b_ms:.6f} ms ({b_by}); "
             f"{time.perf_counter() - t0:.1f} s")
         del args, kwargs, lib

@@ -1,7 +1,10 @@
-// Pieces shared by the re-id top-k kernels for Hopper (sm_90a):
-// reid_topk.cu (camera-masked) and reid_topk_tiles.cu (camera x tile
-// masked).  Both fuse the similarity GEMM with a masked running top-k, so
-// the (Q, G) score matrix never reaches device memory.
+// Pieces of the re-id top-k kernels for Hopper (sm_90a).  Only the tile
+// kernel (reid_topk_tiles.cu, camera x tile masked) still uses this
+// header's product (score_tile) and merge (merge_and_store); the camera-
+// masked and unmasked kernels run the gallery-split design of
+// reid_split.cuh and take only MAX_K, NEG_INF and DEFAULT_SMEM from here.
+// The tile kernel fuses the similarity GEMM with a masked running top-k,
+// so the (Q, G) score matrix never reaches device memory.
 //
 // A block owns QB = 32 query rows and walks the gallery in tiles of
 // GB = 64 rows; for each tile the feature axis is staged in chunks of

@@ -73,6 +73,31 @@ def _topk_rows(scores, k: int):
     return sv, torch.where(sv > NEG_INF / 2, si, torch.full_like(si, -1))
 
 
+def merge_topk(parts, k: int):
+    """The merge pass of the gallery-split kernels: the (Q, k) best of
+    several top-k lists of the same queries, each (scores, idx) best first
+    with global gallery indices and ``(NEG_INF, -1)`` slots, in the order
+    (score desc, index asc), sentinels past the last real candidate."""
+    v = torch.cat([p[0] for p in parts], dim=1)
+    i = torch.cat([p[1] for p in parts], dim=1).to(torch.int64)
+    # index ascending first (sentinels last), so that the stable sort on
+    # the score leaves equal scores in index order
+    by_index = torch.argsort(torch.where(i < 0, torch.iinfo(torch.int64).max,
+                                         i), dim=1, stable=True)
+    v, i = v.gather(1, by_index), i.gather(1, by_index)
+    sv, pos = torch.sort(v, dim=1, descending=True, stable=True)
+    si = i.gather(1, pos).to(torch.int32)
+    Q, n = sv.shape
+    if n < k:
+        sv = torch.cat([sv, torch.full((Q, k - n), NEG_INF,
+                                       dtype=torch.float32,
+                                       device=sv.device)], dim=1)
+        si = torch.cat([si, torch.full((Q, k - n), -1, dtype=torch.int32,
+                                       device=si.device)], dim=1)
+    sv, si = sv[:, :k].contiguous(), si[:, :k]
+    return sv, torch.where(sv > NEG_INF / 2, si, torch.full_like(si, -1))
+
+
 def reid_topk_ref(queries, gallery, k: int):
     """Top-k of the inner products ``queries @ gallery.T`` (any float
     dtype, computed in float32): (scores (Q, k) float32, idx (Q, k)

@@ -14,13 +14,19 @@ and slots past G as (NEG_INF, -1).
 
 Dispatch is by the tensors' device: on the CPU the plain version in
 ``ref.py`` runs; on a CUDA tensor the kernel launches or the wrapper
-raises.  ``LAUNCHES`` counts the camera kernel's launches,
-``TILE_LAUNCHES`` the tile kernel's, ``UNMASKED_LAUNCHES`` the unmasked
-kernel's.
+raises.  ``LAUNCHES`` counts the camera kernel's calls, ``TILE_LAUNCHES``
+the tile kernel's, ``UNMASKED_LAUNCHES`` the unmasked kernel's: one per
+call, the merge launch of a split call included.
+
+The camera and the unmasked kernel split the gallery across blocks
+(``csrc/reid_split.cuh``): ``split_plan`` chooses the number of slices
+from the shape and the card's SM count, and with more than one slice the
+wrapper allocates the (Q, S, K) workspace the merge reads.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -34,13 +40,73 @@ MAX_CAMS = 4096
 #: the 232,448 bytes a block may opt into on an H100 (``csrc/topk.cuh``)
 MAX_CELLS = (232448 - 13696) // (4 * 32) * 32
 
-#: camera kernel launches since the last reset (a plain count, never
+#: the split kernels' (query, gallery) tile (``csrc/reid_split.cuh``)
+SPLIT_QB = SPLIT_GB = 64
+#: split-kernel blocks an SM holds at once (46 KB of shared memory each):
+#: the plan aims at filling every SM to that
+BLOCKS_PER_SM = 4
+#: a gallery of fewer tiles is not split: one block, no workspace, no merge
+MIN_SPLIT_TILES = 4
+
+#: camera kernel calls since the last reset (a plain count, never
 #: decremented)
 LAUNCHES = 0
 #: tile kernel launches since the last reset
 TILE_LAUNCHES = 0
 #: unmasked kernel (``reid_topk``) launches since the last reset
 UNMASKED_LAUNCHES = 0
+
+
+def split_plan(Q: int, G: int, n_sms: int) -> tuple[int, int]:
+    """(q-blocks, gallery slices S) of a split-kernel launch: the grid is
+    their product.  S = 1 where the gallery has fewer than
+    ``MIN_SPLIT_TILES`` tiles or the q-blocks alone fill every SM;
+    otherwise as many slices as fill ``BLOCKS_PER_SM`` blocks on each of
+    ``n_sms`` SMs, at most one a tile."""
+    nq, ng = -(-Q // SPLIT_QB), -(-G // SPLIT_GB)
+    target = BLOCKS_PER_SM * n_sms
+    if ng < MIN_SPLIT_TILES or nq >= target:
+        return nq, 1
+    return nq, min(ng, -(-target // nq))
+
+
+def slices(G: int, S: int) -> list[tuple[int, int]]:
+    """The gallery rows [start, stop) of each of S slices, as the kernels
+    cut them: slice s holds tiles [s ng / S, (s + 1) ng / S)."""
+    ng = -(-G // SPLIT_GB)
+    return [(s * ng // S * SPLIT_GB, min((s + 1) * ng // S * SPLIT_GB, G))
+            for s in range(S)]
+
+
+def round_k(k: int) -> int:
+    """The kernels' list length: k rounded up to a power of two."""
+    return 1 << (k - 1).bit_length()
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _split_args(queries, G: int, k: int):
+    """(workspace values, workspace indices, S) of a split launch on
+    ``queries``' card: the workspace is None when S = 1."""
+    Q = queries.shape[0]
+    index = queries.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    S = split_plan(Q, G, _sm_count(index))[1]
+    if S == 1:
+        return None, None, 1
+    K = round_k(k)
+    return (torch.empty((Q, S, K), dtype=torch.float32,
+                        device=queries.device),
+            torch.empty((Q, S, K), dtype=torch.int32, device=queries.device),
+            S)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _empty(Q: int, k: int, device):
@@ -81,26 +147,30 @@ def _check(queries, q_tag, admit, gallery, gal_cam, gal_tag, k: int,
                          f"{tuple(gal_tag.shape)} do not match G={G}")
 
 
-_MASKED_ARGS = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 6
-                + (ctypes.c_void_p,))
-
-
 def _launch(source: str, symbol: str, queries, q_tag, admit, gallery,
-            gal_cam, gal_tag, k: int):
+            gal_cam, gal_tag, k: int, split: bool):
     """Launch ``symbol`` of ``csrc/<source>.cu`` on the tensors' card and
-    stream; the caller counts the launch."""
+    stream, with its split plan and workspace when ``split``; the caller
+    counts the launch."""
     from repro_torch.kernels import build
 
     Q, D = queries.shape
     G = gallery.shape[0]
-    fn = build.launcher(source, symbol, _MASKED_ARGS)
+    fn = build.launcher(source, symbol,
+                        (ctypes.c_void_p,) * (10 if split else 8)
+                        + (ctypes.c_int,) * (7 if split else 6)
+                        + (ctypes.c_void_p,))
     out_v = torch.empty((Q, k), dtype=torch.float32, device=queries.device)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=queries.device)
-    build.check(fn(queries.data_ptr(), q_tag.data_ptr(), admit.data_ptr(),
-                   gallery.data_ptr(), gal_cam.data_ptr(), gal_tag.data_ptr(),
-                   out_v.data_ptr(), out_i.data_ptr(), Q, G, D,
-                   admit.shape[1], k, *build.device_and_stream(queries)),
-                symbol)
+    ptrs = [queries.data_ptr(), q_tag.data_ptr(), admit.data_ptr(),
+            gallery.data_ptr(), gal_cam.data_ptr(), gal_tag.data_ptr(),
+            out_v.data_ptr(), out_i.data_ptr()]
+    sizes = [Q, G, D, admit.shape[1], k]
+    if split:
+        ws_v, ws_i, S = _split_args(queries, G, k)
+        ptrs += [_ptr(ws_v), _ptr(ws_i)]
+        sizes.append(S)
+    build.check(fn(*ptrs, *sizes, *build.device_and_stream(queries)), symbol)
     return out_v, out_i
 
 
@@ -120,7 +190,7 @@ def _segment_masked_call(queries, q_tag, admit, gallery, gal_cam, gal_tag,
         raise ValueError(f"C={admit.shape[1]} cameras exceeds the kernel's "
                          f"{MAX_CAMS}")
     out = _launch("reid_topk", "reid_topk_segment_masked", queries, q_tag,
-                  admit, gallery, gal_cam, gal_tag, k)
+                  admit, gallery, gal_cam, gal_tag, k, split=True)
     LAUNCHES += 1
     return out
 
@@ -172,7 +242,7 @@ def reid_topk_tiles(queries, q_tag, admit_ct, gallery, gal_ct, gal_tag,
                          f"kernel's {MAX_CELLS}: its packed admit rows "
                          f"would not fit in a block's shared memory")
     out = _launch("reid_topk_tiles", "reid_topk_tiles", queries, q_tag,
-                  admit_ct, gallery, gal_ct, gal_tag, k)
+                  admit_ct, gallery, gal_ct, gal_tag, k, split=False)
     TILE_LAUNCHES += 1
     return out
 
@@ -210,12 +280,13 @@ def reid_topk(queries, gallery, k: int):
     queries = queries.to(torch.float32).contiguous()
     gallery = gallery.to(torch.float32).contiguous()
     fn = build.launcher("reid_topk_plain", "reid_topk_unmasked",
-                        (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
+                        (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6
                         + (ctypes.c_void_p,))
     out_v = torch.empty((Q, k), dtype=torch.float32, device=queries.device)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=queries.device)
+    ws_v, ws_i, S = _split_args(queries, G, k)
     build.check(fn(queries.data_ptr(), gallery.data_ptr(), out_v.data_ptr(),
-                   out_i.data_ptr(), Q, G, D, k,
+                   out_i.data_ptr(), _ptr(ws_v), _ptr(ws_i), Q, G, D, k, S,
                    *build.device_and_stream(queries)), "reid_topk_unmasked")
     UNMASKED_LAUNCHES += 1
     return out_v, out_i

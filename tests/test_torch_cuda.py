@@ -192,6 +192,105 @@ def test_cuda_unmasked_topk_matches_plain(card, Q, G, D, k, ties):
         assert torch.equal(ki, pi)
 
 
+def _slices_of(card, Q, G):
+    return reid_topk.split_plan(
+        Q, G, torch.cuda.get_device_properties(card).multi_processor_count)[1]
+
+
+def _split_features(seed, Q, G, D, what):
+    """Features in quarters of [-2, 2], whose products and sums are exact
+    in float32, so card and CPU scores agree to the bit and indices must
+    be equal; "ties" makes the rows either side of every slice boundary
+    equal."""
+    rng = np.random.default_rng(seed)
+    q = (rng.integers(-8, 9, (Q, D)) / 4).astype(np.float32)
+    g = (rng.integers(-8, 9, (G, D)) / 4).astype(np.float32)
+    if what == "ties":
+        for b in range(reid_topk.SPLIT_GB, G - 1, reid_topk.SPLIT_GB):
+            g[b] = g[b - 1]
+            g[b + 1] = g[b - 2]
+    return q, g
+
+
+# (Q, G, D, k, what): shapes the plan splits into S > 1 slices
+SPLIT_CASES = [
+    (256, 8192, 64, 16, ""),          # the benchmark's shape
+    (256, 8193, 64, 16, ""),          # one row past a whole tile
+    (64, 2048, 16, 16, "ties"),       # ties across slice boundaries
+    (33, 700, 16, 16, "one tile"),    # k = 16 over slices of one tile
+    (20, 512, 64, 3, ""),             # the largest serving round
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,G,D,k,what", SPLIT_CASES)
+def test_cuda_unmasked_split_matches_plain(card, Q, G, D, k, what):
+    S = _slices_of(card, Q, G)
+    assert S > 1
+    if what == "one tile":
+        assert S == -(-G // reid_topk.SPLIT_GB)
+    q, g = (torch.from_numpy(a).to(card)
+            for a in _split_features(Q + G, Q, G, D, what))
+    before = reid_topk.UNMASKED_LAUNCHES
+    kv, ki = ops.reid_topk(q, g, k)
+    torch.cuda.synchronize()
+    assert reid_topk.UNMASKED_LAUNCHES == before + 1
+    pv, pi = ref.reid_topk_ref(q, g, k)
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,G,D,k,what", SPLIT_CASES + [
+    (40, 1000, 16, 8, "masked slices"), (96, 4096, 32, 16, "130 cams")])
+def test_cuda_camera_split_matches_plain(card, Q, G, D, k, what):
+    assert _slices_of(card, Q, G) > 1
+    C = 130 if what == "130 cams" else 8
+    arrays = list(make_inputs(Q * 3 + G, Q, G, D, C, pad_rows=9))
+    arrays[0], arrays[3] = _split_features(Q + G, Q, G, D, what)
+    if what == "masked slices":
+        # slices 1 and 3 hold only cameras 6 and 7, which nobody admits
+        arrays[4][64:128] = 6
+        arrays[4][192:256] = 7
+        arrays[2][:, 6:] = False
+    t = [torch.from_numpy(a).to(card) for a in arrays]
+    before = (reid_topk.LAUNCHES, reid_topk.TILE_LAUNCHES)
+    kv, ki = ops.reid_topk_segments(*t, k)
+    torch.cuda.synchronize()
+    assert (reid_topk.LAUNCHES, reid_topk.TILE_LAUNCHES) == \
+        (before[0] + 1, before[1])
+    pv, pi = ref.reid_topk_segments_ref(*t, k)
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    assert (ki >= 0).any()
+
+
+@pytest.mark.cuda
+def test_cuda_split_normal_features_match_plain(card):
+    """Normal features at the stress width: scores within 1e-5 (the card
+    and the CPU sum in other orders)."""
+    arrays = [torch.from_numpy(a).to(card) for a in
+              make_inputs(5, 256, 8192, 2048, 130, pad_rows=80)]
+    kv, _ = ops.reid_topk_segments(*arrays, 16)
+    pv, _ = ref.reid_topk_segments_ref(*arrays, 16)
+    torch.testing.assert_close(kv, pv, **TOL)
+    uv, _ = ops.reid_topk(arrays[0], arrays[3], 16)
+    torch.testing.assert_close(uv, ref.reid_topk_ref(arrays[0], arrays[3],
+                                                     16)[0], **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_tile_kernel_all_admitted_equals_split_camera_kernel(card):
+    """At a split shape the camera kernel's scores are the unchanged tile
+    kernel's bits: the same fmaf chain in depth order."""
+    Q, G, C = 256, 8192, 130
+    assert _slices_of(card, Q, G) > 1
+    cam = make_inputs(9, Q, G, 64, C, pad_rows=9)
+    sv, si = ops.reid_topk_segments(
+        *(torch.from_numpy(a).to(card) for a in cam), 16)
+    tv, ti = ops.reid_topk_tiles(
+        *(torch.from_numpy(a).to(card) for a in camera_to_tiles(cam, 8)), 16)
+    assert torch.equal(tv, sv) and torch.equal(ti, si)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,KV,S,T,hd,causal,bf16", FLASH_CASES + [
     (1, 8, 2, 1024, 1024, 64, True, False),
