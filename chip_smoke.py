@@ -17,12 +17,15 @@ Phases, one line or block each:
      indices exact on integer-valued inputs and exact elsewhere except
      between scores within 1e-5 of each other; every shape is timed
      (kernel, plain version, library yardstick) beside its bound and its
-     plan (q-blocks x gallery slices S, ``reid_topk.split_plan``); the
-     camera kernel also on split edge cases (ties across slice boundaries,
-     k = 16 over one-tile slices, wholly masked slices, G one past a
-     tile), with exact indices; the tile kernel with every tile admitted
-     must equal the camera kernel bit for bit, at a split shape too
-     (Q = 256, G = 8,192, C = 130); the stress shape must split (S > 1);
+     plan (q-blocks x gallery slices S, ``reid_topk.split_plan``, the same
+     for both kernels) and the share of (64-row, 64-row) tiles that hold
+     an eligible pair; both kernels also on split edge cases (ties across
+     slice boundaries, k = 16 over one-tile slices, wholly masked slices,
+     G one past a tile), with exact indices, and the tile kernel on a cell
+     axis past its first design's limit (C*T*T = 61,440 > 54,688); the
+     tile kernel with every tile admitted must equal the camera kernel bit
+     for bit, at a split shape too (Q = 256, G = 8,192, C = 130); both
+     stress shapes must split (S > 1);
   4. the camera-granular main path: the duke world at the benchmark's
      scale (8 cameras, 2,700 entities, 5,100 steps, 100 queries) served
      through ``repro_torch.api.serve(device="cuda")`` until every query is
@@ -41,10 +44,12 @@ Phases, one line or block each:
      just after: the tile kernel's must equal the non-empty rounds, the
      camera kernel's must be 0.  A CPU rerun must agree on the trace and
      on all four cost counters (admitted and unique frames and tiles); it
-     also counts the (32-row, 64-row) tiles of each round that hold an
-     eligible pair, the kernel's live tiles;
+     also counts the (64-row, 64-row) tiles of each round that hold an
+     eligible pair, the kernel's live tiles (it skips the others before
+     staging their operands);
   7. the tile kernel against its plain version at every round shape phase
-     6 produced; the most frequent and the largest are timed;
+     6 produced; the most frequent and the largest are timed as in phase 3;
+     the most frequent must run unsplit (S = 1);
   8. the kernel benchmark's four kernels (unmasked re-id top-k, flash
      attention, decode attention, Mamba scan) against their plain versions
      on edge inputs: ragged Q and G, integer-valued ties, k > G, G == 0 and
@@ -72,7 +77,8 @@ Phases, one line or block each:
 Times are device times per call: CUDA-graph replays of back-to-back calls,
 timed with CUDA events, median over replays
 (``repro_torch.benchmarks.kernels_bench.device_ms``).  ``bound_ms`` is the
-larger of the bytes the call must move (each input read once, each output
+larger of the bytes the call must move (each input read once, of the
+re-id kernels' admission only the columns the gallery names; each output
 written once) over 3.35 TB/s and the fp32 operations this run's data needs
 (for the re-id kernels two per eligible (query, gallery row) pair and
 feature; for attention four per (query, key) pair the mask or the lengths
@@ -144,8 +150,8 @@ MODEL_SHAPES = {
     # ResNet-50 re-id embedding's 2,048 features
     "reid_topk": dict(Q=256, G=8192, D=2048, k=16),
 }
-QB, GB = 32, 64             # the tile kernel's (query, gallery) tile; 64
-                            # gallery rows are the split kernels' tile too
+TILE = 64                   # the split kernels' (query, gallery) tile,
+                            # reid_topk.SPLIT_QB = SPLIT_GB
 
 
 def fail(msg: str) -> None:
@@ -171,23 +177,29 @@ def eligible(torch, q_tag, admit, gal_cam, gal_tag):
 
 
 def live_tiles(torch, args):
-    """(live, total) (32-row, 64-row) tiles of one call: a tile is live
-    when it holds an eligible pair, and only live tiles run the product."""
+    """(live, total) (64-row, 64-row) tiles of one call: a tile is live
+    when it holds an eligible pair, and the tile kernel runs the product of
+    live tiles only."""
     valid = eligible(torch, args[1], args[2], args[4], args[5])
     Q, G = valid.shape
-    nq, ng = -(-Q // QB), -(-G // GB)
-    padded = torch.zeros((nq * QB, ng * GB), dtype=torch.bool,
+    nq, ng = -(-Q // TILE), -(-G // TILE)
+    padded = torch.zeros((nq * TILE, ng * TILE), dtype=torch.bool,
                          device=valid.device)
     padded[:Q, :G] = valid
-    live = padded.reshape(nq, QB, ng, GB).any(dim=3).any(dim=1)
+    live = padded.reshape(nq, TILE, ng, TILE).any(dim=3).any(dim=1)
     return int(live.sum()), nq * ng
 
 
 def bound(torch, args, k: int):
+    """(ms, "bytes" or "operations"): the least time of one masked top-k
+    call.  Of admit the function reads only the columns that the gallery's
+    in-range cameras or cells name, one byte a query row each."""
     q, q_tag, admit, g, gal_cam, gal_tag = args
     Q, D = q.shape
-    G = g.shape[0]
-    nbytes = (q.numel() * 4 + q_tag.numel() * 4 + admit.numel()
+    C = admit.shape[1]
+    named = gal_cam[(gal_cam >= 0) & (gal_cam < C)]
+    nbytes = (q.numel() * 4 + q_tag.numel() * 4
+              + Q * int(torch.unique(named).numel())
               + g.numel() * 4 + gal_cam.numel() * 4 + gal_tag.numel() * 4
               + Q * k * 8)
     ops = 2 * D * int(eligible(torch, q_tag, admit, gal_cam, gal_tag).sum())
@@ -260,7 +272,7 @@ def synthetic_inputs(torch, rng, Q, G, D, C, *, ties=False, n_tags=3,
         qf = rng.normal(size=(Q, D)).astype(np.float32)
         gf = rng.normal(size=(G, D)).astype(np.float32)
     if boundary_ties:
-        for b in range(GB, G - 1, GB):
+        for b in range(TILE, G - 1, TILE):
             gf[b] = gf[b - 1]
             gf[b + 1] = gf[b - 2]
     q_tag = rng.integers(0, n_tags, Q).astype(np.int32)
@@ -268,7 +280,7 @@ def synthetic_inputs(torch, rng, Q, G, D, C, *, ties=False, n_tags=3,
     admit = rng.random((Q, C)) < p_admit
     gal_cam = rng.integers(0, C, G).astype(np.int32)
     if masked_slices:
-        gal_cam[GB:2 * GB] = gal_cam[3 * GB:4 * GB] = C - 1
+        gal_cam[TILE:2 * TILE] = gal_cam[3 * TILE:4 * TILE] = C - 1
         admit[:, C - 1] = False
     if masked_row and Q:
         admit[0] = False
@@ -526,18 +538,19 @@ def main() -> int:
         say(f"  ptxas {name}.cu: "
             + "; ".join(ptxas_summary(path.with_suffix(".log").read_text())))
 
+    if (reid_topk.SPLIT_QB, reid_topk.SPLIT_GB) != (TILE, TILE):
+        fail(f"the split kernels' tile is not {TILE} x {TILE}")
+
     def plan_of(Q, G):
-        """q-blocks x gallery slices of the camera and unmasked kernels."""
+        """q-blocks x gallery slices of the three re-id kernels."""
         nq, S = reid_topk.split_plan(Q, G, n_sms)
         return f"{nq}x{S}"
 
     camera = dict(CAMERA, call=ops.reid_topk_segments,
                   plain=ref.reid_topk_segments_ref, axis="C",
                   plan=plan_of)
-    # the tile kernel: one block per 32 query rows, the whole gallery each
     tiles = dict(TILES, call=ops.reid_topk_tiles,
-                 plain=ref.reid_topk_tiles_ref, axis="CT",
-                 plan=lambda Q, G: f"{-(-Q // QB)}x1")
+                 plain=ref.reid_topk_tiles_ref, axis="CT", plan=plan_of)
 
     # -- phase 3: kernels vs plain on synthetic inputs -------------------
     rng = np.random.default_rng(0)
@@ -596,6 +609,22 @@ def main() -> int:
         err, _ = check_and_time(torch, camera, lib, name, args, k,
                                 exact_idx=kw.get("ties", False))
         max_err[CAMERA["name"]] = max(max_err[CAMERA["name"]], err)
+    # the same through the tile kernel over C*T*T cells (the masked slices
+    # hold only the last cell, which nobody admits), and a cell axis past
+    # the first tile kernel's limit of 54,688; their own seed
+    tile_rng = np.random.default_rng(16)
+    tile_split_cases = [
+        (f"tiles {name}", Q, G, D, C * TT, k, kw)
+        for name, Q, G, D, C, k, kw in split_cases] + [
+        ("tiles split CT=61440 past the old limit 70x700 int", 70, 700, 16,
+         15 * 64 * 64, 5, dict(ties=True, pad_rows=9))]
+    for name, Q, G, D, CT, k, kw in tile_split_cases:
+        if reid_topk.split_plan(Q, G, n_sms)[1] < 2:
+            fail(f"{name}: the plan does not split Q={Q} G={G}")
+        args = synthetic_inputs(torch, tile_rng, Q, G, D, CT, **kw)
+        err, _ = check_and_time(torch, tiles, lib, name, args, k,
+                                exact_idx=kw.get("ties", False))
+        max_err[TILES["name"]] = max(max_err[TILES["name"]], err)
     for kern in (camera, tiles):
         empty = synthetic_inputs(torch, rng, 4, 0, 64, 8)
         before = (reid_topk.LAUNCHES, reid_topk.TILE_LAUNCHES)
@@ -624,7 +653,7 @@ def main() -> int:
                  f"camera kernel at Q={Q} G={G} C={C} k={k}")
     say("  all tiles admitted: the tile kernel equals the camera kernel bit "
         "for bit (Q=33 G=517 C=8 k=3; Q=64 G=1000 C=130 k=16; Q=256 G=8192 "
-        f"C=130 k=16, camera plan {plan_of(256, 8192)})")
+        f"C=130 k=16, both plans {plan_of(256, 8192)})")
 
     stress = synthetic_inputs(torch, rng, 256, 8192, 2048, 130, n_tags=2,
                               p_admit=0.75, pad_rows=80)
@@ -637,6 +666,9 @@ def main() -> int:
                                 n_tags=2, p_admit=0.75, pad_rows=80)
     err, st_t = check_and_time(torch, tiles, lib, "tiles stress", stress_t,
                                16, exact_idx=False)
+    if st_t["plan"] != st["plan"]:
+        fail(f"the tile stress plan {st_t['plan']} is not the camera "
+             f"kernel's {st['plan']}")
     max_err[TILES["name"]] = max(max_err[TILES["name"]], err)
     del stress, stress_t
 
@@ -842,7 +874,7 @@ def main() -> int:
         + ("; all four cost counters equal" if parted is None else
            f"; query {parted} parted at a near-threshold record, so the "
            f"cost counters are not compared")
-        + f"; live (32-row, 64-row) tiles over the run's rounds: {live[0]} "
+        + f"; live (64-row, 64-row) tiles over the run's rounds: {live[0]} "
           f"of {live[1]} ({100 * live_share:.2f} %)")
 
     device_share(torch, serve_tiles, "[6 tiles]", ticks=TICKS)
@@ -856,6 +888,8 @@ def main() -> int:
         err = check_against_plain(torch, tiles, f"tile round {shape}", args,
                                   k, exact_idx=False)
         max_err[TILES["name"]] = max(max_err[TILES["name"]], err)
+    if reid_topk.split_plan(*t_main, n_sms)[1] != 1:
+        fail(f"the main tile round shape {t_main} splits the gallery")
     say(f"[7 tile rounds] {len(t_shapes)} round shapes (Q, G), all agree "
         f"with the plain version (max abs err "
         f"{max_err[TILES['name']]:.3g}); the most frequent is "
@@ -875,15 +909,17 @@ def main() -> int:
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row["library_ms"],
         shape=dict(Q=t_main[0], G=t_main[1], D=int(args[0].shape[1]),
-                   CT=int(args[2].shape[1]), k=k),
+                   CT=int(args[2].shape[1]), k=k, plan=row["plan"]),
         largest=dict(Q=largest[0], G=largest[1], ms=big["ms"],
                      plain_ms=big["plain_ms"], library_ms=big["library_ms"],
-                     bound_ms=big["bound_ms"], bound_by=big["bound_by"]),
+                     bound_ms=big["bound_ms"], bound_by=big["bound_by"],
+                     plan=big["plan"]),
         live_tile_share=live_share,
         stress=dict(Q=256, G=8192, D=2048, CT=130 * TT, k=16, ms=st_t["ms"],
                     plain_ms=st_t["plain_ms"],
                     library_ms=st_t["library_ms"],
-                    bound_ms=st_t["bound_ms"], bound_by=st_t["bound_by"]))
+                    bound_ms=st_t["bound_ms"], bound_by=st_t["bound_by"],
+                    plan=st_t["plan"]))
 
     # -- phase 8: the benchmark's kernels on edge inputs ------------------
     from repro_torch.benchmarks import kernels_bench
@@ -913,7 +949,7 @@ def main() -> int:
             g = torch.randint(0, 2, (G, D), generator=gen, device=DEVICE)
             q, g = q.float(), g.float()
             if ties == "boundary":
-                for b in range(GB, G - 1, GB):
+                for b in range(TILE, G - 1, TILE):
                     g[b] = g[b - 1]
                     g[b + 1] = g[b - 2]
         else:

@@ -1,16 +1,16 @@
-// The gallery-split design shared by the unmasked (reid_topk_plain.cu) and
-// the camera-masked (reid_topk.cu) re-id top-k kernels for Hopper
-// (sm_90a): the similarity GEMM fused with a masked top-k, the (Q, G)
-// score matrix never in device memory.
+// The gallery-split design shared by the re-id top-k kernels for Hopper
+// (sm_90a): unmasked (reid_topk_plain.cu), camera-masked (reid_topk.cu)
+// and tile-masked over fused (camera x tile) cells (reid_topk_tiles.cu).
+// Each fuses the similarity GEMM with a masked top-k, the (Q, G) score
+// matrix never in device memory.
 //
 // What bounds these kernels on an H100.  At the benchmark and stress
 // shapes (Q = 256, G = 8,192) the fp32 product, 2 Q G D operations, is the
 // work: 0.27 GFLOP at D = 64 and 8.6 GFLOP at D = 2,048, about 4 us and
 // 0.13 ms at the 67 TFLOP/s CUDA-core peak, against 2.2 MB and 67 MB to
-// read.  The kernels of the first slices gave each 32 query rows one block
-// that walked the whole gallery (8 blocks on 132 SMs at Q = 256) and a
-// 2 x 4 register micro-tile, fed by bank-conflicted synchronous staging.
-// This design answers with three pieces.
+// read.  A block per 32 query rows over the whole gallery would leave most
+// of the 132 SMs idle (8 blocks at Q = 256).  This design answers with
+// four pieces.
 //
 //  1. The split.  A block owns BQ = 64 query rows and one slice of the
 //     gallery, a whole number of BG = 64-row tiles; the grid is q-blocks x
@@ -37,8 +37,8 @@
 //     contiguous words, and the 8 consecutive rows a warp reads at one
 //     depth start 4 banks apart, so their 8-byte reads cover all 32 banks
 //     once (the 4 query rows broadcast).  Each score is one fmaf chain in
-//     depth order from 0, the zero-padded depth adding exact zeros: the
-//     same bits as the tile kernel's product (topk.cuh).
+//     depth order from 0, the zero-padded depth adding exact zeros, so the
+//     three kernels give the same bits wherever their eligibility agrees.
 //  3. The top-K, out of the product's registers.  After a tile's product
 //     every thread stores its 64 scores to a score tile in shared memory
 //     (over the first operand stage, stride SS = 72 words, conflict-free).
@@ -53,6 +53,12 @@
 //     a clock per SM), so the selection counts shuffles: 114 a row for
 //     K = 16, 8 K and the merge's for K <= 8.  No list lives in the
 //     product's registers.
+//  4. Dead tiles.  An admission may decide, per tile, before any operand
+//     is copied, whether the (64-row, 64-row) tile holds an eligible pair
+//     (Admission::SKIPS, the tile kernel's): the tile's gallery columns
+//     land first, the admission gathers its masks, and __syncthreads_or
+//     skips a tile with none, which would push nothing.  Admissions that
+//     do not skip run the loop without that step.
 #pragma once
 
 #include <climits>
@@ -62,9 +68,12 @@
 
 #include <cuda_runtime.h>
 
-#include "topk.cuh"
-
 namespace reid {
+
+constexpr int MAX_K = 16;
+constexpr float NEG_INF = -1e30f;              // the sentinel score
+constexpr size_t DEFAULT_SMEM = 48 * 1024;     // without the opt-in attribute
+
 namespace split {
 
 constexpr int BQ = 64;            // query rows per block
@@ -332,27 +341,119 @@ __device__ __forceinline__ void fold_tile(Smem& sm, const Admission& adm,
   }
 }
 
-// Stage tile t's first depth chunk (into stage 1: the score tile lies
-// over stage 0) and its gallery columns; one cp.async group.
-template <class Admission>
-__device__ __forceinline__ void issue_tile(Smem& sm, const Admission& adm,
+// Stage a tile's gallery columns, a camera or cell and a tag per row, into
+// column buffer tb by cp.async; past G they read 0, but the caller tests
+// g < G before ok().
+__device__ __forceinline__ void stage_columns(Smem& sm, int tb,
+                                              const int* __restrict__ cam,
+                                              const int* __restrict__ tag,
+                                              int g0, int G, int tid) {
+  for (int r = tid; r < BG; r += NT) {
+    const bool in = g0 + r < G;
+    cp_async4(&sm.gcam[tb][r], in ? cam + g0 + r : cam, in);
+    cp_async4(&sm.gtag[tb][r], in ? tag + g0 + r : tag, in);
+  }
+}
+
+// Stage tile t's first depth chunk into stage 1 (the score tile lies over
+// stage 0); the caller commits the cp.async group.
+__device__ __forceinline__ void first_chunk(Smem& sm,
+                                            const float* __restrict__ q,
+                                            const float* __restrict__ g,
+                                            int Q, int G, int D, int q0,
+                                            int t, bool vec, int tid) {
+  load_stage(sm.op[1][0], q, Q, q0, D, 0, vec, tid);
+  load_stage(sm.op[1][1], g, G, t * BG, D, 0, vec, tid);
+}
+
+// A tile's product over the whole depth, into the score tile.  Its first
+// chunk is in flight in stage 1; chunk c lies in stage (c + 1) % 2, and
+// chunk c + 1 is issued while chunk c multiplies.  Every cp.async group is
+// complete on return.
+__device__ __forceinline__ void score_tile(Smem& sm,
                                            const float* __restrict__ q,
                                            const float* __restrict__ g,
                                            int Q, int G, int D, int q0,
-                                           int t, int tb, bool vec, int tid) {
-  adm.tile(sm, tb, t * BG, tid);
-  load_stage(sm.op[1][0], q, Q, q0, D, 0, vec, tid);
-  load_stage(sm.op[1][1], g, G, t * BG, D, 0, vec, tid);
-  cp_commit();
+                                           int g0, int ni, bool vec,
+                                           int tid) {
+  const int tq = tid >> 3, tg = tid & 7;
+  const int nch = (D + DCH - 1) / DCH;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+  for (int ch = 0; ch < nch; ++ch) {
+    if (ch + 1 < nch) {
+      const int b = ch & 1, d0 = (ch + 1) * DCH;
+      load_stage(sm.op[b][0], q, Q, q0, D, d0, vec, tid);
+      load_stage(sm.op[b][1], g, G, g0, D, d0, vec, tid);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // chunk ch is in place for every thread
+    const int b = (ch + 1) & 1;
+    if (ni <= 2)
+      product<2>(sm.op[b][0], sm.op[b][1], tq, tg, acc);
+    else if (ni <= 4)
+      product<4>(sm.op[b][0], sm.op[b][1], tq, tg, acc);
+    else
+      product<8>(sm.op[b][0], sm.op[b][1], tq, tg, acc);
+    __syncthreads();  // chunk ch is consumed: its stage may refill
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sm.score[tq + 8 * i][tg + 8 * j] = acc[i][j];
+  }
+  __syncthreads();  // the score tile is complete; stage 1 is free
+}
+
+// The first live tile of [t, t1) for an admission that skips dead tiles.
+// On entry tile t's columns are in flight into column buffer tb, the only
+// pending cp.async group.  For each candidate the columns land, and
+// adm.gather(sm, tb, q0, g0, nrows, tid) builds its masks (buffer tb) and
+// says whether the thread's column holds an eligible pair; a tile with
+// none in the block is skipped before any of its operands is copied, and
+// the next candidate's columns come into the same buffer.  The live tile
+// found has its first chunk and the next tile's columns (into buffer
+// tb ^ 1, whose masks the caller may still be folding: ok() reads only the
+// masks) issued as one group.  Returns the tile, or t1 if none is live.
+template <class Admission>
+__device__ __forceinline__ int next_live(Smem& sm, const Admission& adm,
+                                         const float* __restrict__ q,
+                                         const float* __restrict__ g,
+                                         int Q, int G, int D, int q0,
+                                         int nrows, int t, int t1, int tb,
+                                         bool vec, int tid) {
+  for (; t < t1; ++t) {
+    cp_wait<0>();
+    __syncthreads();  // tile t's columns are in place for every thread
+    if (__syncthreads_or(adm.gather(sm, tb, q0, t * BG, nrows, tid))) break;
+    if (t + 1 < t1) {
+      adm.tile(sm, tb, (t + 1) * BG, tid);
+      cp_commit();
+    }
+  }
+  if (t < t1) {
+    if (t + 1 < t1) adm.tile(sm, tb ^ 1, (t + 1) * BG, tid);
+    first_chunk(sm, q, g, Q, G, D, q0, t, vec, tid);
+    cp_commit();
+  }
+  return t;
 }
 
 // The block's work: q-block blockIdx.x % nq, slice blockIdx.x / nq.
 // `adm` decides eligibility beyond the ranges: adm.setup(sm, q0, nrows,
 // tid) stages the block's query rows (overlapping the first tile's
 // copies), adm.tile(sm, tb, g0, tid) issues the copies of a tile's gallery
-// columns into tag buffer tb, and adm.ok(sm, tb, r, c) tests one pair.
-// Chunk c of a tile lies in stage (c + 1) % 2; while a tile's scores fold,
-// the next tile's first chunk and columns are in flight.
+// columns into column buffer tb, and adm.ok(sm, tb, r, c) tests one pair.
+// While a tile's scores fold, the next tile's first chunk and columns are
+// in flight.  An admission with SKIPS also gathers each tile's masks
+// (next_live) and runs the product of live tiles only.
 template <int K, class Admission>
 __device__ __forceinline__ void slice_topk(
     Smem& sm, const Admission& adm, const float* __restrict__ q,
@@ -360,7 +461,6 @@ __device__ __forceinline__ void slice_topk(
     float* __restrict__ out_v, int* __restrict__ out_i,
     float* __restrict__ ws_v, int* __restrict__ ws_i) {
   const int tid = threadIdx.x;
-  const int tq = tid >> 3, tg = tid & 7;
   const int nq = (Q + BQ - 1) / BQ;
   const int s = blockIdx.x / nq;
   const int q0 = (blockIdx.x - s * nq) * BQ;
@@ -369,9 +469,11 @@ __device__ __forceinline__ void slice_topk(
   const int ng = (G + BG - 1) / BG;
   const int t0 = (int)((long long)s * ng / S);
   const int t1 = (int)((long long)(s + 1) * ng / S);
-  const int nch = (D + DCH - 1) / DCH;
 
-  issue_tile(sm, adm, q, g, Q, G, D, q0, t0, 0, vec, tid);
+  adm.tile(sm, 0, t0 * BG, tid);
+  if constexpr (!Admission::SKIPS)
+    first_chunk(sm, q, g, Q, G, D, q0, t0, vec, tid);
+  cp_commit();
   adm.setup(sm, q0, nrows, tid);
   for (int e = tid; e < BQ * MAX_K; e += NT) {
     (&sm.lv[0][0])[e] = NONE;
@@ -379,44 +481,31 @@ __device__ __forceinline__ void slice_topk(
   }
   for (int r = tid; r < BQ; r += NT) sm.thr[r] = NONE;
 
-  for (int t = t0; t < t1; ++t) {
-    const int g0 = t * BG, tb = (t - t0) & 1;
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  if constexpr (Admission::SKIPS) {
+    int tb = 0;
+    int t = next_live(sm, adm, q, g, Q, G, D, q0, nrows, t0, t1, tb, vec,
+                      tid);
+    while (t < t1) {
+      score_tile(sm, q, g, Q, G, D, q0, t * BG, ni, vec, tid);
+      const int next = next_live(sm, adm, q, g, Q, G, D, q0, nrows, t + 1,
+                                 t1, tb ^ 1, vec, tid);
+      fold_tile<K>(sm, adm, tb, nrows, t * BG, G, tid);
+      __syncthreads();  // lists updated, the score tile (stage 0) free
+      t = next;
+      tb ^= 1;
     }
-    for (int ch = 0; ch < nch; ++ch) {
-      if (ch + 1 < nch) {
-        const int b = ch & 1, d0 = (ch + 1) * DCH;
-        load_stage(sm.op[b][0], q, Q, q0, D, d0, vec, tid);
-        load_stage(sm.op[b][1], g, G, g0, D, d0, vec, tid);
+  } else {
+    for (int t = t0; t < t1; ++t) {
+      const int tb = (t - t0) & 1;
+      score_tile(sm, q, g, Q, G, D, q0, t * BG, ni, vec, tid);
+      if (t + 1 < t1) {
+        adm.tile(sm, tb ^ 1, (t + 1) * BG, tid);
+        first_chunk(sm, q, g, Q, G, D, q0, t + 1, vec, tid);
         cp_commit();
-        cp_wait<1>();
-      } else {
-        cp_wait<0>();
       }
-      __syncthreads();  // chunk ch is in place for every thread
-      const int b = (ch + 1) & 1;
-      if (ni <= 2)
-        product<2>(sm.op[b][0], sm.op[b][1], tq, tg, acc);
-      else if (ni <= 4)
-        product<4>(sm.op[b][0], sm.op[b][1], tq, tg, acc);
-      else
-        product<8>(sm.op[b][0], sm.op[b][1], tq, tg, acc);
-      __syncthreads();  // chunk ch is consumed: its stage may refill
+      fold_tile<K>(sm, adm, tb, nrows, t * BG, G, tid);
+      __syncthreads();  // lists updated, the score tile (stage 0) free
     }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sm.score[tq + 8 * i][tg + 8 * j] = acc[i][j];
-    }
-    __syncthreads();  // the score tile is complete; stage 1 is free
-    if (t + 1 < t1)
-      issue_tile(sm, adm, q, g, Q, G, D, q0, t + 1, tb ^ 1, vec, tid);
-    fold_tile<K>(sm, adm, tb, nrows, g0, G, tid);
-    __syncthreads();  // lists updated, the score tile (stage 0) free
   }
 
   if (S == 1) {

@@ -44,6 +44,7 @@ constexpr int MAX_CAMS = 4096;    // 64 x 128 packed words: 32 KB
 constexpr int PACK = 16;          // admit words a warp packs per step
 
 struct Cameras {
+  static constexpr bool SKIPS = false;
   const uint8_t* admit;
   const int* q_tag;
   const int* gal_cam;
@@ -76,15 +77,9 @@ struct Cameras {
     for (int r = tid; r < nrows; r += NT) sm.qtag[r] = q_tag[q0 + r];
   }
 
-  // A tile's cameras and tags, by cp.async; past G they read 0, but the
-  // caller tests g < G before ok().
   __device__ __forceinline__ void tile(Smem& sm, int tb, int g0,
                                        int tid) const {
-    for (int r = tid; r < BG; r += NT) {
-      const bool in = g0 + r < G;
-      cp_async4(&sm.gcam[tb][r], in ? gal_cam + g0 + r : gal_cam, in);
-      cp_async4(&sm.gtag[tb][r], in ? gal_tag + g0 + r : gal_tag, in);
-    }
+    stage_columns(sm, tb, gal_cam, gal_tag, g0, G, tid);
   }
 
   __device__ __forceinline__ bool ok(const Smem& sm, int tb, int r,

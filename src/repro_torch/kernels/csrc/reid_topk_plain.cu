@@ -28,6 +28,7 @@ using namespace reid;
 using namespace reid::split;
 
 struct Everyone {
+  static constexpr bool SKIPS = false;
   __device__ __forceinline__ void setup(Smem&, int, int, int) const {}
   __device__ __forceinline__ void tile(Smem&, int, int, int) const {}
   __device__ __forceinline__ bool ok(const Smem&, int, int, int) const {

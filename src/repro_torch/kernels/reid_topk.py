@@ -18,10 +18,13 @@ raises.  ``LAUNCHES`` counts the camera kernel's calls, ``TILE_LAUNCHES``
 the tile kernel's, ``UNMASKED_LAUNCHES`` the unmasked kernel's: one per
 call, the merge launch of a split call included.
 
-The camera and the unmasked kernel split the gallery across blocks
+The three kernels split the gallery across blocks
 (``csrc/reid_split.cuh``): ``split_plan`` chooses the number of slices
-from the shape and the card's SM count, and with more than one slice the
-wrapper allocates the (Q, S, K) workspace the merge reads.
+from the shape and the card's SM count, the same for each kernel, and
+with more than one slice the wrapper allocates the (Q, S, K) workspace
+the merge reads.  The tile kernel gathers admission per (64-row, 64-row)
+tile and skips tiles with no eligible pair, so it takes any cell axis
+whose size fits the launchers' ``int``.
 """
 from __future__ import annotations
 
@@ -35,14 +38,12 @@ from repro_torch.kernels.ref import NEG_INF
 
 MAX_K = 16
 MAX_CAMS = 4096
-#: the widest cell axis C*T*T of the tile kernel: its packed admit rows
-#: (32 x ceil(CT/32) words) beside 13,696 bytes of static shared memory in
-#: the 232,448 bytes a block may opt into on an H100 (``csrc/topk.cuh``)
-MAX_CELLS = (232448 - 13696) // (4 * 32) * 32
+#: the largest size a launcher's ``int`` argument holds
+INT_MAX = 2 ** 31 - 1
 
 #: the split kernels' (query, gallery) tile (``csrc/reid_split.cuh``)
 SPLIT_QB = SPLIT_GB = 64
-#: split-kernel blocks an SM holds at once (46 KB of shared memory each):
+#: split-kernel blocks an SM holds at once (46-47 KB of shared memory each):
 #: the plan aims at filling every SM to that
 BLOCKS_PER_SM = 4
 #: a gallery of fewer tiles is not split: one block, no workspace, no merge
@@ -148,29 +149,28 @@ def _check(queries, q_tag, admit, gallery, gal_cam, gal_tag, k: int,
 
 
 def _launch(source: str, symbol: str, queries, q_tag, admit, gallery,
-            gal_cam, gal_tag, k: int, split: bool):
-    """Launch ``symbol`` of ``csrc/<source>.cu`` on the tensors' card and
-    stream, with its split plan and workspace when ``split``; the caller
-    counts the launch."""
+            gal_cam, gal_tag, k: int):
+    """Launch the masked kernel ``symbol`` of ``csrc/<source>.cu`` on the
+    tensors' card and stream, with its split plan and workspace; the
+    caller counts the launch."""
     from repro_torch.kernels import build
 
     Q, D = queries.shape
     G = gallery.shape[0]
-    fn = build.launcher(source, symbol,
-                        (ctypes.c_void_p,) * (10 if split else 8)
-                        + (ctypes.c_int,) * (7 if split else 6)
-                        + (ctypes.c_void_p,))
+    sizes = (Q, G, D, admit.shape[1], k)
+    if max(sizes) > INT_MAX:
+        raise ValueError(f"{symbol}: a size of (Q, G, D, width, k) = "
+                         f"{sizes} exceeds the launcher's int")
+    fn = build.launcher(source, symbol, (ctypes.c_void_p,) * 10
+                        + (ctypes.c_int,) * 7 + (ctypes.c_void_p,))
     out_v = torch.empty((Q, k), dtype=torch.float32, device=queries.device)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=queries.device)
-    ptrs = [queries.data_ptr(), q_tag.data_ptr(), admit.data_ptr(),
-            gallery.data_ptr(), gal_cam.data_ptr(), gal_tag.data_ptr(),
-            out_v.data_ptr(), out_i.data_ptr()]
-    sizes = [Q, G, D, admit.shape[1], k]
-    if split:
-        ws_v, ws_i, S = _split_args(queries, G, k)
-        ptrs += [_ptr(ws_v), _ptr(ws_i)]
-        sizes.append(S)
-    build.check(fn(*ptrs, *sizes, *build.device_and_stream(queries)), symbol)
+    ws_v, ws_i, S = _split_args(queries, G, k)
+    build.check(fn(queries.data_ptr(), q_tag.data_ptr(), admit.data_ptr(),
+                   gallery.data_ptr(), gal_cam.data_ptr(), gal_tag.data_ptr(),
+                   out_v.data_ptr(), out_i.data_ptr(), _ptr(ws_v),
+                   _ptr(ws_i), *sizes, S,
+                   *build.device_and_stream(queries)), symbol)
     return out_v, out_i
 
 
@@ -190,7 +190,7 @@ def _segment_masked_call(queries, q_tag, admit, gallery, gal_cam, gal_tag,
         raise ValueError(f"C={admit.shape[1]} cameras exceeds the kernel's "
                          f"{MAX_CAMS}")
     out = _launch("reid_topk", "reid_topk_segment_masked", queries, q_tag,
-                  admit, gallery, gal_cam, gal_tag, k, split=True)
+                  admit, gallery, gal_cam, gal_tag, k)
     LAUNCHES += 1
     return out
 
@@ -237,12 +237,8 @@ def reid_topk_tiles(queries, q_tag, admit_ct, gallery, gal_ct, gal_tag,
                                        gal_ct, gal_tag, k)
     if queries.device.type != "cuda":
         raise ValueError(f"no kernel for device {queries.device}")
-    if admit_ct.shape[1] > MAX_CELLS:
-        raise ValueError(f"CT={admit_ct.shape[1]} cells exceeds the tile "
-                         f"kernel's {MAX_CELLS}: its packed admit rows "
-                         f"would not fit in a block's shared memory")
     out = _launch("reid_topk_tiles", "reid_topk_tiles", queries, q_tag,
-                  admit_ct, gallery, gal_ct, gal_tag, k, split=False)
+                  admit_ct, gallery, gal_ct, gal_tag, k)
     TILE_LAUNCHES += 1
     return out
 

@@ -122,25 +122,29 @@ def test_cuda_tile_kernel_all_admitted_equals_camera_kernel(card, Q, G, D, C,
 
 @pytest.mark.cuda
 def test_cuda_tile_kernel_cell_limit(card):
-    """``MAX_CELLS`` is what a block's shared memory holds: the kernel
-    launches at it (every byte a block may opt into) and the wrapper
-    refuses one word more."""
-    arrays = [torch.from_numpy(a).to(card)
-              for a in make_tile_inputs(0, 4, 40, 8, 1, 2, ties=True)]
-    rng = np.random.default_rng(1)
-    arrays[2] = torch.from_numpy(
-        rng.random((4, reid_topk.MAX_CELLS)) < 0.5).to(card)
-    arrays[4] = torch.from_numpy(rng.integers(
-        0, reid_topk.MAX_CELLS, 40).astype(np.int32)).to(card)
-    kv, ki = ops.reid_topk_tiles(*arrays, 3)
-    pv, pi = ref.reid_topk_tiles_ref(*arrays, 3)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(kv, pv, **TOL)
-    assert torch.equal(ki, pi)
-    arrays[2] = torch.zeros((4, reid_topk.MAX_CELLS + 32), dtype=torch.bool,
-                            device=card)
-    with pytest.raises(ValueError, match="cells exceeds"):
-        ops.reid_topk_tiles(*arrays, 2)
+    """No cell limit: cell axes past the first design's 54,688 (its packed
+    admit rows in shared memory) run at a split shape and equal the plain
+    version bit for bit, cells at the axis' far end and past it
+    included."""
+    Q, G = 70, 700
+    assert _slices_of(card, Q, G) > 1
+    for CT in (54688 + 32, 15 * 64 * 64, 1_000_003):
+        arrays = list(make_tile_inputs(CT, Q, G, 16, 1, 2, ties=True,
+                                       unlabeled=20))
+        rng = np.random.default_rng(CT)
+        admit_ct = rng.random((Q, CT)) < 0.3
+        labeled = arrays[4] >= 0
+        arrays[4][labeled] = np.where(
+            rng.random(labeled.sum()) < 0.5,
+            rng.integers(CT - 64, CT + 64, labeled.sum()),
+            rng.integers(0, CT, labeled.sum())).astype(np.int32)
+        arrays[2] = admit_ct
+        t = [torch.from_numpy(a).to(card) for a in arrays]
+        kv, ki = ops.reid_topk_tiles(*t, 3)
+        pv, pi = ref.reid_topk_tiles_ref(*t, 3)
+        torch.cuda.synchronize()
+        assert torch.equal(kv, pv) and torch.equal(ki, pi)
+        assert (ki >= 0).any()
 
 
 @pytest.mark.cuda
@@ -279,8 +283,9 @@ def test_cuda_split_normal_features_match_plain(card):
 
 @pytest.mark.cuda
 def test_cuda_tile_kernel_all_admitted_equals_split_camera_kernel(card):
-    """At a split shape the camera kernel's scores are the unchanged tile
-    kernel's bits: the same fmaf chain in depth order."""
+    """At a split shape the tile kernel with every tile admitted gives the
+    camera kernel's bits: the same plan, eligibility and fmaf chain in
+    depth order."""
     Q, G, C = 256, 8192, 130
     assert _slices_of(card, Q, G) > 1
     cam = make_inputs(9, Q, G, 64, C, pad_rows=9)
@@ -289,6 +294,45 @@ def test_cuda_tile_kernel_all_admitted_equals_split_camera_kernel(card):
     tv, ti = ops.reid_topk_tiles(
         *(torch.from_numpy(a).to(card) for a in camera_to_tiles(cam, 8)), 16)
     assert torch.equal(tv, sv) and torch.equal(ti, si)
+
+
+# (Q, G, D, C, T, k, what): tile shapes the plan splits into S > 1 slices
+TILE_SPLIT_CASES = [
+    (64, 2048, 16, 8, 8, 16, "ties"),       # ties across slice boundaries
+    (40, 1000, 16, 8, 8, 8, "dead"),        # tiles no query admits
+    (256, 8193, 64, 130, 8, 16, ""),        # one row past a whole tile
+    (128, 2048, 64, 8, 8, 3, "sparse"),     # admission p = 0.0005
+    (33, 700, 16, 8, 8, 16, "one tile"),    # k = 16 over one-tile slices
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,G,D,C,T,k,what", TILE_SPLIT_CASES)
+def test_cuda_tile_split_matches_plain(card, Q, G, D, C, T, k, what):
+    S = _slices_of(card, Q, G)
+    assert S > 1
+    if what == "one tile":
+        assert S == -(-G // reid_topk.SPLIT_GB)
+    arrays = list(make_tile_inputs(Q * 3 + G, Q, G, D, C, T, unlabeled=9,
+                                   out_of_range=9,
+                                   p_admit=0.0005 if what == "sparse"
+                                   else 0.6))
+    arrays[0], arrays[3] = _split_features(Q + G, Q, G, D, what)
+    if what == "dead":
+        # tiles 1 and 3 hold only camera C - 1's cells, which nobody admits
+        TT = T * T
+        arrays[4][64:128] = (C - 1) * TT + np.arange(64) % TT
+        arrays[4][192:256] = (C - 1) * TT + np.arange(64) % TT
+        arrays[2][:, (C - 1) * TT:] = False
+    t = [torch.from_numpy(a).to(card) for a in arrays]
+    before = (reid_topk.LAUNCHES, reid_topk.TILE_LAUNCHES)
+    kv, ki = ops.reid_topk_tiles(*t, k)
+    torch.cuda.synchronize()
+    assert (reid_topk.LAUNCHES, reid_topk.TILE_LAUNCHES) == \
+        (before[0], before[1] + 1)
+    pv, pi = ref.reid_topk_tiles_ref(*t, k)
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    assert (ki >= 0).any()
 
 
 @pytest.mark.cuda

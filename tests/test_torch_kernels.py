@@ -282,11 +282,14 @@ def test_tiles_wrapper_rejects_bad_inputs(bad):
 
 
 def test_tile_kernel_limits_and_source():
-    """The wrapper's cell limit is what the kernel's shared memory holds
-    (32 packed admit rows beside its static operands), and it covers
-    130 cameras at T = 8."""
-    assert reid_topk.MAX_CELLS == 54688 >= 130 * 64
+    """The tile kernel runs on the gallery-split design: it includes
+    ``reid_split.cuh``, which skips dead tiles with ``__syncthreads_or``;
+    the first design's header and its cell limit are gone; its library is
+    its own."""
+    assert not hasattr(reid_topk, "MAX_CELLS")
+    assert not (build.CSRC / "topk.cuh").exists()
     src = (build.CSRC / "reid_topk_tiles.cu").read_text()
-    assert "MAX_SMEM - STATIC_SMEM" in src and "__syncthreads_or" in src
+    assert '#include "reid_split.cuh"' in src
+    assert "__syncthreads_or" in (build.CSRC / "reid_split.cuh").read_text()
     assert build.library_path("reid_topk_tiles") != \
         build.library_path("reid_topk")
