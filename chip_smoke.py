@@ -56,23 +56,27 @@ Phases, one line or block each:
      Q == 0, and for the unmasked top-k the split edge cases of phase 3;
      MHA, GQA and MQA at hd 32, 64 and 128, causal or not, S != T,
      float32 and bfloat16; decode lengths of 0, 1, partial, T and past T;
-     scan state sizes 4, 8 and 16.  Top-k scores within 1e-5 (indices as
-     in phase 3), attention within 2e-5 in float32 and 2e-2 in bfloat16,
-     the scan within 1e-4;
+     the scan at state sizes 1, 3, 4, 8, 16, 17, 64 and 300 (tiled), L of
+     1, one below, at and one past the plan's chunk and 4,097 at D of 1,
+     63 and 65, B = 65,536 at L = D = N = 1, A = 0 over 4,096 steps (the
+     state only accumulates) and dt = 0 (y must be 0).  Top-k scores
+     within 1e-5 (indices as in phase 3), attention within 2e-5 in float32
+     and 2e-2 in bfloat16, the scan within 1e-4;
   9. the kernel benchmark path: ``repro_torch.benchmarks.kernels_bench
      .run(device="cuda")``, the four kernels at the JAX benchmark's shapes;
      the four counts are reset just before and read just after, and each
      must equal the calls the benchmark made; every output is held to its
      plain version, the CSV rows are printed, and each kernel's library
      yardstick is timed beside the benchmark's kernel and plain times (the
-     re-id top-k with its plan, which must split);
+     re-id top-k with its plan, which must split; the scan with its plan,
+     ``mamba_scan.scan_plan``);
  10. the same kernels held and timed at the widths of models the repo
      configures: flash attention at yi-6b's layout (H = 32, KV = 4,
      hd = 128) over ``train_4k``'s 4,096 tokens, causal; decode attention
      at that layout over ``decode_32k``'s 32,768-key cache with batch 8
      (cut from 128) and lengths drawn in [1, T]; the scan at
-     falcon-mamba-7b's D = 8,192, N = 16 over 4,096 steps.  Attention and
-     scan within 1e-4.
+     falcon-mamba-7b's D = 8,192, N = 16 over 4,096 steps, with its plan.
+     Attention and scan within 1e-4.
 
 Times are device times per call: CUDA-graph replays of back-to-back calls,
 timed with CUDA events, median over replays
@@ -478,10 +482,14 @@ def ptxas_summary(log: str) -> list[str]:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = re.search(r"\d+([a-z_]+)I(.*?)EEv", m.group(1))
-            entry = m.group(1) if name is None else (
+            plain = re.search(r"\d+([a-z_]+)E", m.group(1))
+            entry = (m.group(1) if plain is None else plain.group(1)) \
+                if name is None else (
                 f"{name.group(1)}<"
                 + name.group(2).replace("13__nv_bfloat16", "bf16")
-                .replace("Li", "").replace("E", ",").rstrip(",") + ">")
+                .replace("Li", "").replace("Lb1", "true")
+                .replace("Lb0", "false").replace("E", ",").rstrip(",")
+                + ">")
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -1019,18 +1027,79 @@ def main() -> int:
         f"T + 5) agree with the plain version (max abs err "
         f"{errs['decode_attention']:.3g}); length 0 gives zeros")
 
-    scan_cases = ((2, 300, 200, 4), (2, 300, 200, 8), (2, 300, 200, 16),
-                  (1, 33, 64, 16))
-    for B, L, D, N in scan_cases:
+    def scan_plan(B, L, D, N):
+        return mamba_scan.scan_plan(B, L, D, N, n_sms)
+
+    def chunk_at(B, D, N):
+        """The chunk of the plan at an L equal to that chunk."""
+        T = scan_plan(B, 4097, D, N).chunk
+        while scan_plan(B, T, D, N).chunk != T:
+            T = scan_plan(B, T, D, N).chunk
+        return T
+
+    # (B, L, D, N, inputs): the state sizes, L around the plan's chunk at
+    # ragged D, a batch past the old grid limit, A = 0, dt = 0
+    scan_cases = [(2, 300, 200, 4, ""), (2, 300, 200, 8, ""),
+                  (2, 300, 200, 16, ""), (1, 33, 64, 16, "")]
+    scan_cases += [(2, 300, 65, N, "") for N in (1, 3, 4, 8, 16, 17, 64, 300)]
+    for D in (1, 63, 65):
+        T = chunk_at(2, D, 16)
+        scan_cases += [(2, L, D, 16, "") for L in (1, T - 1, T, T + 1, 4097)]
+    scan_cases += [(65536, 1, 1, 1, ""), (1, 4096, 64, 16, "A=0"),
+                   (2, 300, 65, 16, "dt=0")]
+    n_seg = n_tiled = 0
+    lanes = set()
+    for B, L, D, N, inputs in scan_cases:
         args, _ = kernels_bench.make_inputs(
             "mamba_scan", dict(B=B, L=L, D=D, N=N), DEVICE, seed=L + N)
+        if inputs == "A=0":
+            args = args[:4] + (torch.zeros_like(args[4]),)
+        elif inputs == "dt=0":
+            args = (args[0], torch.zeros_like(args[1])) + args[2:]
+        before = mamba_scan.LAUNCHES
+        got = ops.mamba_scan(*args)
+        plan = scan_plan(B, L, D, N)
+        label = f"mamba_scan B={B} L={L} D={D} N={N} {inputs} (plan {plan})"
+        if mamba_scan.LAUNCHES != before + 1:
+            fail(f"{label}: {mamba_scan.LAUNCHES - before} launches counted")
+        if inputs == "dt=0" and (got != 0).any():
+            fail(f"{label}: dt = 0 must give y = 0")
         errs["mamba_scan"] = max(errs["mamba_scan"], close_enough(
-            torch, f"mamba_scan B={B} L={L} D={D} N={N}",
-            ops.mamba_scan(*args), kernels_bench.plain("mamba_scan")(*args),
+            torch, label, got, kernels_bench.plain("mamba_scan")(*args),
             SCAN_TOL))
-    say(f"[8 edge] mamba_scan: {len(scan_cases)} cases (N = 4, 8, 16; L and "
-        f"D ragged) agree with the plain version (max abs err "
-        f"{errs['mamba_scan']:.3g})")
+        n_seg += plan.segments > 1
+        n_tiled += plan.tiles > 1
+        lanes.add(plan.nl)
+    say(f"[8 edge] mamba_scan: {len(scan_cases)} cases (N = 1, 3, 4, 8, 16, "
+        f"17, 64, 300; L = 1, chunk - 1, chunk, chunk + 1, 4,097 at D = 1, "
+        f"63, 65; B = 65,536; A = 0 over 4,096 steps; dt = 0 gives 0) agree "
+        f"with the plain version (max abs err {errs['mamba_scan']:.3g}); "
+        f"{n_seg} cases segmented, {n_tiled} with the state axis tiled, "
+        f"lanes a channel {sorted(lanes)}")
+    # every path of the kernel, whatever the plan picks: 1 to 32 lanes a
+    # channel, 1, 4 or 8 entries a lane, several chunks a segment,
+    # segments, a tiled state axis (``launch``, which counts nothing)
+    args, _ = kernels_bench.make_inputs(
+        "mamba_scan", dict(B=2, L=333, D=45, N=17), DEVICE, seed=17)
+    want = kernels_bench.plain("mamba_scan")(*args)
+    forced = ((1, 1, 1, 8, 1), (4, 8, 4, 64, 1), (4, 8, 4, 16, 3),
+              (2, 4, 8, 8, 1), (8, 1, 2, 24, 5), (32, 1, 8, 8, 1),
+              (16, 4, 1, 64, 2), (1, 8, 1, 32, 1))
+    for nl, eg, warps, chunk, segments in forced:
+        plan = mamba_scan.make_plan(2, 333, 45, 17, nl=nl, eg=eg,
+                                    warps=warps, chunk=chunk,
+                                    segments=segments)
+        got = torch.empty_like(args[0])
+        mamba_scan.launch(*args, got, plan)
+        errs["mamba_scan"] = max(errs["mamba_scan"], close_enough(
+            torch, f"mamba_scan B=2 L=333 D=45 N=17 plan {plan}", got, want,
+            SCAN_TOL))
+    say(f"[8 edge] mamba_scan: {len(forced)} forced plans (1 to 32 lanes a "
+        f"channel, 1, 4 or 8 entries a lane, 1 to 17 tiles, 1 to 5 "
+        f"segments) agree with the plain version at B=2 L=333 D=45 N=17")
+    if not n_seg or not n_tiled or 1 not in lanes:
+        fail("the scan's edge cases must reach a segmented plan, a tiled "
+             "state axis and a plan of one lane a channel")
 
     # -- phase 9: the kernel benchmark path -------------------------------
     counters = {"reid_topk": (reid_topk, "UNMASKED_LAUNCHES"),
@@ -1072,6 +1141,9 @@ def main() -> int:
             bound_ms=b_ms, bound_by=b_by,
             library_ms=None if lib is None else device_ms(lib),
             shape=kernels_bench.SHAPES[name])
+        if name == "mamba_scan":
+            bench[name]["shape"] = dict(bench[name]["shape"], plan=str(
+                scan_plan(*args[0].shape, args[2].shape[2])))
         if name == "reid_topk":
             bench[name]["shape"] = dict(bench[name]["shape"], plan=plan_of(
                 args[0].shape[0], args[1].shape[0]))
@@ -1114,6 +1186,9 @@ def main() -> int:
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
         if name == "reid_topk":
             widths[name]["plan"] = plan_of(shape["Q"], shape["G"])
+        if name == "mamba_scan":
+            widths[name]["plan"] = str(scan_plan(
+                shape["B"], shape["L"], shape["D"], shape["N"]))
         t = widths[name]
         lib_ms = "none" if t["library_ms"] is None \
             else f"{t['library_ms']:.4f} ms"

@@ -169,3 +169,28 @@ def mamba_scan_ref(u, dt, Bm, Cm, A, h0):
         ys.append((h * Cm[:, t, None, :]).sum(-1))
     y = torch.stack(ys, 1) if ys else u.new_zeros(u.shape)
     return y, h
+
+
+def mamba_scan_chunked(u, dt, Bm, Cm, A, h0, chunk: int):
+    """The selective scan in the CUDA kernel's association order: each
+    chunk of ``chunk`` steps (the last one ragged) is scanned from a zero
+    state, and its states are then composed with the carry,
+    ``h_t = exp(A * sum(dt over the chunk up to t)) * carry + hl_t``.
+    Same arguments and result as ``mamba_scan_ref``."""
+    u, dt, Bm, Cm, A = (x.to(torch.float32) for x in (u, dt, Bm, Cm, A))
+    h = h0.to(torch.float32)
+    ys = []
+    for c0 in range(0, u.shape[1], chunk):
+        c1 = min(c0 + chunk, u.shape[1])
+        dtc = dt[:, c0:c1]
+        hl, hls = torch.zeros_like(h), []
+        for t in range(c1 - c0):                      # from zero
+            hl = torch.exp(dtc[:, t, :, None] * A) * hl + \
+                (dtc[:, t] * u[:, c0 + t])[..., None] * Bm[:, c0 + t, None, :]
+            hls.append(hl)
+        decay = torch.exp(torch.cumsum(dtc, 1)[..., None] * A)  # (B, c, D, N)
+        hc = decay * h[:, None] + torch.stack(hls, 1)             # + carry
+        ys.append((hc * Cm[:, c0:c1, None, :]).sum(-1))
+        h = hc[:, -1]
+    y = torch.cat(ys, 1) if ys else u.new_zeros(u.shape)
+    return y, h

@@ -378,8 +378,11 @@ def test_cuda_decode_attention_matches_plain(card, B, H, KV, T, hd, bf16):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,L,D,N", SCAN_CASES + [(1, 1024, 256, 16),
-                                                  (2, 100, 70, 8)])
+@pytest.mark.parametrize("B,L,D,N", SCAN_CASES + [
+    (1, 1024, 256, 16), (2, 100, 70, 8),
+    # any state size (the kernel took 4, 8 and 16 only) and any batch
+    (2, 300, 65, 1), (2, 300, 65, 3), (1, 200, 63, 17), (1, 129, 64, 64),
+    (65536, 1, 1, 1)])
 def test_cuda_mamba_scan_matches_plain(card, B, L, D, N):
     arrays = [torch.from_numpy(a).to(card)
               for a in scan_inputs(L + D, B, L, D, N)]
@@ -387,6 +390,29 @@ def test_cuda_mamba_scan_matches_plain(card, B, L, D, N):
     y = ops.mamba_scan(*arrays)
     torch.cuda.synchronize()
     assert mamba_scan.LAUNCHES == before + 1
+    want, _ = ref.mamba_scan_ref(*arrays, torch.zeros((B, D, N),
+                                                      device=card))
+    torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nl,eg,warps,chunk,segments", [
+    (1, 1, 1, 8, 1), (4, 8, 4, 64, 1), (4, 8, 4, 16, 3), (2, 4, 8, 8, 1),
+    (8, 1, 2, 24, 5), (32, 1, 8, 8, 1), (16, 4, 1, 64, 2), (1, 8, 1, 32, 1)])
+def test_cuda_mamba_scan_plans_match_plain(card, nl, eg, warps, chunk,
+                                           segments):
+    """Every path of the kernel, whatever ``scan_plan`` picks: 1 to 32
+    lanes a channel, 1, 4 or 8 entries a lane, one tile or several (the
+    state between them in the workspace), one segment or several, on
+    ragged L, D and N."""
+    B, L, D, N = 2, 333, 45, 17
+    arrays = [torch.from_numpy(a).to(card)
+              for a in scan_inputs(nl + eg, B, L, D, N)]
+    plan = mamba_scan.make_plan(B, L, D, N, nl=nl, eg=eg, warps=warps,
+                                chunk=chunk, segments=segments)
+    y = torch.empty((B, L, D), device=card)
+    mamba_scan.launch(*arrays, y, plan)
+    torch.cuda.synchronize()
     want, _ = ref.mamba_scan_ref(*arrays, torch.zeros((B, D, N),
                                                       device=card))
     torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
