@@ -10,7 +10,8 @@ Phases, one line or block each:
   2. build: all six CUDA sources (the serving path's two re-id kernels and
      the kernel benchmark's four), with nvcc for sm_90a, one nvcc per
      source, all started together; each kernel's registers and spills,
-     the gallery-split kernels' merge pass (``merge_slices``) among them;
+     the gallery-split kernels' merge pass (``merge_slices``) among them,
+     and the flash kernel's per (padded head width, dtype) variant;
   3. each serving kernel against its plain PyTorch version on the card, on
      ragged, tied, masked, k > G, G == 0, C = 130 (and C*T*T = 8,320
      cells) inputs and at a stress shape: scores within rtol/atol 1e-5,
@@ -54,14 +55,18 @@ Phases, one line or block each:
      attention, decode attention, Mamba scan) against their plain versions
      on edge inputs: ragged Q and G, integer-valued ties, k > G, G == 0 and
      Q == 0, and for the unmasked top-k the split edge cases of phase 3;
-     MHA, GQA and MQA at hd 32, 64 and 128, causal or not, S != T,
-     float32 and bfloat16; decode lengths of 0, 1, partial, T and past T;
+     flash attention in MHA, GQA and MQA at hd 8, 32, 40, 64, 80, 96, 128,
+     136 and 256, causal or not, S = T, S < T and S > T, float32 and
+     bfloat16; decode at hd 32, 64 and 128, lengths of 0, 1, partial, T
+     and past T;
      the scan at state sizes 1, 3, 4, 8, 16, 17, 64 and 300 (tiled), L of
      1, one below, at and one past the plan's chunk and 4,097 at D of 1,
      63 and 65, B = 65,536 at L = D = N = 1, A = 0 over 4,096 steps (the
      state only accumulates) and dt = 0 (y must be 0).  Top-k scores
      within 1e-5 (indices as in phase 3), attention within 2e-5 in float32
-     and 2e-2 in bfloat16, the scan within 1e-4;
+     and 2e-2 in bfloat16, where besides at least 99 % of the outputs must
+     equal the plain version's bit for bit (p stays float32, as in the
+     Pallas kernels), the scan within 1e-4;
   9. the kernel benchmark path: ``repro_torch.benchmarks.kernels_bench
      .run(device="cuda")``, the four kernels at the JAX benchmark's shapes;
      the four counts are reset just before and read just after, and each
@@ -72,25 +77,32 @@ Phases, one line or block each:
      ``mamba_scan.scan_plan``);
  10. the same kernels held and timed at the widths of models the repo
      configures: flash attention at yi-6b's layout (H = 32, KV = 4,
-     hd = 128) over ``train_4k``'s 4,096 tokens, causal; decode attention
+     hd = 128) over ``train_4k``'s 4,096 tokens, causal, in float32 and
+     bfloat16, at zamba2-2.7b's (H = KV = 32, hd = 80) likewise, and at the
+     benchmark's shape in bfloat16; decode attention
      at that layout over ``decode_32k``'s 32,768-key cache with batch 8
      (cut from 128) and lengths drawn in [1, T]; the scan at
      falcon-mamba-7b's D = 8,192, N = 16 over 4,096 steps, with its plan.
-     Attention and scan within 1e-4.
+     Attention (float32) and scan within 1e-4, bfloat16 attention held as
+     in phase 8.
 
 Times are device times per call: CUDA-graph replays of back-to-back calls,
 timed with CUDA events, median over replays
 (``repro_torch.benchmarks.kernels_bench.device_ms``).  ``bound_ms`` is the
 larger of the bytes the call must move (each input read once, of the
 re-id kernels' admission only the columns the gallery names; each output
-written once) over 3.35 TB/s and the fp32 operations this run's data needs
+written once) over 3.35 TB/s and the operations this run's data needs
 (for the re-id kernels two per eligible (query, gallery row) pair and
 feature; for attention four per (query, key) pair the mask or the lengths
-leave, per head dim) over 67 TFLOP/s, the H100 SXM data sheet's peaks.
-``library_ms`` times one PyTorch call of the same function, which the port
-never calls: ``torch.matmul`` with masking and ``torch.topk`` for the re-id
-kernels, ``scaled_dot_product_attention`` for attention; the scan has
-none.
+leave, per head dim) over the peak of the unit the kernel computes on:
+67 TFLOP/s, the CUDA cores' fp32, for the re-id kernels and the scan;
+for attention the tensor cores, 989 TFLOP/s in bfloat16 and 495 / 3 =
+165 TFLOP/s in float32 (three TF32 products; ``kernels_bench.peak_flops``);
+the H100 SXM data sheet's peaks.  ``library_ms`` times one PyTorch call of
+the same function, which the port never calls: ``torch.matmul`` with
+masking and ``torch.topk`` for the re-id kernels,
+``scaled_dot_product_attention`` for attention, in the inputs' dtype; the
+scan has none.
 
 Exits non-zero, before the last line, on any failed phase, and without a
 result when no card is present or the repository is not beside it.  The
@@ -111,6 +123,7 @@ FP32_FLOPS = 67e12          # H100 SXM, fp32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, HBM3
 TOL = 1e-5
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+BF16_SHARE = 0.99           # bfloat16 attention outputs equal bit for bit
 MODEL_TOL = 1e-4            # attention and scan at model widths
 SCAN_TOL = 1e-4
 TICKS = 600                 # ticks of the tile path's profiled window
@@ -144,16 +157,30 @@ BENCH = {
 #: the plain version's scores fit), falcon-mamba-7b's scan
 #: (configs/falcon_mamba_7b.py: d_model 4,096 x expand 2, N = 16) over
 #: 4,096 steps
-MODEL_SHAPES = {
-    "flash_attention": dict(B=1, H=32, KV=4, S=4096, T=4096, hd=128,
-                            causal=True),
-    "decode_attention": dict(B=8, H=32, KV=4, T=32768, hd=128,
-                             length="random"),
-    "mamba_scan": dict(B=1, L=4096, D=8192, N=16),
+#: each (kernel, label, shape, dtype); flash also at zamba2-2.7b's layout
+#: (configs/zamba2_2p7b.py: d_model 2,560 over 32 heads, hd 80, no GQA)
+#: and at the benchmark's shape in bfloat16
+MODEL_SHAPES = [
+    ("flash_attention", "yi-6b", dict(B=1, H=32, KV=4, S=4096, T=4096,
+                                      hd=128, causal=True), "float32"),
+    ("flash_attention", "yi-6b", dict(B=1, H=32, KV=4, S=4096, T=4096,
+                                      hd=128, causal=True), "bfloat16"),
+    ("flash_attention", "zamba2-2.7b", dict(B=1, H=32, KV=32, S=4096,
+                                            T=4096, hd=80, causal=True),
+     "float32"),
+    ("flash_attention", "zamba2-2.7b", dict(B=1, H=32, KV=32, S=4096,
+                                            T=4096, hd=80, causal=True),
+     "bfloat16"),
+    ("flash_attention", "bench", dict(B=1, H=8, KV=2, S=1024, T=1024, hd=64,
+                                      causal=True), "bfloat16"),
+    ("decode_attention", "yi-6b", dict(B=8, H=32, KV=4, T=32768, hd=128,
+                                       length="random"), "float32"),
+    ("mamba_scan", "falcon-mamba-7b", dict(B=1, L=4096, D=8192, N=16),
+     "float32"),
     # no model layer runs the re-id top-k; phase 3's stress width, a
     # ResNet-50 re-id embedding's 2,048 features
-    "reid_topk": dict(Q=256, G=8192, D=2048, k=16),
-}
+    ("reid_topk", "stress", dict(Q=256, G=8192, D=2048, k=16), "float32"),
+]
 TILE = 64                   # the split kernels' (query, gallery) tile,
                             # reid_topk.SPLIT_QB = SPLIT_GB
 
@@ -424,10 +451,16 @@ def compare_traces(gpu, cpu, match_thresh):
     return n, None if parted is None else parted[0]
 
 
+#: (label, share of bfloat16 outputs equal to the plain version's) of
+#: every bfloat16 hold
+BF16_SHARES: list[tuple[str, float]] = []
+
+
 def close_enough(torch, name, got, want, tol):
     """Fail unless ``got`` (the kernel) equals ``want`` (the plain version)
     in shape and dtype and within rtol = atol = ``tol``, compared in
-    float32; returns the max absolute error."""
+    float32, and, in bfloat16, on at least ``BF16_SHARE`` of the elements
+    bit for bit; returns the max absolute error."""
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"{name}: kernel returned {tuple(got.shape)} {got.dtype}, "
              f"plain {tuple(want.shape)} {want.dtype}")
@@ -438,12 +471,26 @@ def close_enough(torch, name, got, want, tol):
     if not torch.allclose(g, w, rtol=tol, atol=tol):
         fail(f"{name}: differs from the plain version (max abs {err:.3g}, "
              f"tolerance {tol})")
+    if got.dtype == torch.bfloat16 and got.numel():
+        share = float((got == want).float().mean())
+        BF16_SHARES.append((name, share))
+        if share < BF16_SHARE:
+            fail(f"{name}: {share:.4f} of the bfloat16 outputs equal the "
+                 f"plain version's, below {BF16_SHARE}")
     return err
 
 
+def min_share(prefix: str) -> str:
+    """The least bit-equal share of the bfloat16 holds whose label starts
+    with ``prefix``, and its count."""
+    shares = [v for k, v in BF16_SHARES if k.startswith(prefix)]
+    return f"{min(shares):.4f} (least of {len(shares)})" if shares else "none"
+
+
 def library_yardstick(torch, name, args, kwargs):
-    """One PyTorch call computing ``ops.<name>`` on the same inputs, as a
-    zero-argument callable, or None where there is none (the scan)."""
+    """One PyTorch call computing ``ops.<name>`` on the same inputs (in
+    their dtype), as a zero-argument callable, or None where there is none
+    (the scan)."""
     F = torch.nn.functional
     if name == "reid_topk":
         q, g, k = args
@@ -980,7 +1027,8 @@ def main() -> int:
         f"Q == 0 give sentinels without a launch")
 
     n_flash = 0
-    for hd in (32, 64, 128):
+    flash_hds = (8, 32, 40, 64, 80, 96, 128, 136, 256)
+    for hd in flash_hds:
         for H, KV in ((4, 4), (8, 2), (8, 1)):          # MHA, GQA, MQA
             for causal in (True, False):
                 for dtype in (torch.float32, torch.bfloat16):
@@ -998,10 +1046,14 @@ def main() -> int:
                                                         causal=causal),
                                 ATTN_TOL[str(dtype).split(".")[1]]))
                         n_flash += 1
-    say(f"[8 edge] flash_attention: {n_flash} cases (MHA, GQA, MQA; hd 32, "
-        f"64, 128; causal or not; S = T, S < T, S > T; float32 and "
-        f"bfloat16) agree with the plain version (max abs err "
-        f"{errs['flash_attention']:.3g})")
+    say(f"[8 edge] flash_attention: {n_flash} cases (MHA, GQA, MQA; hd "
+        + ", ".join(map(str, flash_hds)) + "; causal or not; S = T, S < T, "
+        f"S > T; float32 and bfloat16) agree with the plain version (max "
+        f"abs err {errs['flash_attention']:.3g}); bfloat16 outputs "
+        f"bit-equal: {min_share('flash')}; plans "
+        + ", ".join(f"hd{hd} {flash_attention.flash_plan(hd, dt)}"
+                    for hd in (64, 128, 256)
+                    for dt in (torch.float32, torch.bfloat16)))
 
     n_dec = 0
     T = 700                 # not a whole number of the kernel's chunks
@@ -1025,7 +1077,8 @@ def main() -> int:
     say(f"[8 edge] decode_attention: {n_dec} cases (MHA, GQA, MQA; hd 32, "
         f"64, 128; float32 and bfloat16; lengths 0, 1, 333, T = {T} and "
         f"T + 5) agree with the plain version (max abs err "
-        f"{errs['decode_attention']:.3g}); length 0 gives zeros")
+        f"{errs['decode_attention']:.3g}); bfloat16 outputs bit-equal: "
+        f"{min_share('decode')}; length 0 gives zeros")
 
     def scan_plan(B, L, D, N):
         return mamba_scan.scan_plan(B, L, D, N, n_sms)
@@ -1134,7 +1187,8 @@ def main() -> int:
             torch, name, f"bench {name}", args, kwargs, out,
             SCAN_TOL if name == "mamba_scan" else ATTN_TOL["float32"]))
         b_ms, b_by = kernels_bench.bound_ms(
-            *kernels_bench.cost(name, args, kwargs))
+            *kernels_bench.cost(name, args, kwargs),
+            kernels_bench.peak_flops(name, args))
         lib = library_yardstick(torch, name, args, kwargs)
         bench[name] = dict(
             ms=us / 1e3, plain_ms=float(fields["plain_us"]) / 1e3,
@@ -1167,32 +1221,46 @@ def main() -> int:
     del record
 
     # -- phase 10: the kernels at model widths ----------------------------
-    widths = {}
-    for name, shape in MODEL_SHAPES.items():
+    widths = {name: [] for name in BENCH}
+    for name, label, shape, dtype in MODEL_SHAPES:
         t0 = time.perf_counter()
         args, kwargs = kernels_bench.make_inputs(name, shape, DEVICE, seed=1)
+        if dtype == "bfloat16":
+            args = tuple(a.to(torch.bfloat16) if a.is_floating_point() else a
+                         for a in args)
         op, base = getattr(ops, name), kernels_bench.plain(name)
-        err = hold_output(torch, name, f"{name} {shape}", args, kwargs,
-                          op(*args, **kwargs), MODEL_TOL)
+        tag = f"{name} {label} {dtype} {shape}"
+        err = hold_output(torch, name, tag, args, kwargs,
+                          op(*args, **kwargs),
+                          ATTN_TOL[dtype] if dtype == "bfloat16"
+                          else MODEL_TOL)
         errs[name] = max(errs[name], err)
         b_ms, b_by = kernels_bench.bound_ms(
-            *kernels_bench.cost(name, args, kwargs))
+            *kernels_bench.cost(name, args, kwargs),
+            kernels_bench.peak_flops(name, args))
         lib = library_yardstick(torch, name, args, kwargs)
-        widths[name] = dict(
-            shape, ms=device_ms(lambda: op(*args, **kwargs)),
-            plain_ms=device_ms(lambda: base(*args, **kwargs), calls=1,
-                               replays=3),
-            library_ms=None if lib is None else device_ms(lib),
-            bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        t = dict(shape, label=label, dtype=dtype,
+                 ms=device_ms(lambda: op(*args, **kwargs)),
+                 plain_ms=device_ms(lambda: base(*args, **kwargs), calls=1,
+                                    replays=3),
+                 library_ms=None if lib is None else device_ms(lib),
+                 bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
         if name == "reid_topk":
-            widths[name]["plan"] = plan_of(shape["Q"], shape["G"])
+            t["plan"] = plan_of(shape["Q"], shape["G"])
         if name == "mamba_scan":
-            widths[name]["plan"] = str(scan_plan(
+            t["plan"] = str(scan_plan(
                 shape["B"], shape["L"], shape["D"], shape["N"]))
-        t = widths[name]
+        if name == "flash_attention":
+            t["plan"] = str(flash_attention.flash_plan(shape["hd"],
+                                                       args[0].dtype))
+            if dtype == "bfloat16":
+                t["bf16_share"] = BF16_SHARES[-1][1]
+        widths[name].append(t)
         lib_ms = "none" if t["library_ms"] is None \
             else f"{t['library_ms']:.4f} ms"
-        say(f"[10 model] {name} {shape}: agrees (max abs err {err:.3g}); "
+        say(f"[10 model] {tag}: agrees (max abs err {err:.3g}"
+            + (f", bfloat16 bit-equal {t['bf16_share']:.4f}"
+               if "bf16_share" in t else "") + "); "
             + (f"plan {t['plan']}; " if "plan" in t else "")
             + f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
             f"library {lib_ms}, bound {b_ms:.6f} ms ({b_by}); "

@@ -11,8 +11,12 @@ kernel.  On the card (``--device cuda``, the default; it raises without
 one) ``us_per_call`` is the kernel's device time and ``plain_us`` its
 plain version's, both from CUDA events around CUDA-graph replays of
 back-to-back calls (``device_ms``); ``bound_us`` is the larger of the
-bytes the call must move over 3.35 TB/s and its float32 operations over
-67 TFLOP/s (the H100 SXM data sheet's peaks), and ``bound_by`` says which.
+bytes the call must move over 3.35 TB/s and its operations over the peak
+of the unit the kernel computes on (``peak_flops``: the CUDA cores' fp32
+67 TFLOP/s for the re-id top-k and the scan; for attention the tensor
+cores, 989 TFLOP/s in bfloat16 and 495 / 3 = 165 TFLOP/s in float32,
+which takes three TF32 products; the H100 SXM data sheet's peaks), and
+``bound_by`` says which.
 On the CPU (``--device cpu``) both times are host-clock times of the plain
 versions, marked ``clock=host``: no device figure.
 """
@@ -28,6 +32,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, ref
 
 FP32_FLOPS = 67e12          # H100 SXM, fp32 outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM, bf16 on the tensor cores, dense
+TF32X3_FLOPS = 495e12 / 3   # H100 SXM, fp32 as three TF32 tensor products
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, HBM3
 
 #: the JAX benchmark's shapes (``benchmarks/kernels_bench.py``), all float32
@@ -91,7 +97,7 @@ def plain(name: str):
 
 
 def cost(name: str, args, kwargs) -> tuple[float, float]:
-    """(float32 operations, bytes) the call needs on these inputs: each
+    """(operations, bytes) the call needs on these inputs: each
     input read once and each output written once; attention counts only
     the (query, key) pairs the causal mask or the valid lengths leave."""
     if name == "reid_topk":
@@ -130,9 +136,22 @@ def cost(name: str, args, kwargs) -> tuple[float, float]:
     raise KeyError(name)
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    """The least time the card could take, in ms, and what bounds it."""
-    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+def peak_flops(name: str, args) -> float:
+    """The peak rate of the unit ``ops.<name>`` computes on, for these
+    inputs: the tensor cores for attention (bfloat16, or float32 as
+    3xTF32), the CUDA cores' fp32 for the re-id top-k and the scan, whose
+    contracts keep one fp32 FMA chain per output."""
+    if name in ("flash_attention", "decode_attention"):
+        return BF16_FLOPS if args[0].dtype == torch.bfloat16 \
+            else TF32X3_FLOPS
+    return FP32_FLOPS
+
+
+def bound_ms(flops: float, nbytes: float,
+             peak: float = FP32_FLOPS) -> tuple[float, str]:
+    """The least time the card could take, in ms, and what bounds it:
+    ``flops`` at ``peak`` per second or ``nbytes`` at the memory's rate."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -206,9 +225,11 @@ def run(device="cuda", *, record: dict | None = None):
             us = host_ms(kernel) * 1e3
             plain_us = host_ms(lambda: base(*args, **kwargs)) * 1e3
         flops, nbytes = cost(name, args, kwargs)
-        b_ms, b_by = bound_ms(flops, nbytes)
+        peak = peak_flops(name, args)
+        b_ms, b_by = bound_ms(flops, nbytes, peak)
         derived = (f"plain_us={plain_us:.3f};bound_us={b_ms * 1e3:.4f};"
-                   f"bound_by={b_by};flops={flops:.4g};bytes={nbytes:.4g};"
+                   f"bound_by={b_by};flops={flops:.4g};peak={peak:.4g};"
+                   f"bytes={nbytes:.4g};"
                    f"calls={calls[0]};device={dev.type}"
                    + ("" if on_card else ";clock=host"))
         rows.append((f"kernels/{name}", us, derived))

@@ -1,6 +1,9 @@
 // Pieces shared by the attention kernels for Hopper (sm_90a):
 // flash_attention.cu (prefill) and decode_attention.cu (one token against
-// a cache).  Both read float32 or bfloat16 and compute in float32.
+// a cache).  Both read float32 or bfloat16 and compute in float32,
+// the softmax weight p included: the Pallas kernels cast v to float32
+// before the PV product (`v = v_ref[...].astype(jnp.float32)`), so their
+// `p.astype(v.dtype)` leaves p float32 for bfloat16 inputs too.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,14 +27,6 @@ __device__ __forceinline__ float from_f32<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-// The softmax weight p as the PV product sees it: the Pallas kernels round
-// p to v's dtype first (`p.astype(v.dtype)`), so bfloat16 inputs get a
-// bfloat16 p, while the running sum l keeps the float32 p.
-__device__ __forceinline__ float as_v_dtype(float p, float) { return p; }
-__device__ __forceinline__ float as_v_dtype(float p, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(p));
 }
 
 }  // namespace attn

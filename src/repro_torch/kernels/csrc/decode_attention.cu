@@ -4,10 +4,10 @@
 // Replaces the TPU kernel `_decode_kernel` launched by `decode_attention`
 // in src/repro/kernels/decode_attention.py.  Same function: for row b, the
 // keys t < length[b] (length past T means T) are scored q . k * hd^-0.5 in
-// float32, softmaxed with a float32 running (max, sum, accumulator), p is
-// rounded to v's dtype before the PV product, and the output is
-// acc / max(l, 1e-30) in q's dtype; a row with length <= 0 is zeros, since
-// every tile is skipped.
+// float32, softmaxed with a float32 running (max, sum, accumulator), p
+// stays float32 in the PV product (the Pallas kernel casts v to float32
+// first), and the output is acc / max(l, 1e-30) in q's dtype; a row with
+// length <= 0 is zeros, since every tile is skipped.
 //
 // Design.  The Pallas grid walks the cache sequentially per (b, kv head)
 // with all G = H / KV q heads in one (G, hd) x (hd, block_k) product.
@@ -103,12 +103,11 @@ __global__ void decode_partial(const T* __restrict__ q,
     const float corr = expf(m - mt);
     const float p = valid ? expf(sc - mt) : 0.f;
     l = l * corr + warp_sum(p);
-    const float pv = as_v_dtype(p, T{});
 #pragma unroll
     for (int i = 0; i < DPL; ++i) acc[i] *= corr;
 #pragma unroll 8
     for (int j = 0; j < TK; ++j) {
-      const float pj = __shfl_sync(0xffffffffu, pv, j);
+      const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
       for (int i = 0; i < DPL; ++i)
         acc[i] = fmaf(pj, v_s[j * HD + lane + 32 * i], acc[i]);

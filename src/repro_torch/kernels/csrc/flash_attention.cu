@@ -1,189 +1,871 @@
-// Prefill attention for Hopper (sm_90a): one pass over the keys with an
-// online softmax, so the (S, T) score matrix never reaches device memory.
+// Prefill attention for Hopper (sm_90a) on the tensor cores: one pass over
+// the keys with an online softmax, so the (S, T) score matrix never
+// reaches device memory.
 //
 // Replaces the TPU kernel `_flash_kernel` launched by `flash_attention` in
 // src/repro/kernels/flash_attention.py.  Same function: scores q . k
 // scaled by hd^-0.5 in float32; with `causal`, key positions past the
 // query's (both from 0) score -1e30 and key tiles wholly above the
 // diagonal are skipped; GQA reads kv head h / (H / KV); the running
-// (max, sum, accumulator) are float32, p is rounded to v's dtype before
-// the PV product, and the output is acc / max(l, 1e-30) in q's dtype.
-//
-// Design.  The Pallas grid carries (m, l, acc) in VMEM across a sequential
-// kv axis; here a block owns BQ = 64 query rows of one (b, h) and loops
-// over the keys itself, staging BK = 32 keys of K and V (as float32) in
-// shared memory per step.  Four threads share a query row, each holding
-// hd / 4 of its q and accumulator in registers (8, 16 or 32 floats at
-// hd = 32, 64, 128) as interleaved float4 chunks, so the four lanes read
-// 64 contiguous bytes of a K or V row together without bank conflicts;
-// a row's score is its four partial dot products summed by two xor
-// shuffles.  hd is a template parameter.
+// (max, sum, accumulator) are float32, and so is the softmax weight p in
+// the PV product (the Pallas kernel casts v to float32 first, so
+// `p.astype(v.dtype)` keeps p float32 for bfloat16 inputs too); the output
+// is acc / max(l, 1e-30) in q's dtype.
 //
 // What bounds it on an H100.  The work is 4 * hd operations per (query,
-// key) pair: at the benchmark's causal shape (B = 1, H = 8, S = T = 1024,
-// hd = 64) 1.07 GFLOP, 16 us at the 67 TFLOP/s fp32 peak, against 1.6 us
-// to move 5.2 MB: operations.  This kernel uses the CUDA cores' fp32 FMA,
-// not the tensor cores, and every lane re-reads each staged K and V row;
-// a wgmma product from TMA-staged tiles is later work.
+// key) pair the mask leaves, on the tensor cores: bfloat16 at 989 TFLOP/s,
+// float32 as three TF32 products each (below) at 495 / 3 = 165 TFLOP/s.
+// At the benchmark's causal shape (B = 1, H = 8, S = T = 1024, hd = 64,
+// float32) 1.07 GFLOP take 6.5 us against 1.6 us to move 5.2 MB:
+// operations.  At yi-6b's width (H = 32, KV = 4, hd = 128, S = T = 4096,
+// causal) 137 GFLOP take 0.83 ms in float32 and 0.139 ms in bfloat16; the
+// softmax's exps, 268 M at 16 a clock per SM, take about 0.07 ms, half
+// the bfloat16 bound, so the exps are computed once per score (exp2 of
+// scores prescaled by log2(e)) and never recomputed.
+//
+// Design.  A block owns `rows` = 64 or 128 query rows of one (b, h) and
+// loops over the keys itself (the Pallas grid's sequential kv axis), `bk`
+// keys a tile, K and V tiles staged by cp.async into a ring of `stages`
+// buffers in shared memory while earlier tiles are consumed, one barrier
+// a tile; the plan (rows, bk, splits, stages) is `flash_plan` of
+// kernels/flash_attention.py, mirrored by `plan_*` below and checked at
+// launch.  hd is padded to a multiple of 16 (`HDP`) with zeros in shared
+// memory; HDP is a template parameter, so any hd that is a multiple of 8
+// up to 256 runs.  Causal blocks are launched heaviest first, tiles past
+// the block's last row are not loaded, and only tiles that cross the
+// diagonal or the end of T are masked.  A score row is held by the four
+// lanes of a quad: its max and sum are four partial chains a lane, then
+// two xor shuffles.
+//
+//   bfloat16: wgmma.  One warpgroup (four warps) per 64 query rows.
+//   S = Q K^T is wgmma m64n{bk}k16 with Q (A) and K (B) from shared
+//   memory, both K-major as they lie in memory, in the no-swizzle layout of
+//   8 x 16-byte core matrices (a tile's 16-byte chunk e lands at byte 16 e,
+//   so the cp.async writes are contiguous).  O += P V is wgmma with P in
+//   registers (the S accumulator's fragment is the A fragment's layout)
+//   and V from shared memory as an MN-major B (the transpose bit), so V
+//   needs no transpose.  p stays float32 by splitting it into two bfloat16
+//   pieces, p_hi = bf16(p) and p_lo = bf16(p - p_hi), two wgmmas against
+//   the same V tile: 1.5x the product work of a bfloat16 p, and the
+//   output's bfloat16 rounding then differs from float32 p's on about
+//   0.2 % of elements instead of about 40 %.  The products are pipelined
+//   one tile deep: S of tile i and P V of tile i - 1 are issued together
+//   and the softmax of tile i runs while P V of tile i - 1 does, so the
+//   ring holds three tiles (scored, in P V, loading).  Both warpgroups of
+//   a block run every tile, a causal tile above the first one's rows
+//   giving p = 0: a wgmma under a branch on the thread index makes ptxas
+//   serialise every wgmma of the kernel.
+//
+//   float32: 3xTF32 with mma.sync.m16n8k8 (one warp per 16 rows).  Each
+//   operand is split at fragment-load time, hi = x rounded to TF32 (to
+//   nearest, ties away, by an add and a mask, shorter than
+//   cvt.rna.tf32.f32) and lo = x - hi (the tensor core reads lo's top 11
+//   bits), and each product is lo*hi + hi*lo + hi*hi accumulated in
+//   float32, which keeps the 2e-5 contract where one TF32 product misses
+//   it by 50x.  mma.sync rather than wgmma: wgmma's TF32 form takes its B
+//   operand from shared memory K-major, so P V would need V transposed,
+//   and hi and lo copies of K and V staged; mma.sync loads its fragments
+//   from any layout, so the staging holds one float32 copy.  P's
+//   accumulator fragment becomes P V's A fragment without shuffles by
+//   reading V's rows in the matching order (a quad's columns 2t and
+//   2t + 1 are the A fragment's t and t + 4).  Rows are padded to HDP + 4
+//   floats, so the fragment loads hit 32 distinct banks.  Up to hdp = 64
+//   a block is two sets of four warps over the same 64 rows, each set
+//   scoring every other tile of keys, their (m, l, O) merged through
+//   shared memory at the end: the benchmark's causal shape has 8 heads x
+//   16 such blocks, and the longest row's chain of tiles is halved.
+
+#include <cstdint>
 
 #include "attention.cuh"
 
 namespace {
 
 using namespace attn;
+using bf16_t = __nv_bfloat16;
 
-constexpr int BQ = 64;                 // query rows per block
-constexpr int LANES = 4;               // threads per query row
-constexpr int THREADS = BQ * LANES;    // 256
-constexpr int BK = 32;                 // keys per staged tile
+constexpr int SMEM_MAX = 232448;         // a block's shared memory, 227 KB
+constexpr int SMEM_PAIR = 116 * 1024;    // within this, two blocks an SM
+constexpr float LOG2E = 1.4426950408889634f;
 
-template <int HD, typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int H, int KV, int S,
-             int Tn, float scale, int causal) {
-  constexpr int DPL = HD / LANES;      // dims per lane
-  constexpr int CH4 = DPL / 4;         // float4 chunks per lane
-  __shared__ __align__(16) float k_s[BK][HD];
-  __shared__ __align__(16) float v_s[BK][HD];
+// The plan, as `flash_plan` computes it (kernels/flash_attention.py).
+#define HD __host__ __device__ constexpr
+HD int plan_rows(int hdp, bool is_bf16) {
+  return hdp > 128 || (!is_bf16 && hdp <= 64) ? 64 : 128;
+}
+HD int plan_bk(int hdp) { return hdp <= 128 ? 64 : 32; }
+// warp sets that split a block's keys (float32): two where 64 rows a
+// block leave a warp per scheduler
+HD int plan_splits(int hdp, bool is_bf16) {
+  return !is_bf16 && hdp <= 64 ? 2 : 1;
+}
+HD int row_len(int hdp, bool is_bf16) {  // a staged row, elements
+  return is_bf16 ? hdp : hdp + 4;
+}
+HD int smem_bytes(int hdp, bool is_bf16, int rows, int bk, int splits,
+                  int stages) {
+  return (is_bf16 ? 2 : 4) * row_len(hdp, is_bf16) *
+         (rows + 2 * stages * splits * bk);
+}
+HD int plan_stages(int hdp, bool is_bf16) {
+  return is_bf16 || smem_bytes(hdp, false, plan_rows(hdp, false),
+                               plan_bk(hdp), plan_splits(hdp, false),
+                               3) <= SMEM_PAIR
+             ? 3
+             : 2;
+}
+#undef HD
 
-  const int tid = threadIdx.x;
-  const int row = tid / LANES, lane = tid % LANES;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int qpos = q0 + row;
-  const bool live = qpos < S;
-  const T* qrow = q + (((size_t)b * H + h) * S + (live ? qpos : 0)) * HD;
-  const T* kb = k + ((size_t)b * KV + kvh) * (size_t)Tn * HD;
-  const T* vb = v + ((size_t)b * KV + kvh) * (size_t)Tn * HD;
+// -- cp.async staging ----------------------------------------------------
 
-  // lane owns the float4 chunks LANES * i + lane, i < CH4
-  float qr[DPL], acc[DPL];
-#pragma unroll
-  for (int i = 0; i < CH4; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = 4 * (LANES * i + lane) + e;
-      qr[4 * i + e] = live ? to_f32(qrow[d]) : 0.f;
-      acc[4 * i + e] = 0.f;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zeros when !in (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage rows [row0, row0 + ROWS) of a (n_rows, hd) array into `dst`; rows
+// past n_rows become zeros, and the chunks past hd are left alone (zeroed
+// once at the start).  bfloat16: the no-swizzle wgmma layout, 8-row x
+// 16-byte core matrices in (row group, chunk) order, so chunk e of the
+// tile lands at byte 16 e.  float32: row-major rows of HDP + 4 floats.
+template <int HDP, int ROWS, int THREADS, typename T>
+__device__ __forceinline__ void stage_tile(T* dst, const T* src, int row0,
+                                           int n_rows, int hd) {
+  constexpr int EPC = 16 / sizeof(T);    // elements a chunk
+  constexpr int CPR = HDP / EPC;         // chunks a row
+  const int live = hd / EPC;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < ROWS * CPR; e += THREADS) {
+    int row, c;
+    T* d;
+    if constexpr (sizeof(T) == 2) {
+      row = (e >> 3) / CPR * 8 + (e & 7);
+      c = (e >> 3) % CPR;
+      d = dst + e * 8;
+    } else {
+      row = e / CPR;
+      c = e % CPR;
+      d = dst + row * (HDP + 4) + c * 4;
     }
-  }
-  float m = NEG_INF, l = 0.f;
-
-  // causal: tiles starting past the block's last query row see nothing
-  const int kend = causal ? min(Tn, q0 + BQ) : Tn;
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    const int nk = min(BK, Tn - k0);
-    __syncthreads();  // the previous tile is consumed
-    for (int e = tid; e < BK * HD; e += THREADS) {
-      const int j = e / HD, d = e - j * HD;
-      const bool in = j < nk;
-      k_s[j][d] = in ? to_f32(kb[(size_t)(k0 + j) * HD + d]) : 0.f;
-      v_s[j][d] = in ? to_f32(vb[(size_t)(k0 + j) * HD + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[BK];
-    float mt = m;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < CH4; ++i) {
-        const float4 kk =
-            *reinterpret_cast<const float4*>(&k_s[j][4 * (LANES * i + lane)]);
-        part = fmaf(qr[4 * i], kk.x, part);
-        part = fmaf(qr[4 * i + 1], kk.y, part);
-        part = fmaf(qr[4 * i + 2], kk.z, part);
-        part = fmaf(qr[4 * i + 3], kk.w, part);
-      }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      float sc = part * scale;
-      if (causal && k0 + j > qpos) sc = NEG_INF;
-      if (j >= nk) sc = NEG_INF;  // past T: no key (its p is set to 0 below)
-      s[j] = sc;
-      mt = fmaxf(mt, sc);
-    }
-    // key 0 is in the first tile and every row sees it, so mt is a real
-    // score from the first tile on and the first correction is exp(-1e30)
-    const float corr = expf(m - mt);
-    l *= corr;
-#pragma unroll
-    for (int d = 0; d < DPL; ++d) acc[d] *= corr;
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float p = j < nk ? expf(s[j] - mt) : 0.f;
-      psum += p;
-      const float pv = as_v_dtype(p, T{});
-#pragma unroll
-      for (int i = 0; i < CH4; ++i) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(&v_s[j][4 * (LANES * i + lane)]);
-        acc[4 * i] = fmaf(pv, vv.x, acc[4 * i]);
-        acc[4 * i + 1] = fmaf(pv, vv.y, acc[4 * i + 1]);
-        acc[4 * i + 2] = fmaf(pv, vv.z, acc[4 * i + 2]);
-        acc[4 * i + 3] = fmaf(pv, vv.w, acc[4 * i + 3]);
-      }
-    }
-    l += psum;
-    m = mt;
-  }
-
-  if (!live) return;
-  const float denom = fmaxf(l, 1e-30f);
-  T* orow = o + (((size_t)b * H + h) * S + qpos) * HD;
-#pragma unroll
-  for (int i = 0; i < CH4; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      orow[4 * (LANES * i + lane) + e] = from_f32<T>(acc[4 * i + e] / denom);
+    if (c >= live) continue;
+    const bool in = row0 + row < n_rows;
+    cp_async16(d, src + (size_t)(in ? row0 + row : 0) * hd + c * EPC, in);
   }
 }
 
-template <int HD, typename T>
+template <int BYTES, int THREADS>
+__device__ __forceinline__ void zero_smem(void* smem) {
+  for (int i = threadIdx.x; i < BYTES / 16; i += THREADS)
+    reinterpret_cast<int4*>(smem)[i] = make_int4(0, 0, 0, 0);
+}
+
+// -- the online softmax of one tile, shared by both paths ----------------
+//
+// s holds NJ 8-column blocks of a quad's two rows in the mma accumulator
+// layout: s[4j + e] is row r + 8 (e >> 1), column 8j + 2t + (e & 1).  The
+// scores are scaled into log2 units and masked where `edge`; m and l are
+// the two rows' running max (log2 units) and this lane's part of the sum;
+// returns the two rows' corrections and leaves p in s.
+// 2^x, flushing a result below 2^-126 to zero
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int NJ>
+__device__ __forceinline__ float2 softmax_tile(float* s, float (&m)[2],
+                                               float (&l)[2], float scale2,
+                                               bool edge, bool causal,
+                                               int row, int key, int Tn) {
+  // a row's max and sum in four independent parts, short chains
+  float mx[2][4], sum[2][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) mx[i / 4][i % 4] = NEG_INF;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * j + e] * scale2;
+      if (edge) {
+        const int kj = key + 8 * j + (e & 1);
+        if (kj >= Tn || (causal && kj > row + 8 * (e >> 1))) x = NEG_INF;
+      }
+      s[4 * j + e] = x;
+      float& part = mx[e >> 1][(j & 1) * 2 + (e & 1)];
+      part = fmaxf(part, x);
+    }
+  }
+  float corr[2], top[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    top[i] = fmaxf(fmaxf(fmaxf(mx[i][0], mx[i][1]), fmaxf(mx[i][2], mx[i][3])),
+                   m[i]);
+    top[i] = fmaxf(top[i], __shfl_xor_sync(0xffffffffu, top[i], 1));
+    top[i] = fmaxf(top[i], __shfl_xor_sync(0xffffffffu, top[i], 2));
+    // key 0 is in the first tile and every row sees it, so top is a real
+    // score from the first tile on and the first correction is exp(-1e30)
+    corr[i] = exp2_ftz(m[i] - top[i]);
+    m[i] = top[i];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) sum[i][k] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2_ftz(s[4 * j + e] - top[e >> 1]);
+      s[4 * j + e] = p;
+      sum[e >> 1][(j & 1) * 2 + (e & 1)] += p;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    l[i] = l[i] * corr[i] + ((sum[i][0] + sum[i][1]) + (sum[i][2] + sum[i][3]));
+  return make_float2(corr[0], corr[1]);
+}
+
+// acc (NJ 8-column blocks in the accumulator layout) / max(l, 1e-30) ->
+// rows r and r + 8 of o, columns below hd
+template <int NJ, typename T>
+__device__ __forceinline__ void store_rows(T* o, const float* acc,
+                                           float (&l)[2], int row, int S,
+                                           int hd, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = fmaxf(l[i], 1e-30f);
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (col >= hd) continue;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row + 8 * i;
+      if (r >= S) continue;
+      const float a = acc[4 * j + 2 * i] / l[i];
+      const float b = acc[4 * j + 2 * i + 1] / l[i];
+      if constexpr (sizeof(T) == 2) {
+        *reinterpret_cast<__nv_bfloat162*>(o + (size_t)r * hd + col) =
+            __floats2bfloat162_rn(a, b);
+      } else {
+        *reinterpret_cast<float2*>(o + (size_t)r * hd + col) =
+            make_float2(a, b);
+      }
+    }
+  }
+}
+
+// -- float32: 3xTF32 on mma.sync.m16n8k8 ---------------------------------
+
+struct Split {
+  uint32_t hi, lo;
+};
+
+// hi = x rounded to TF32 (10 mantissa bits, to nearest with ties away
+// from zero: the bits of cvt.rna.tf32.f32, which compiles to a longer
+// compare-and-select sequence; finite x only), lo = x - hi exactly; the
+// tensor core reads lo's top 11 bits
+__device__ __forceinline__ Split split_tf32(float x) {
+  const uint32_t hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  return {hi, __float_as_uint(x - __uint_as_float(hi))};
+}
+
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b with a = (ah, al) and b = (b0, b1) split: the cross terms
+// first, then hi * hi
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], Split b0,
+                                           Split b1) {
+  mma_tf32(d, al, b0.hi, b1.hi);
+  mma_tf32(d, ah, b0.lo, b1.lo);
+  mma_tf32(d, ah, b0.hi, b1.hi);
+}
+
+__device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const Split s = split_tf32(x[i]);
+    hi[i] = s.hi;
+    lo[i] = s.lo;
+  }
+}
+
+// KS sets of ROWS / 16 warps split the keys: a stage holds KS tiles of
+// BK keys, set p scores the p-th, and the sets' (m, l, O) are merged at
+// the end.
+template <int HDP, int BK, int ROWS, int KS, int STAGES>
+__global__ void __launch_bounds__(ROWS * 2 * KS, 1)
+flash_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int H,
+                 int KV, int S, int Tn, int hd, float scale2, int causal) {
+  constexpr int THREADS = ROWS * 2 * KS;  // a warp per 16 rows and set
+  constexpr int LD = HDP + 4;
+  constexpr int NJ = BK / 8;           // 8-key blocks of a tile
+  constexpr int ND = HDP / 8;          // 8-column blocks of a row
+  constexpr int STEP = KS * BK;        // keys a stage
+  extern __shared__ __align__(128) float smem_f[];
+  float* q_s = smem_f;
+  float* k_s = q_s + ROWS * LD;
+  float* v_s = k_s + STAGES * STEP * LD;
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = tid / 32 % (ROWS / 16), part = tid / 32 / (ROWS / 16);
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * ROWS;  // heaviest first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const float* qb = q + ((size_t)b * H + h) * S * hd;
+  const float* kb = k + ((size_t)b * KV + kvh) * Tn * hd;
+  const float* vb = v + ((size_t)b * KV + kvh) * Tn * hd;
+  const int kend = causal ? min(Tn, q0 + ROWS) : Tn;
+  const int nsteps = (kend + STEP - 1) / STEP;
+
+  if (hd != HDP) {
+    zero_smem<smem_bytes(HDP, false, ROWS, BK, KS, STAGES), THREADS>(smem_f);
+    __syncthreads();
+  }
+  if (nsteps > 0) stage_tile<HDP, ROWS, THREADS>(q_s, qb, q0, S, hd);
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nsteps) {
+      stage_tile<HDP, STEP, THREADS>(k_s + st * STEP * LD, kb, st * STEP, Tn,
+                                     hd);
+      stage_tile<HDP, STEP, THREADS>(v_s + st * STEP * LD, vb, st * STEP, Tn,
+                                     hd);
+    }
+    cp_commit();
+  }
+
+  const int wrow = warp * 16;              // the warp's first row in q_s
+  const int row = q0 + wrow + g;           // this lane's rows: row, row + 8
+  float acc[4 * ND];
+#pragma unroll
+  for (int i = 0; i < 4 * ND; ++i) acc[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < nsteps; ++it) {
+    cp_wait<STAGES - 2>();  // stage it has landed, the newest may not have
+    __syncthreads();  // ... for every thread, and stage it - 1 is consumed
+    const int nxt = it + STAGES - 1;
+    if (nxt < nsteps) {
+      const int st = nxt % STAGES;
+      stage_tile<HDP, STEP, THREADS>(k_s + st * STEP * LD, kb, nxt * STEP,
+                                     Tn, hd);
+      stage_tile<HDP, STEP, THREADS>(v_s + st * STEP * LD, vb, nxt * STEP,
+                                     Tn, hd);
+    }
+    cp_commit();
+
+    const int k0 = it * STEP + part * BK;
+    if (k0 < kend && !(causal && k0 > q0 + wrow + 15)) {
+      const float* ks = k_s + ((it % STAGES) * STEP + part * BK) * LD;
+      const float* vs = v_s + ((it % STAGES) * STEP + part * BK) * LD;
+      float s[4 * NJ];
+#pragma unroll
+      for (int i = 0; i < 4 * NJ; ++i) s[i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < ND; ++kk) {
+        const float* qa = q_s + (wrow + g) * LD + 8 * kk + t;
+        const float x[4] = {qa[0], qa[8 * LD], qa[4], qa[8 * LD + 4]};
+        uint32_t ah[4], al[4];
+        split4(x, ah, al);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float* kr = ks + (8 * j + g) * LD + 8 * kk + t;
+          mma_3xtf32(s + 4 * j, ah, al, split_tf32(kr[0]),
+                     split_tf32(kr[4]));
+        }
+      }
+      const bool edge =
+          (causal && k0 + BK - 1 > q0 + wrow) || k0 + BK > Tn;
+      const float2 corr = softmax_tile<NJ>(s, m, l, scale2, edge, causal,
+                                           row, k0 + 2 * t, Tn);
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        acc[4 * d] *= corr.x;
+        acc[4 * d + 1] *= corr.x;
+        acc[4 * d + 2] *= corr.y;
+        acc[4 * d + 3] *= corr.y;
+      }
+      // O += P V: P's columns 2t and 2t + 1 of block j are the A
+      // fragment's columns t and t + 4, so B's rows are keys 8j + 2t and
+      // 8j + 2t + 1
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float x[4] = {s[4 * j], s[4 * j + 2], s[4 * j + 1],
+                            s[4 * j + 3]};
+        uint32_t ph[4], pl[4];
+        split4(x, ph, pl);
+        const float* vr = vs + (8 * j + 2 * t) * LD + g;
+#pragma unroll
+        for (int d = 0; d < ND; ++d)
+          mma_3xtf32(acc + 4 * d, ph, pl, split_tf32(vr[8 * d]),
+                     split_tf32(vr[LD + 8 * d]));
+      }
+    }
+  }
+  cp_wait<0>();
+  if constexpr (KS > 1) {
+    // the sets past the first hand (m, l, O) over through shared memory,
+    // element i of lane L of warp w at [i][w * 32 + L], and the first
+    // merges them
+    constexpr int LANES = ROWS / 16 * 32;
+    float* x = k_s;
+    __syncthreads();  // every set is done with the last stage
+#pragma unroll
+    for (int p = 1; p < KS; ++p) {
+      if (part == p) {
+        float* y = x + warp * 32 + lane;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          y[i * LANES] = m[i];
+          y[(2 + i) * LANES] = l[i];
+        }
+#pragma unroll
+        for (int i = 0; i < 4 * ND; ++i) y[(4 + i) * LANES] = acc[i];
+      }
+      __syncthreads();
+      if (part == 0) {
+        const float* y = x + warp * 32 + lane;
+        float c0[2], c1[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float mo = y[i * LANES], top = fmaxf(m[i], mo);
+          c0[i] = exp2_ftz(m[i] - top);
+          c1[i] = exp2_ftz(mo - top);
+          m[i] = top;
+          l[i] = l[i] * c0[i] + y[(2 + i) * LANES] * c1[i];
+        }
+#pragma unroll
+        for (int i = 0; i < 4 * ND; ++i)
+          acc[i] = acc[i] * c0[(i >> 1) & 1] +
+                   y[(4 + i) * LANES] * c1[(i >> 1) & 1];
+      }
+      __syncthreads();
+    }
+    if (part != 0) return;
+  }
+  store_rows<ND>(o + ((size_t)b * H + h) * S * hd, acc, l, row, S, hd, t);
+}
+
+// -- bfloat16: wgmma -------------------------------------------------------
+
+// Shared-memory matrix descriptor, no swizzle: start address, the byte
+// offset between core matrices adjacent in K (`lbo`) and in M or N (`sbo`)
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N committed groups are pending (they complete in order)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous product
+template <int N>
+__device__ __forceinline__ void pin(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t* d) {
+  #pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// D (64 x N, float32) += A (64 x 16, K-major) B (16 x N, K-major), both
+// bfloat16 from shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db);
+// D (64 x N, float32) += A (64 x 16, bfloat16 registers) B (16 x N,
+// bfloat16 shared memory, MN-major)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float* d, uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo_k, float hi_k) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo_k, hi_k);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// O (64 x HDP) += A V for the 16 keys of step kk, V's columns in chunks
+// of 64, 32 and 16 (wgmma's N)
+template <int HDP>
+__device__ __forceinline__ void pv_step(float* acc, const uint32_t* a,
+                                        const bf16_t* vs, int kk) {
+  constexpr uint32_t LBO = HDP * 16;   // 8 keys on: HDP / 8 core matrices
+  constexpr uint32_t SBO = 128;        // 8 columns on: the next one
+  const bf16_t* base = vs + kk * 16 * HDP;
+#pragma unroll
+  for (int c = 0; c < HDP / 64; ++c)
+    wgmma_rs<64>(acc + 32 * c, a, smem_desc(base + 64 * 8 * c, LBO, SBO));
+  constexpr int n0 = HDP / 64 * 64;
+  if constexpr (HDP % 64 >= 32)
+    wgmma_rs<32>(acc + n0 / 2, a, smem_desc(base + n0 * 8, LBO, SBO));
+  constexpr int n1 = HDP / 32 * 32;
+  if constexpr (HDP % 32 == 16)
+    wgmma_rs<16>(acc + n1 / 2, a, smem_desc(base + n1 * 8, LBO, SBO));
+}
+
+// P (the accumulator layout, float32) -> its two bfloat16 pieces as A
+// fragments: the accumulator's 16 columns of step kk are the A
+// fragment's, pair by pair
+template <int NJ>
+__device__ __forceinline__ void split_p(const float* s, uint32_t* ph,
+                                        uint32_t* pl) {
+#pragma unroll
+  for (int i = 0; i < 2 * NJ; ++i) {
+    const float a = s[2 * i], c = s[2 * i + 1];
+    ph[i] = pack_bf16(a, c);
+    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&ph[i]);
+    pl[i] = pack_bf16(a - __low2float(hi), c - __high2float(hi));
+  }
+}
+
+// O += (P_hi + P_lo) V over a tile's BK keys, issued, not committed
+template <int HDP, int BK>
+__device__ __forceinline__ void issue_pv(float* acc, const uint32_t* ph,
+                                         const uint32_t* pl,
+                                         const bf16_t* vs) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    pv_step<HDP>(acc, pl + 4 * kk, vs, kk);
+    pv_step<HDP>(acc, ph + 4 * kk, vs, kk);
+  }
+}
+
+template <int HDP, int BK, int ROWS, int STAGES>
+__global__ void __launch_bounds__(ROWS * 2, 1)
+flash_wgmma_kernel(const bf16_t* __restrict__ q,
+                   const bf16_t* __restrict__ k,
+                   const bf16_t* __restrict__ v, bf16_t* __restrict__ o,
+                   int H, int KV, int S, int Tn, int hd, float scale2,
+                   int causal) {
+  constexpr int THREADS = ROWS * 2;       // a warpgroup per 64 rows
+  constexpr int NJ = BK / 8;
+  constexpr int ND = HDP / 8;
+  constexpr int AHEAD = STAGES - 2;       // tiles loading past the two in use
+  constexpr uint32_t KM_LBO = 128;        // K-major: next 8 columns
+  constexpr uint32_t KM_SBO = HDP * 16;   // K-major: next 8 rows
+  static_assert(AHEAD >= 1, "the pipeline needs three stages");
+  extern __shared__ __align__(128) bf16_t smem_h[];
+  bf16_t* q_s = smem_h;
+  bf16_t* k_s = q_s + ROWS * HDP;
+  bf16_t* v_s = k_s + STAGES * BK * HDP;
+
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * ROWS;  // heaviest first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const bf16_t* qb = q + ((size_t)b * H + h) * S * hd;
+  const bf16_t* kb = k + ((size_t)b * KV + kvh) * Tn * hd;
+  const bf16_t* vb = v + ((size_t)b * KV + kvh) * Tn * hd;
+  const int kend = causal ? min(Tn, q0 + ROWS) : Tn;
+  const int ntiles = (kend + BK - 1) / BK;
+
+  if (hd != HDP) {
+    zero_smem<smem_bytes(HDP, true, ROWS, BK, 1, STAGES), THREADS>(smem_h);
+    __syncthreads();
+  }
+  if (ntiles > 0) stage_tile<HDP, ROWS, THREADS>(q_s, qb, q0, S, hd);
+#pragma unroll
+  for (int st = 0; st < AHEAD; ++st) {
+    if (st < ntiles) {
+      stage_tile<HDP, BK, THREADS>(k_s + st * BK * HDP, kb, st * BK, Tn, hd);
+      stage_tile<HDP, BK, THREADS>(v_s + st * BK * HDP, vb, st * BK, Tn, hd);
+    }
+    cp_commit();
+  }
+
+  const int wrow = wg * 64;                     // the warpgroup's rows
+  const int row = q0 + wrow + (tid % 128) / 32 * 16 + g;  // row, row + 8
+  const bf16_t* qw = q_s + wrow * HDP;
+  float acc[4 * ND];
+#pragma unroll
+  for (int i = 0; i < 4 * ND; ++i) acc[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  uint32_t ph[2 * NJ], pl[2 * NJ];              // P of the previous tile
+
+  // Tile `it` is scored while tile it - 1's P V runs: S_it and PV_{it-1}
+  // are issued together, the softmax of S_it overlaps PV_{it-1}, and O is
+  // rescaled once PV_{it-1} is done.  Tile it - 1's V is still read while
+  // tile it + AHEAD loads, so the ring holds AHEAD + 2 tiles.  Both
+  // warpgroups run every tile of the block (a tile above the first one's
+  // rows gives p = 0): a product under a branch that depends on the
+  // thread would make ptxas serialise every wgmma.
+  for (int it = 0; it < ntiles; ++it) {
+    cp_wait<AHEAD - 1>();  // tile it has landed, the newest may not have
+    // the generic-proxy writes (cp.async, the zeros) before wgmma reads
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // ... for every thread; tile it - 2 is consumed
+    const int nxt = it + AHEAD;
+    if (nxt < ntiles) {
+      const int st = nxt % STAGES;
+      stage_tile<HDP, BK, THREADS>(k_s + st * BK * HDP, kb, nxt * BK, Tn, hd);
+      stage_tile<HDP, BK, THREADS>(v_s + st * BK * HDP, vb, nxt * BK, Tn, hd);
+    }
+    cp_commit();
+
+    const int k0 = it * BK;
+    const bf16_t* ks = k_s + (it % STAGES) * BK * HDP;
+    float s[4 * NJ];
+#pragma unroll
+    for (int i = 0; i < 4 * NJ; ++i) s[i] = 0.f;
+    pin<4 * NJ>(s);
+    pin<4 * ND>(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HDP / 16; ++kk)
+      wgmma_ss<BK>(s, smem_desc(qw + kk * 16 * 8, KM_LBO, KM_SBO),
+                   smem_desc(ks + kk * 16 * 8, KM_LBO, KM_SBO));
+    wgmma_commit();
+    if (it > 0)
+      issue_pv<HDP, BK>(acc, ph, pl, v_s + ((it - 1) % STAGES) * BK * HDP);
+    wgmma_commit();
+    wgmma_wait<1>();  // S_it is done; PV_{it-1} may run on
+    pin<4 * NJ>(s);
+
+    const bool edge = (causal && k0 + BK - 1 > q0 + wrow) || k0 + BK > Tn;
+    const float2 corr = softmax_tile<NJ>(s, m, l, scale2, edge, causal, row,
+                                         k0 + 2 * t, Tn);
+    uint32_t nh[2 * NJ], nl[2 * NJ];
+    split_p<NJ>(s, nh, nl);
+    wgmma_wait<0>();
+    pin<4 * ND>(acc);         // PV_{it-1} has written O ...
+    pin<2 * NJ>(ph);          // ... and read P_{it-1}
+    pin<2 * NJ>(pl);
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      acc[4 * d] *= corr.x;
+      acc[4 * d + 1] *= corr.x;
+      acc[4 * d + 2] *= corr.y;
+      acc[4 * d + 3] *= corr.y;
+    }
+#pragma unroll
+    for (int i = 0; i < 2 * NJ; ++i) {
+      ph[i] = nh[i];
+      pl[i] = nl[i];
+    }
+  }
+  if (ntiles > 0) {           // the last tile's P V
+    pin<4 * ND>(acc);
+    pin<2 * NJ>(ph);
+    pin<2 * NJ>(pl);
+    wgmma_fence();
+    issue_pv<HDP, BK>(acc, ph, pl, v_s + ((ntiles - 1) % STAGES) * BK * HDP);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin<4 * ND>(acc);
+    pin<2 * NJ>(ph);
+    pin<2 * NJ>(pl);
+  }
+  cp_wait<0>();
+  store_rows<ND>(o + ((size_t)b * H + h) * S * hd, acc, l, row, S, hd, t);
+}
+
+template <int HDP, bool BF16>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int KV, int S, int Tn, int causal,
+                   int B, int H, int KV, int S, int Tn, int hd, int causal,
                    cudaStream_t stream) {
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_kernel<HD, T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, KV, S, Tn,
-      1.0f / sqrtf((float)HD), causal);
+  constexpr int ROWS = plan_rows(HDP, BF16), BK = plan_bk(HDP);
+  constexpr int KS = plan_splits(HDP, BF16);
+  constexpr int STAGES = plan_stages(HDP, BF16);
+  constexpr int SMEM = smem_bytes(HDP, BF16, ROWS, BK, KS, STAGES);
+  static_assert(SMEM <= SMEM_MAX, "the plan overflows shared memory");
+  const dim3 grid((S + ROWS - 1) / ROWS, H, B);
+  const float scale2 = LOG2E / sqrtf((float)hd);
+  if constexpr (BF16) {
+    const auto kern = flash_wgmma_kernel<HDP, BK, ROWS, STAGES>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, ROWS * 2, SMEM, stream>>>(
+        static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
+        static_cast<const bf16_t*>(v), static_cast<bf16_t*>(o), H, KV, S, Tn,
+        hd, scale2, causal);
+  } else {
+    const auto kern = flash_mma_kernel<HDP, BK, ROWS, KS, STAGES>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, ROWS * 2 * KS, SMEM, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), H, KV, S, Tn,
+        hd, scale2, causal);
+  }
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
-                      void* o, int B, int H, int KV, int S, int Tn,
-                      int causal, cudaStream_t stream) {
-  if (hd == 32)
-    return launch<32, T>(q, k, v, o, B, H, KV, S, Tn, causal, stream);
-  if (hd == 64)
-    return launch<64, T>(q, k, v, o, B, H, KV, S, Tn, causal, stream);
-  return launch<128, T>(q, k, v, o, B, H, KV, S, Tn, causal, stream);
+template <bool BF16>
+cudaError_t launch_hd(int hdp, const void* q, const void* k, const void* v,
+                      void* o, int B, int H, int KV, int S, int Tn, int hd,
+                      int causal, cudaStream_t s) {
+  switch (hdp) {
+#define FLASH_HDP(N) \
+  case N:            \
+    return launch<N, BF16>(q, k, v, o, B, H, KV, S, Tn, hd, causal, s);
+    FLASH_HDP(16) FLASH_HDP(32) FLASH_HDP(48) FLASH_HDP(64)
+    FLASH_HDP(80) FLASH_HDP(96) FLASH_HDP(112) FLASH_HDP(128)
+    FLASH_HDP(144) FLASH_HDP(160) FLASH_HDP(176) FLASH_HDP(192)
+    FLASH_HDP(208) FLASH_HDP(224) FLASH_HDP(240) FLASH_HDP(256)
+#undef FLASH_HDP
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// All pointers are device pointers to contiguous arrays on card `device`,
-// float32 (bf16 == 0) or bfloat16 (bf16 == 1): q and o (B, H, S, hd), k and
-// v (B, KV, T, hd).  hd is 32, 64 or 128 and H a multiple of KV.  The
-// launch goes on `stream` and does not synchronise.  Returns the CUDA
-// error code of the launch (0 on success).
+// All pointers are device pointers to contiguous, 16-byte aligned arrays on
+// card `device`, float32 (bf16 == 0) or bfloat16 (bf16 == 1): q and o
+// (B, H, S, hd), k and v (B, KV, T, hd).  hd is a multiple of 8 from 8 to
+// 256 and H a multiple of KV; (rows, bk, splits, stages) must be the plan the
+// kernel is built with for (hd, dtype), `flash_plan`'s.  The launch goes
+// on `stream` and does not synchronise.  Returns the CUDA error code of
+// the launch (0 on success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int B, int H, int KV, int S, int T,
-                               int hd, int bf16, int causal, int device,
+                               int hd, int bf16, int causal, int rows, int bk,
+                               int splits, int stages, int device,
                                void* stream) {
-  if (B < 1 || H < 1 || KV < 1 || H % KV || S < 1 || T < 0 ||
-      (hd != 32 && hd != 64 && hd != 128) || H > 65535 || B > 65535)
+  const int hdp = (hd + 15) / 16 * 16;
+  if (B < 1 || H < 1 || KV < 1 || H % KV || S < 1 || T < 0 || hd < 8 ||
+      hd > 256 || hd % 8 || H > 65535 || B > 65535 ||
+      rows != plan_rows(hdp, bf16 != 0) || bk != plan_bk(hdp) ||
+      splits != plan_splits(hdp, bf16 != 0) ||
+      stages != plan_stages(hdp, bf16 != 0) ||
+      (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15))
     return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return (int)launch_hd<__nv_bfloat16>(hd, q, k, v, o, B, H, KV, S, T,
-                                         causal, s);
-  return (int)launch_hd<float>(hd, q, k, v, o, B, H, KV, S, T, causal, s);
+    return (int)launch_hd<true>(hdp, q, k, v, o, B, H, KV, S, T, hd, causal,
+                                s);
+  return (int)launch_hd<false>(hdp, q, k, v, o, B, H, KV, S, T, hd, causal,
+                               s);
 }

@@ -22,8 +22,10 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import HEAD_DIMS, check_heads
+from repro_torch.kernels.flash_attention import check_heads
 
+#: head widths the kernel is built for (a template parameter each)
+HEAD_DIMS = (32, 64, 128)
 #: keys per block of the first pass
 CHUNK = 256
 #: q heads per kv head: one warp each, at most 1,024 threads a block

@@ -4,29 +4,92 @@
 
 q (B, H, S, hd); k, v (B, KV, T, hd), H a multiple of KV, q head h reading
 kv head h // (H / KV); float32 or bfloat16, all three alike.  Softmax in
-float32 with scale hd**-0.5; ``causal`` lets query position i see key
-positions j <= i (both counted from 0, so S may differ from T).  Returns
-(B, H, S, hd) in q's dtype.
+float32 with scale hd**-0.5, and p kept in float32 for the PV product;
+``causal`` lets query position i see key positions j <= i (both counted
+from 0, so S may differ from T).  Returns (B, H, S, hd) in q's dtype.
 
 Dispatch is by the tensors' device: on the CPU the plain version
 ``ref.flash_attention_ref`` runs; on a CUDA tensor the kernel launches
-(hd of 32, 64 or 128) or the wrapper raises.  ``LAUNCHES`` counts the
+(any hd that is a multiple of 8 up to ``MAX_HEAD_DIM``) or the wrapper
+raises.  ``flash_plan`` chooses the kernel's tiles from hd and the dtype;
+the kernel is built for exactly that plan.  ``LAUNCHES`` counts the
 kernel's launches.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import ref
 
-#: head widths the kernel is built for (a template parameter each)
-HEAD_DIMS = (32, 64, 128)
+#: the widest head the kernel takes (wgmma's largest N)
+MAX_HEAD_DIM = 256
 DTYPES = (torch.float32, torch.bfloat16)
+#: an H100 block's shared memory at most, 227 KB
+MAX_SMEM = 232448
+#: float32 takes a third stage only within this, so two blocks fit an SM
+SMEM_PAIR = 116 * 1024
 
 #: kernel launches since the last reset
 LAUNCHES = 0
+
+
+class FlashPlan(NamedTuple):
+    """One launch geometry of ``csrc/flash_attention.cu``."""
+    hdp: int         # hd padded to a multiple of 16 (zeros in shared memory)
+    rows: int        # query rows a block, 64 a warpgroup
+    keys: int        # keys a tile
+    splits: int      # warp sets that share the rows and split the keys: a
+                     # stage holds `splits` tiles, one a set
+    stages: int      # K / V stages in the cp.async ring
+    smem: int        # bytes of shared memory a block
+    acc_regs: int    # accumulator registers a thread: O and S, in bfloat16
+                     # also P's two pieces for two tiles
+
+    def __str__(self):
+        return (f"rows{self.rows} keys{self.keys}"
+                + (f"x{self.splits}" if self.splits > 1 else "")
+                + f" stages{self.stages} hdp{self.hdp} {self.smem} B")
+
+
+def smem_bytes(hdp: int, bf16: bool, rows: int, keys: int, splits: int,
+               stages: int) -> int:
+    """Shared memory of a block, as the kernel lays it out: Q's rows and
+    ``stages`` stages of ``splits`` K and V tiles; bfloat16 rows of hdp,
+    float32 rows padded to hdp + 4 floats."""
+    item, row = (2, hdp) if bf16 else (4, hdp + 4)
+    return item * row * (rows + 2 * stages * splits * keys)
+
+
+def flash_plan(hd: int, dtype) -> FlashPlan:
+    """The kernel's tiles for head width ``hd`` and ``dtype``.  Up to
+    hdp = 128, 64-key tiles and 128 query rows a block (two warpgroups in
+    bfloat16, eight warps in float32), except in float32 up to hdp = 64:
+    64 rows a block and two sets of four warps that split the keys, tile
+    by tile, merged at the end, so the benchmark's causal shape (8 heads x
+    1,024 rows) fills the card with twice the blocks and each block's
+    longest row takes half the steps.  Past hdp = 128, 64 rows and 32
+    keys, which keep the O accumulator (hdp / 2 registers a thread) and
+    the score tile within the registers at hd 256.  bfloat16 takes three
+    stages (the tile scored, the tile whose P V runs, the tile loading),
+    float32 three where a block still fits twice an SM, else two."""
+    if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"hd={hd}: the kernel takes a multiple of 8 from 8 "
+                         f"to {MAX_HEAD_DIM}")
+    if dtype not in DTYPES:
+        raise TypeError(f"no kernel for {dtype}")
+    bf16 = dtype == torch.bfloat16
+    hdp = -(-hd // 16) * 16
+    rows = 64 if hdp > 128 or (not bf16 and hdp <= 64) else 128
+    keys = 64 if hdp <= 128 else 32
+    splits = 2 if not bf16 and hdp <= 64 else 1
+    stages = 3 if bf16 or smem_bytes(hdp, bf16, rows, keys, splits, 3) \
+        <= SMEM_PAIR else 2
+    return FlashPlan(hdp, rows, keys, splits, stages,
+                     smem_bytes(hdp, bf16, rows, keys, splits, stages),
+                     hdp // 2 + keys // 2 + (keys if bf16 else 0))
 
 
 def check_heads(q, k, v, q_ndim: int) -> None:
@@ -57,29 +120,36 @@ def check_heads(q, k, v, q_ndim: int) -> None:
         raise ValueError(f"H={H} must be a multiple of KV={KV}")
 
 
+def _aligned(t):
+    """``t``, or a copy of it where its data does not start on 16 bytes
+    (a view at an offset), since the kernel stages 16-byte chunks."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_attention(q, k, v, *, causal: bool = True):
     """Prefill attention (see the module docstring)."""
     global LAUNCHES
     check_heads(q, k, v, 4)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
     B, H, S, hd = q.shape
     KV, T = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"hd={hd}: the kernel is built for {HEAD_DIMS}")
+    plan = flash_plan(hd, q.dtype)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     from repro_torch.kernels import build
 
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     fn = build.launcher("flash_attention", "flash_attention",
-                        (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 9
+                        (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 13
                         + (ctypes.c_void_p,))
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    B, H, KV, S, T, hd, int(q.dtype == torch.bfloat16),
-                   int(causal), *build.device_and_stream(q)),
-                "flash_attention")
+                   int(causal), plan.rows, plan.keys, plan.splits,
+                   plan.stages,
+                   *build.device_and_stream(q)), "flash_attention")
     LAUNCHES += 1
     return out

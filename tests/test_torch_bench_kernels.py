@@ -217,7 +217,9 @@ def test_kernel_bench_on_the_cpu_at_its_shapes():
         assert fields["device"] == "cpu" and fields["clock"] == "host"
         assert fields["bound_by"] in ("bytes", "operations")
         flops, nbytes = kernels_bench.cost(kernel, *record[kernel][:2])
-        b_ms, by = kernels_bench.bound_ms(flops, nbytes)
+        peak = kernels_bench.peak_flops(kernel, record[kernel][0])
+        assert float(fields["peak"]) == pytest.approx(peak, rel=1e-3)
+        b_ms, by = kernels_bench.bound_ms(flops, nbytes, peak)
         assert fields["bound_by"] == by
         assert float(fields["bound_us"]) == pytest.approx(b_ms * 1e3,
                                                           rel=1e-2)
@@ -226,15 +228,26 @@ def test_kernel_bench_on_the_cpu_at_its_shapes():
         for a, b in zip(out if isinstance(out, tuple) else (out,),
                         want if isinstance(want, tuple) else (want,)):
             assert torch.equal(a, b)
-    # the bounds the JAX benchmark's shapes give (fp32 at 67 TFLOP/s,
-    # 3.35 TB/s): reid_topk 4.0 us, causal flash 16.0 us, decode 10.0 us
-    # (the cache), mamba 0.98 us (bytes)
+    # the bounds the JAX benchmark's shapes give (3.35 TB/s; fp32 at
+    # 67 TFLOP/s for the re-id top-k and the scan, attention in float32 at
+    # 165 TFLOP/s, 3xTF32 on the tensor cores): reid_topk 4.0 us, causal
+    # flash 6.51 us (16.04 us at 67 TFLOP/s), decode 10.0 us (the cache),
+    # mamba 0.98 us (bytes)
     bounds = {r[0]: float(dict(f.split("=") for f in r[2].split(";"))
                           ["bound_us"]) for r in rows}
     assert bounds == pytest.approx({
-        "kernels/reid_topk": 4.01, "kernels/flash_attention": 16.04,
+        "kernels/reid_topk": 4.01, "kernels/flash_attention": 6.51,
         "kernels/decode_attention": 10.02, "kernels/mamba_scan": 0.98},
         rel=1e-2)
+    flops, nbytes = kernels_bench.cost("flash_attention",
+                                       *record["flash_attention"][:2])
+    assert kernels_bench.bound_ms(flops, nbytes)[0] * 1e3 == \
+        pytest.approx(16.04, rel=1e-2)
+    bf16 = tuple(a.to(torch.bfloat16) for a in record["flash_attention"][0])
+    assert kernels_bench.peak_flops("flash_attention", bf16) == 989e12
+    assert kernels_bench.peak_flops("reid_topk", record["reid_topk"][0]) \
+        == kernels_bench.peak_flops("mamba_scan", record["mamba_scan"][0]) \
+        == 67e12
 
 
 def test_kernel_bench_cli_prints_the_runners_csv(capsys, monkeypatch):
