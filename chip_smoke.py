@@ -11,10 +11,13 @@ Phases, one line or block each:
      the kernel benchmark's four), with nvcc for sm_90a, one nvcc per
      source, all started together; each kernel's registers and spills,
      the gallery-split kernels' merge pass (``merge_slices``) among them,
-     and the flash kernel's per (padded head width, dtype) variant;
+     the flash kernel's per (padded head width, dtype) variant and the
+     decode kernel's per (padded head width, heads a block, dtype)
+     template, none of which may spill;
   3. each serving kernel against its plain PyTorch version on the card, on
      ragged, tied, masked, k > G, G == 0, C = 130 (and C*T*T = 8,320
-     cells) inputs and at a stress shape: scores within rtol/atol 1e-5,
+     cells) and C = 8,192 (the camera call past 4,096 cameras, on the tile
+     kernel) inputs and at a stress shape: scores within rtol/atol 1e-5,
      indices exact on integer-valued inputs and exact elsewhere except
      between scores within 1e-5 of each other; every shape is timed
      (kernel, plain version, library yardstick) beside its bound and its
@@ -57,8 +60,10 @@ Phases, one line or block each:
      Q == 0, and for the unmasked top-k the split edge cases of phase 3;
      flash attention in MHA, GQA and MQA at hd 8, 32, 40, 64, 80, 96, 128,
      136 and 256, causal or not, S = T, S < T and S > T, float32 and
-     bfloat16; decode at hd 32, 64 and 128, lengths of 0, 1, partial, T
-     and past T;
+     bfloat16; decode at hd 8, 32, 40, 64, 80, 128, 136 and 256 with 1, 4,
+     8, 12 and 40 q heads a kv head, lengths of 0, 1, partial, T and past
+     T, float32 and bfloat16, and under forced plans (one split, many, a
+     split off the tile, 1 to 8 heads a block, 4 or 8 warps);
      the scan at state sizes 1, 3, 4, 8, 16, 17, 64 and 300 (tiled), L of
      1, one below, at and one past the plan's chunk and 4,097 at D of 1,
      63 and 65, B = 65,536 at L = D = N = 1, A = 0 over 4,096 steps (the
@@ -74,17 +79,23 @@ Phases, one line or block each:
      plain version, the CSV rows are printed, and each kernel's library
      yardstick is timed beside the benchmark's kernel and plain times (the
      re-id top-k with its plan, which must split; the scan with its plan,
-     ``mamba_scan.scan_plan``);
+     ``mamba_scan.scan_plan``; decode with its plan,
+     ``decode_attention.decode_plan``, and the device times of its partial
+     pass alone and with the combine);
  10. the same kernels held and timed at the widths of models the repo
      configures: flash attention at yi-6b's layout (H = 32, KV = 4,
      hd = 128) over ``train_4k``'s 4,096 tokens, causal, in float32 and
      bfloat16, at zamba2-2.7b's (H = KV = 32, hd = 80) likewise, and at the
-     benchmark's shape in bfloat16; decode attention
-     at that layout over ``decode_32k``'s 32,768-key cache with batch 8
-     (cut from 128) and lengths drawn in [1, T]; the scan at
-     falcon-mamba-7b's D = 8,192, N = 16 over 4,096 steps, with its plan.
-     Attention (float32) and scan within 1e-4, bfloat16 attention held as
-     in phase 8.
+     benchmark's shape in bfloat16; decode attention at yi-6b's layout
+     over ``decode_32k``'s 32,768-key cache, lengths drawn in [1, T], at
+     its batch of 128 in bfloat16 and float32 (held in 8-row slices) and
+     at batch 8 in float32 (comparable with earlier runs), and at
+     zamba2-2.7b's layout in bfloat16 (batch 32, so the plain version's
+     float32 copies of the cache fit), each with its plan and its
+     partial and combine
+     times; the scan at falcon-mamba-7b's D = 8,192, N = 16 over 4,096
+     steps, with its plan.  Attention (float32) and scan within 1e-4,
+     bfloat16 attention held as in phase 8.
 
 Times are device times per call: CUDA-graph replays of back-to-back calls,
 timed with CUDA events, median over replays
@@ -101,8 +112,11 @@ for attention the tensor cores, 989 TFLOP/s in bfloat16 and 495 / 3 =
 the H100 SXM data sheet's peaks.  ``library_ms`` times one PyTorch call of
 the same function, which the port never calls: ``torch.matmul`` with
 masking and ``torch.topk`` for the re-id kernels,
-``scaled_dot_product_attention`` for attention, in the inputs' dtype; the
-scan has none.
+``scaled_dot_product_attention`` for attention, in the inputs' dtype (for
+decode on q viewed as (B, KV, G, hd) with the length mask, G query rows a
+kv head; at batch 8 or less also the expanding form, q as (B, H, 1, hd)
+with ``enable_gqa``, which expands K and V to all H heads); the scan has
+none.
 
 Exits non-zero, before the last line, on any failed phase, and without a
 result when no card is present or the repository is not beside it.  The
@@ -153,10 +167,10 @@ BENCH = {
                        replaces="src/repro/kernels/mamba_scan.py:19"),
 }
 #: phase 10's shapes: yi-6b's attention layout (configs/yi_6b.py) at
-#: train_4k's length and at decode_32k's cache (batch cut from 128 to 8, so
-#: the plain version's scores fit), falcon-mamba-7b's scan
-#: (configs/falcon_mamba_7b.py: d_model 4,096 x expand 2, N = 16) over
-#: 4,096 steps
+#: train_4k's length and at decode_32k's cache (its batch of 128, and the
+#: batch 8 of earlier runs), zamba2-2.7b's decode at batch 32,
+#: falcon-mamba-7b's scan (configs/falcon_mamba_7b.py: d_model 4,096 x
+#: expand 2, N = 16) over 4,096 steps
 #: each (kernel, label, shape, dtype); flash also at zamba2-2.7b's layout
 #: (configs/zamba2_2p7b.py: d_model 2,560 over 32 heads, hd 80, no GQA)
 #: and at the benchmark's shape in bfloat16
@@ -175,6 +189,13 @@ MODEL_SHAPES = [
                                       causal=True), "bfloat16"),
     ("decode_attention", "yi-6b", dict(B=8, H=32, KV=4, T=32768, hd=128,
                                        length="random"), "float32"),
+    ("decode_attention", "yi-6b", dict(B=128, H=32, KV=4, T=32768, hd=128,
+                                       length="random"), "bfloat16"),
+    ("decode_attention", "yi-6b", dict(B=128, H=32, KV=4, T=32768, hd=128,
+                                       length="random"), "float32"),
+    ("decode_attention", "zamba2-2.7b", dict(B=32, H=32, KV=32, T=32768,
+                                             hd=80, length="random"),
+     "bfloat16"),
     ("mamba_scan", "falcon-mamba-7b", dict(B=1, L=4096, D=8192, N=16),
      "float32"),
     # no model layer runs the re-id top-k; phase 3's stress width, a
@@ -183,6 +204,7 @@ MODEL_SHAPES = [
 ]
 TILE = 64                   # the split kernels' (query, gallery) tile,
                             # reid_topk.SPLIT_QB = SPLIT_GB
+HOLD_ROWS = 8               # decode rows the plain version holds at once
 
 
 def fail(msg: str) -> None:
@@ -501,11 +523,52 @@ def library_yardstick(torch, name, args, kwargs):
             q, k, v, is_causal=kwargs["causal"], enable_gqa=True)
     if name == "decode_attention":
         q, k, v, length = args
+        B, H, hd = q.shape
+        KV = k.shape[1]
         mask = (torch.arange(k.shape[2], device=q.device)[None]
                 < length[:, None])[:, None, None, :]
         return lambda: F.scaled_dot_product_attention(
-            q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+            q.view(B, KV, H // KV, hd), k, v, attn_mask=mask)
     return None
+
+
+def decode_gqa_yardstick(torch, args):
+    """The expanding decode yardstick: q as (B, H, 1, hd) against K and
+    V with ``enable_gqa``, which expands them to all H heads."""
+    q, k, v, length = args
+    mask = (torch.arange(k.shape[2], device=q.device)[None]
+            < length[:, None])[:, None, None, :]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+
+
+def decode_parts(torch, decode_attention, args, n_sms):
+    """The plan of one decode call and the device times of its partial
+    pass alone and with the combine (``decode_attention.launch``, which
+    counts nothing); the combine's time is their difference."""
+    from repro_torch.benchmarks.kernels_bench import device_ms
+
+    q, k, v, length = args
+    B, H, hd = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    plan = decode_attention.decode_plan(B, H, KV, T, hd, q.dtype, n_sms)
+    out = torch.empty_like(q)
+    length = length.to(torch.int32)
+    partial = device_ms(lambda: decode_attention.launch(
+        q, k, v, length, out, plan, passes=1))
+    full = device_ms(lambda: decode_attention.launch(q, k, v, length, out,
+                                                     plan))
+    return dict(plan=str(plan), splits=plan.splits, partial_ms=partial,
+                full_ms=full, combine_ms=full - partial)
+
+
+def parts_text(t) -> str:
+    """The partial and combine times of ``decode_parts`` as printed."""
+    if t["splits"] == 1:
+        return (f"one split, no partials: {t['full_ms']:.4f} ms in one "
+                f"pass")
+    return (f"partials {t['partial_ms']:.4f} ms, with the combine "
+            f"{t['full_ms']:.4f} ms (combine {t['combine_ms']:.4f} ms)")
 
 
 def hold_output(torch, name, label, args, kwargs, out, tol):
@@ -590,8 +653,16 @@ def main() -> int:
     say(f"[2 build] nvcc sm_90a: {', '.join(f'{n}.cu' for n in sources)} "
         f"in {time.perf_counter() - t0:.2f} s")
     for name, path in lib_paths.items():
-        say(f"  ptxas {name}.cu: "
-            + "; ".join(ptxas_summary(path.with_suffix(".log").read_text())))
+        entries = ptxas_summary(path.with_suffix(".log").read_text())
+        say(f"  ptxas {name}.cu: " + "; ".join(entries))
+        if name == "decode_attention":
+            regs = [int(re.search(r" (\d+) regs", e).group(1))
+                    for e in entries]
+            spilled = [e for e in entries if " 0/0 B spilled" not in e]
+            say(f"  decode templates: {len(entries)}, {min(regs)} to "
+                f"{max(regs)} registers, {len(spilled)} spilling")
+            if spilled:
+                fail("decode templates spill: " + "; ".join(spilled))
 
     if (reid_topk.SPLIT_QB, reid_topk.SPLIT_GB) != (TILE, TILE):
         fail(f"the split kernels' tile is not {TILE} x {TILE}")
@@ -644,6 +715,19 @@ def main() -> int:
         err, _ = check_and_time(torch, kern, lib, name, args, k,
                                 exact_idx=kw.get("ties", False))
         max_err[kern["name"]] = max(max_err[kern["name"]], err)
+    # past the camera kernel's 4,096 cameras a camera-masked call runs on
+    # the tile kernel (the same eligibility over any cell axis) and still
+    # counts as a camera call; on its own seed
+    name, Q, G, D, C, k = "ties 8192cams 96x700 int", 96, 700, 32, 8192, 8
+    args = synthetic_inputs(torch, np.random.default_rng(C), Q, G, D, C,
+                            ties=True, pad_rows=12)
+    before = (reid_topk.LAUNCHES, reid_topk.TILE_LAUNCHES)
+    ops.reid_topk_segments(*args, k)
+    if (reid_topk.LAUNCHES - before[0], reid_topk.TILE_LAUNCHES
+            - before[1]) != (1, 0):
+        fail(f"{name}: not one camera call on the tile kernel")
+    err, _ = check_and_time(torch, camera, lib, name, args, k, exact_idx=True)
+    max_err[CAMERA["name"]] = max(max_err[CAMERA["name"]], err)
     # the gallery split's edge cases, on their own seed: every shape splits
     split_rng = np.random.default_rng(15)
     split_cases = [
@@ -1056,29 +1140,74 @@ def main() -> int:
                     for dt in (torch.float32, torch.bfloat16)))
 
     n_dec = 0
-    T = 700                 # not a whole number of the kernel's chunks
+    T = 700                 # not a whole number of the kernel's tiles
     length = torch.tensor([0, 1, 333, T, T + 5], dtype=torch.int32,
                           device=DEVICE)
-    for hd in (32, 64, 128):
-        for H, KV in ((4, 4), (8, 2), (8, 1)):
+    dec_hds = (8, 32, 40, 64, 80, 128, 136, 256)
+    dec_heads = ((4, 4), (8, 2), (8, 1), (12, 1), (40, 1))  # G 1 to 40
+    for hd in dec_hds:
+        for H, KV in dec_heads:
             for dtype in (torch.float32, torch.bfloat16):
                 q = randn(5, H, hd, dtype=dtype)
                 k = randn(5, KV, T, hd, dtype=dtype)
                 v = randn(5, KV, T, hd, dtype=dtype)
+                before = decode_attention.LAUNCHES
                 out = ops.decode_attention(q, k, v, length)
+                label = f"decode H={H} KV={KV} hd={hd} {dtype}"
+                if decode_attention.LAUNCHES != before + 1:
+                    fail(f"{label}: {decode_attention.LAUNCHES - before} "
+                         f"launches counted")
                 if (out[0] != 0).any():
                     fail("decode_attention: length 0 must give zeros")
                 errs["decode_attention"] = max(
                     errs["decode_attention"], close_enough(
-                        torch, f"decode H={H} KV={KV} hd={hd} {dtype}", out,
+                        torch, label, out,
                         ref.decode_attention_ref(q, k, v, length),
                         ATTN_TOL[str(dtype).split(".")[1]]))
                 n_dec += 1
-    say(f"[8 edge] decode_attention: {n_dec} cases (MHA, GQA, MQA; hd 32, "
-        f"64, 128; float32 and bfloat16; lengths 0, 1, 333, T = {T} and "
-        f"T + 5) agree with the plain version (max abs err "
+    say(f"[8 edge] decode_attention: {n_dec} cases (hd "
+        + ", ".join(map(str, dec_hds)) + "; "
+        + ", ".join(str(H // KV) for H, KV in dec_heads)
+        + f" q heads a kv head; float32 and bfloat16; lengths 0, 1, 333, "
+        f"T = {T} and T + 5) agree with the plain version (max abs err "
         f"{errs['decode_attention']:.3g}); bfloat16 outputs bit-equal: "
-        f"{min_share('decode')}; length 0 gives zeros")
+        f"{min_share('decode')}; length 0 gives zeros; one launch a call")
+    # every path of the kernel, whatever decode_plan picks: one split or
+    # many (combined by a row's last block), ragged splits and tiles, 1 to
+    # 8 heads a block, 4 or 8 warps (``launch``, which counts nothing)
+    forced = ((8, 8, 10000, 4), (8, 8, 32, 4), (4, 8, 37, 4),
+              (1, 16, 100, 4), (2, 8, 3, 4), (8, 2, 13, 4), (8, 8, 100, 8),
+              (4, 8, 10000, 8))
+    for dtype in (torch.float32, torch.bfloat16):
+        q = randn(5, 8, 64, dtype=dtype)
+        k = randn(5, 1, T, 64, dtype=dtype)
+        v = randn(5, 1, T, 64, dtype=dtype)
+        want = ref.decode_attention_ref(q, k, v, length)
+        item = q.element_size()
+        for heads, tile, split, warps in forced:
+            if item == 2:    # the tensor-core kernel: 8 heads, 16-key blocks
+                heads, tile = 8, 16 * max(1, tile // 8)
+            sk = decode_attention.score_keys(64, heads, item)
+            plan = decode_attention.make_plan(
+                5, 8, 1, T, 64, dtype, heads=heads,
+                tile=max(sk, tile // sk * sk), split=split, warps=warps)
+            out = torch.empty_like(q)
+            decode_attention.launch(q, k, v, length, out, plan)
+            errs["decode_attention"] = max(
+                errs["decode_attention"], close_enough(
+                    torch, f"decode forced plan {plan} {dtype}", out, want,
+                    ATTN_TOL[str(dtype).split(".")[1]]))
+    say(f"[8 edge] decode_attention: {len(forced)} forced plans x 2 dtypes "
+        f"(one split, 1 to 234 splits, splits of 3, 13 and 37 keys, float32 "
+        f"blocks of 1 to 8 heads, bfloat16 tiles of 16 or 32 keys, 4 or 8 "
+        f"warps) agree with the plain version at "
+        f"B=5 H=8 KV=1 T={T} hd=64; bfloat16 bit-equal "
+        f"{min_share('decode forced')}; decode plans: "
+        + ", ".join(f"hd{hd} G{G} {dt_name} "
+                    f"{decode_attention.decode_plan(5, G, 1, T, hd, dt, n_sms)}"
+                    for hd, G in ((64, 8), (80, 1), (256, 40))
+                    for dt, dt_name in ((torch.float32, 'fp32'),
+                                        (torch.bfloat16, 'bf16'))))
 
     def scan_plan(B, L, D, N):
         return mamba_scan.scan_plan(B, L, D, N, n_sms)
@@ -1198,6 +1327,14 @@ def main() -> int:
         if name == "mamba_scan":
             bench[name]["shape"] = dict(bench[name]["shape"], plan=str(
                 scan_plan(*args[0].shape, args[2].shape[2])))
+        if name == "decode_attention":
+            parts = decode_parts(torch, decode_attention, args, n_sms)
+            bench[name].update(
+                library_gqa_ms=device_ms(decode_gqa_yardstick(torch, args)),
+                **{key: parts[key] for key in ("partial_ms", "combine_ms")})
+            bench[name]["shape"] = dict(bench[name]["shape"],
+                                        plan=parts["plan"])
+            decode_line = f"; {parts_text(parts)}"
         if name == "reid_topk":
             bench[name]["shape"] = dict(bench[name]["shape"], plan=plan_of(
                 args[0].shape[0], args[1].shape[0]))
@@ -1213,11 +1350,14 @@ def main() -> int:
     for name, t in bench.items():
         lib_ms = "none" if t["library_ms"] is None \
             else f"{t['library_ms']:.4f} ms"
+        if "library_gqa_ms" in t:
+            lib_ms += f" (with enable_gqa {t['library_gqa_ms']:.4f} ms)"
         plan = t["shape"].get("plan")
         say(f"  {name}: " + (f"plan {plan}; " if plan else "")
             + f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
             f"ms, library {lib_ms}, bound {t['bound_ms']:.6f} ms "
-            f"({t['bound_by']})")
+            f"({t['bound_by']})"
+            + (decode_line if name == "decode_attention" else ""))
     del record
 
     # -- phase 10: the kernels at model widths ----------------------------
@@ -1230,10 +1370,24 @@ def main() -> int:
                          for a in args)
         op, base = getattr(ops, name), kernels_bench.plain(name)
         tag = f"{name} {label} {dtype} {shape}"
-        err = hold_output(torch, name, tag, args, kwargs,
-                          op(*args, **kwargs),
-                          ATTN_TOL[dtype] if dtype == "bfloat16"
-                          else MODEL_TOL)
+        tol = ATTN_TOL[dtype] if dtype == "bfloat16" else MODEL_TOL
+        out = op(*args, **kwargs)
+        if name == "decode_attention":
+            # the plain version holds 8 rows at a time: its float32 copies
+            # of a bfloat16 cache at batch 128 would take 17 GB
+            err, shares = 0.0, []
+            for b0 in range(0, shape["B"], HOLD_ROWS):
+                err = max(err, hold_output(
+                    torch, name, f"{tag} rows {b0}:{b0 + HOLD_ROWS}",
+                    tuple(a[b0:b0 + HOLD_ROWS] for a in args), kwargs,
+                    out[b0:b0 + HOLD_ROWS], tol))
+                if dtype == "bfloat16":
+                    shares.append(BF16_SHARES[-1][1])
+            if shares:
+                BF16_SHARES.append((tag, min(shares)))
+        else:
+            err = hold_output(torch, name, tag, args, kwargs, out, tol)
+        del out
         errs[name] = max(errs[name], err)
         b_ms, b_by = kernels_bench.bound_ms(
             *kernels_bench.cost(name, args, kwargs),
@@ -1253,8 +1407,20 @@ def main() -> int:
         if name == "flash_attention":
             t["plan"] = str(flash_attention.flash_plan(shape["hd"],
                                                        args[0].dtype))
-            if dtype == "bfloat16":
-                t["bf16_share"] = BF16_SHARES[-1][1]
+        if name in ("flash_attention", "decode_attention") and \
+                dtype == "bfloat16":
+            t["bf16_share"] = BF16_SHARES[-1][1]
+        parts = ""
+        if name == "decode_attention":
+            d = decode_parts(torch, decode_attention, args, n_sms)
+            t.update(plan=d["plan"], partial_ms=d["partial_ms"],
+                     combine_ms=d["combine_ms"])
+            parts = f"; {parts_text(d)}"
+            if shape["B"] <= HOLD_ROWS:
+                t["library_gqa_ms"] = device_ms(decode_gqa_yardstick(torch,
+                                                                     args))
+                parts += (f"; library with enable_gqa "
+                          f"{t['library_gqa_ms']:.4f} ms")
         widths[name].append(t)
         lib_ms = "none" if t["library_ms"] is None \
             else f"{t['library_ms']:.4f} ms"
@@ -1263,7 +1429,7 @@ def main() -> int:
                if "bf16_share" in t else "") + "); "
             + (f"plan {t['plan']}; " if "plan" in t else "")
             + f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-            f"library {lib_ms}, bound {b_ms:.6f} ms ({b_by}); "
+            f"library {lib_ms}, bound {b_ms:.6f} ms ({b_by}){parts}; "
             f"{time.perf_counter() - t0:.1f} s")
         del args, kwargs, lib
         torch.cuda.empty_cache()

@@ -155,6 +155,71 @@ def decode_attention_ref(q, k_cache, v_cache, length):
     return o.reshape(B, H, hd).to(q.dtype)
 
 
+def decode_attention_split(q, k_cache, v_cache, length, plan):
+    """``decode_attention_ref`` in the CUDA kernel's association order
+    under ``plan`` (a ``decode_attention.DecodePlan``): scores in log2 units
+    (``q . k * hd**-0.5 * log2(e)``); in each split of ``plan.split`` keys,
+    ``plan.warps`` running (max, sum, accumulator) states over the split's
+    tiles of ``plan.tile`` keys dealt in turn, merged at the end of the
+    split; the splits a row reaches combined by their common max.  Same
+    arguments and result; a test reference for the plan's arithmetic (the
+    products' own order within a tile is the card's: CUDA-core sums in
+    float32, tensor-core sums in bfloat16)."""
+    B, H, hd = q.shape
+    KV, T = k_cache.shape[1], k_cache.shape[2]
+    warps, log2e = plan.warps, 1.4426950408889634
+    qr = q.reshape(B, KV, H // KV, hd).to(torch.float32)
+    k, v = k_cache.to(torch.float32), v_cache.to(torch.float32)
+    scale = torch.tensor(hd ** -0.5 * log2e, dtype=torch.float32)
+    s = torch.einsum("bkgh,bkth->bkgt", qr, k) * scale
+    n = length.to(device=q.device, dtype=torch.int64).clamp(0, T)
+    s = torch.where((torch.arange(T, device=q.device)[None] < n[:, None])
+                    [:, None, None], s, torch.full_like(s, NEG_INF))
+    shape = s.shape[:3]
+
+    def state():
+        return (torch.full(shape, NEG_INF, device=q.device),
+                torch.zeros(shape, device=q.device),
+                torch.zeros(shape + (hd,), device=q.device))
+
+    def merge(states, live):
+        """(m, l, acc) of the live states by their common max."""
+        m = torch.stack([x[0] for x in states])
+        m = torch.where(live, m, torch.full_like(m, NEG_INF))
+        top = m.max(0).values
+        w = torch.where(live, torch.exp2(m - top), torch.zeros_like(m))
+        return (top, (torch.stack([x[1] for x in states]) * w).sum(0),
+                (torch.stack([x[2] for x in states]) * w[..., None]).sum(0))
+
+    parts, reached = [], []
+    for a0 in range(0, max(T, 1), plan.split):
+        a1 = min(a0 + plan.split, T)
+        per_warp = []
+        for w in range(warps):
+            m, l, acc = state()
+            for t0 in range(a0 + w * plan.tile, a1, warps * plan.tile):
+                t1 = min(t0 + plan.tile, a1)
+                tile = s[..., t0:t1]
+                m_new = torch.maximum(m, tile.max(-1).values)
+                corr = torch.exp2(m - m_new)
+                p = torch.exp2(tile - m_new[..., None])
+                run = (n > t0)[:, None, None]     # the row reaches the tile
+                l = torch.where(run, l * corr + p.sum(-1), l)
+                acc = torch.where(run[..., None], acc * corr[..., None]
+                                  + torch.einsum("bkgt,bkth->bkgh", p,
+                                                 v[:, :, t0:t1]), acc)
+                m = torch.where(run, m_new, m)
+            per_warp.append((m, l, acc))
+        parts.append(merge(per_warp, torch.ones((warps, 1, 1, 1),
+                                                dtype=torch.bool,
+                                                device=q.device)))
+        reached.append((n > a0)[:, None, None])
+    m, l, acc = merge(parts, torch.stack(reached))
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    o = torch.where((n > 0)[:, None, None, None], o, torch.zeros_like(o))
+    return o.reshape(B, H, hd).to(q.dtype)
+
+
 def mamba_scan_ref(u, dt, Bm, Cm, A, h0):
     """The Mamba1 selective scan, one step at a time, in float32:
     ``h_t = exp(dt_t * A) * h_{t-1} + (dt_t * u_t) * B_t`` and

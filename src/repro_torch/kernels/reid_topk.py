@@ -16,7 +16,9 @@ Dispatch is by the tensors' device: on the CPU the plain version in
 ``ref.py`` runs; on a CUDA tensor the kernel launches or the wrapper
 raises.  ``LAUNCHES`` counts the camera kernel's calls, ``TILE_LAUNCHES``
 the tile kernel's, ``UNMASKED_LAUNCHES`` the unmasked kernel's: one per
-call, the merge launch of a split call included.
+call, the merge launch of a split call included.  A camera-masked call
+with more than ``MAX_CAMS`` cameras runs on the tile kernel, whose
+admission takes any cell axis, and still counts in ``LAUNCHES``.
 
 The three kernels split the gallery across blocks
 (``csrc/reid_split.cuh``): ``split_plan`` chooses the number of slices
@@ -37,6 +39,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.ref import NEG_INF
 
 MAX_K = 16
+#: cameras the camera kernel packs in shared memory; wider calls go to the
+#: tile kernel
 MAX_CAMS = 4096
 #: the largest size a launcher's ``int`` argument holds
 INT_MAX = 2 ** 31 - 1
@@ -186,11 +190,15 @@ def _segment_masked_call(queries, q_tag, admit, gallery, gal_cam, gal_tag,
                                           gal_cam, gal_tag, k)
     if queries.device.type != "cuda":
         raise ValueError(f"no kernel for device {queries.device}")
-    if admit.shape[1] > MAX_CAMS:
-        raise ValueError(f"C={admit.shape[1]} cameras exceeds the kernel's "
-                         f"{MAX_CAMS}")
-    out = _launch("reid_topk", "reid_topk_segment_masked", queries, q_tag,
-                  admit, gallery, gal_cam, gal_tag, k)
+    # past MAX_CAMS the camera kernel's packed admission bits no longer fit
+    # its shared memory; the tile kernel applies the same rule over any
+    # cell axis (admit[q, cell[g]], equal tags, out-of-range never
+    # eligible), with the same plan, product and merge
+    source, symbol = ("reid_topk", "reid_topk_segment_masked") \
+        if admit.shape[1] <= MAX_CAMS else ("reid_topk_tiles",
+                                            "reid_topk_tiles")
+    out = _launch(source, symbol, queries, q_tag, admit, gallery, gal_cam,
+                  gal_tag, k)
     LAUNCHES += 1
     return out
 

@@ -268,6 +268,40 @@ def test_cuda_camera_split_matches_plain(card, Q, G, D, k, what):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C", [5000, 130000])
+def test_cuda_camera_kernel_takes_any_camera_axis(card, C):
+    """Past ``MAX_CAMS`` cameras the camera-masked call runs on the tile
+    kernel (the same eligibility over any cell axis): sparse admission over
+    cameras spread across the whole axis (past 4,096 and at C - 1), rows
+    out of range (-1, C), ties between rows; exact scores and indices
+    against the plain version, one launch counted."""
+    assert C > reid_topk.MAX_CAMS
+    Q, G, D, k = 40, 3000, 16, 8
+    rng = np.random.default_rng(C)
+    q, g = _split_features(C, Q, G, D, "ties")
+    g[1::7] = g[::7][:len(g[1::7])]                  # equal rows: ties
+    cams = np.concatenate([rng.integers(0, C, 60), [0, 4095, 4096, C - 1]])
+    gal_cam = rng.choice(cams, G).astype(np.int32)
+    gal_cam[::97] = -1
+    gal_cam[5::101] = C
+    admit = rng.random((Q, C)) < 0.001                  # sparse
+    admit[:, cams] = rng.random((Q, len(cams))) < 0.5
+    q_tag = rng.integers(0, 2, Q).astype(np.int32)
+    gal_tag = rng.integers(0, 2, G).astype(np.int32)
+    t = [torch.from_numpy(a).to(card)
+         for a in (q, q_tag, admit, g, gal_cam, gal_tag)]
+    before = (reid_topk.LAUNCHES, reid_topk.TILE_LAUNCHES)
+    kv, ki = ops.reid_topk_segments(*t, k)
+    torch.cuda.synchronize()
+    assert (reid_topk.LAUNCHES, reid_topk.TILE_LAUNCHES) == \
+        (before[0] + 1, before[1])
+    pv, pi = ref.reid_topk_segments_ref(*t, k)
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    picked = gal_cam[ki[ki >= 0].cpu().numpy()]
+    assert len(picked) > Q and (picked >= reid_topk.MAX_CAMS).any()
+
+
+@pytest.mark.cuda
 def test_cuda_split_normal_features_match_plain(card):
     """Normal features at the stress width: scores within 1e-5 (the card
     and the CPU sum in other orders)."""
@@ -395,25 +429,128 @@ def test_cuda_flash_attention_refuses_widths_without_a_build(card):
         ops.flash_attention(q, q, q)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,H,KV,T,hd,bf16", DECODE_CASES + [
-    (4, 8, 2, 8192, 64, False), (2, 32, 4, 1000, 128, True)])
-def test_cuda_decode_attention_matches_plain(card, B, H, KV, T, hd, bf16):
+def _decode_case(card, B, H, KV, T, hd, bf16):
+    """Inputs of a decode hold: lengths drawn in [1, T], the last row of
+    length 0 (zeros, as the Pallas kernel), the first two T and T + 50
+    (past T means T)."""
     dtype = torch.bfloat16 if bf16 else torch.float32
     q, k, v = (torch.from_numpy(a).to(card, dtype) for a in
                attention_inputs(T + hd, B, H, KV, 0, T, hd))
     lengths = np.random.default_rng(T).integers(1, T + 1, B)
     if B > 1:
-        lengths[-1] = 0                    # zeros, as the Pallas kernel
+        lengths[-1] = 0
     if B > 2:
-        lengths[0], lengths[1] = T, T + 50   # past T means T
-    length = torch.from_numpy(lengths.astype(np.int32)).to(card)
+        lengths[0], lengths[1] = T, T + 50
+    return q, k, v, torch.from_numpy(lengths.astype(np.int32)).to(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,T,hd,bf16", DECODE_CASES + [
+    (4, 8, 2, 8192, 64, False), (2, 32, 4, 1000, 128, True)] + [
+    # any head width that is a multiple of 8, to 256
+    (3, 8, 2, 300, hd, bf16) for hd in (8, 40, 80, 136, 256)
+    for bf16 in (False, True)] + [
+    # any number of q heads a kv head: 1, 12 (a partial group), 40
+    (3, 4, 4, 300, 80, True), (3, 12, 1, 300, 64, False),
+    (3, 40, 1, 300, 128, True), (3, 40, 2, 300, 40, False),
+    (3, 8, 2, 1, 64, False), (3, 8, 2, 1, 128, True),     # T = 1
+    (3, 8, 2, 8191, 64, False), (3, 8, 2, 777, 128, True),  # T off a tile
+    (128, 32, 4, 64, 128, True), (128, 8, 8, 33, 64, False)])  # B = 128
+def test_cuda_decode_attention_matches_plain(card, B, H, KV, T, hd, bf16):
+    q, k, v, length = _decode_case(card, B, H, KV, T, hd, bf16)
     before = decode_attention.LAUNCHES
     out = ops.decode_attention(q, k, v, length)
     torch.cuda.synchronize()
-    assert decode_attention.LAUNCHES == before + 1 and out.dtype == dtype
+    assert decode_attention.LAUNCHES == before + 1 and out.dtype == q.dtype
     assert B == 1 or (out[-1] == 0).all()
     _hold_attention(out, ref.decode_attention_ref(q, k, v, length), bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,tile,split,warps", [
+    (8, 8, 10000, 4),        # one split
+    (8, 8, 32, 4),           # many splits, each one round of the warps
+    (4, 8, 37, 4),           # a split that is not a multiple of the tile
+    (1, 16, 100, 4),         # one head a block: eight groups
+    (2, 8, 3, 4),            # splits of 3 keys: 234 of them
+    (8, 2, 13, 4),           # the score block's own tile
+    (8, 8, 100, 8),          # eight warps a block
+    (4, 8, 10000, 8)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_cuda_decode_plans_match_plain(card, heads, tile, split, warps,
+                                       bf16):
+    """Every path of the kernels, whatever ``decode_plan`` picks: one split
+    or many (the partials combined by the last block of a row), ragged
+    splits and tiles, 4 or 8 warps, in float32 a block's
+    heads from 1 to 8 (bfloat16 takes 8, with tiles of 16 or 32 keys);
+    with ``passes=1`` a row of one split is still written."""
+    B, H, KV, T, hd = 5, 8, 1, 700, 64
+    q, k, v, length = _decode_case(card, B, H, KV, T, hd, bf16)
+    if bf16:                 # the tensor-core kernel: 8 heads, 16-key blocks
+        heads, tile = 8, 16 * max(1, tile // 8)
+    sk = decode_attention.score_keys(64, heads, 2 if bf16 else 4)
+    plan = decode_attention.make_plan(B, H, KV, T, hd, q.dtype, heads=heads,
+                                      tile=max(sk, tile // sk * sk),
+                                      split=split, warps=warps)
+    want = ref.decode_attention_ref(q, k, v, length)
+    out = torch.empty_like(q)
+    decode_attention.launch(q, k, v, length, out, plan)
+    torch.cuda.synchronize()
+    _hold_attention(out, want, bf16)
+    assert (out[-1] == 0).all()
+    if plan.splits == 1:
+        part = torch.empty_like(q)
+        decode_attention.launch(q, k, v, length, part, plan, passes=1)
+        torch.cuda.synchronize()
+        assert torch.equal(part, out)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_counters_are_left_zero(card):
+    """The combine's ticket counters are zero after every launch, so calls
+    on a stream share them without a memset: repeated calls, on two
+    streams, give the same output as the plain version."""
+    q, k, v, length = _decode_case(card, 5, 8, 2, 3000, 64, False)
+    want = ref.decode_attention_ref(q, k, v, length)
+    plan = decode_attention.make_plan(5, 8, 2, 3000, 64, q.dtype, heads=4,
+                                      tile=8, split=100)
+    assert plan.splits > 1
+    for stream in (torch.cuda.current_stream(), torch.cuda.Stream()):
+        with torch.cuda.stream(stream):
+            for _ in range(3):
+                out = torch.empty_like(q)
+                decode_attention.launch(q, k, v, length, out, plan)
+                torch.cuda.synchronize()
+                _hold_attention(out, want, False)
+    for c in decode_attention._COUNTERS.values():
+        assert int(c.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_decode_refuses_widths(card):
+    """Off a multiple of 8 or past 256 the kernel has no build and the
+    wrapper raises before launching."""
+    for hd in (264, 12):
+        q = torch.zeros((1, 2, hd), device=card)
+        k = torch.zeros((1, 1, 16, hd), device=card)
+        before = decode_attention.LAUNCHES
+        with pytest.raises(ValueError, match=f"hd={hd}"):
+            ops.decode_attention(q, k, k, torch.ones(1, dtype=torch.int32,
+                                                     device=card))
+        assert decode_attention.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_takes_views_at_an_offset(card):
+    """A contiguous view that does not start on 16 bytes is copied before
+    the kernel stages it in 16-byte chunks."""
+    q, k, v, length = _decode_case(card, 3, 8, 2, 300, 64, False)
+    base = torch.cat([torch.zeros(1, device=card), k.flatten()])
+    kv = base[1:].view(k.shape)
+    assert kv.data_ptr() % 16 != 0
+    out = ops.decode_attention(q, kv, v, length)
+    torch.cuda.synchronize()
+    _hold_attention(out, ref.decode_attention_ref(q, k, v, length), False)
 
 
 @pytest.mark.cuda
