@@ -95,7 +95,29 @@ Phases, one line or block each:
      partial and combine
      times; the scan at falcon-mamba-7b's D = 8,192, N = 16 over 4,096
      steps, with its plan.  Attention (float32) and scan within 1e-4,
-     bfloat16 attention held as in phase 8.
+     bfloat16 attention held as in phase 8;
+ 11. the batched tracker (``repro_torch.api.track``) on the card: (a) the
+     quickstart world through ``repro_torch.examples.quickstart.main``
+     (1,200 entities, 2,400 steps, profiled to 1,600, K = 24, 25 queries,
+     ``all`` and S5-T2), whose printed lines must equal a CPU rerun's;
+     (b) fig11's duke world (2,700 entities, 5,100 steps, profiled to
+     3,000, K = 24, 100 queries) under ``all``, ``geo`` and S5-T2, and
+     ``trace_queries`` over the first 600 steps of S5-T2; (c) fig12's
+     130-camera porto world (history 6,000 x 7,200, seed 11; live
+     2,000 x 3,600, seed 2; K = 16; 400 feature clusters; 100 queries)
+     under ``all`` and S5-T2.  The loop state must live on the card.  Every
+     ``TrackResult`` field and every trace array must equal the CPU
+     rerun's.  One query may part at a step whose winning distance lies
+     within 1e-5 of the match threshold: its margin is printed and its
+     fields (and ``rescue_pairs``) are not compared.  Each
+     run prints its wall seconds, steps, steps/s, cost, recall,
+     precision, savings, mean delay and rescues; 200 steps of the duke
+     S5-T2 trace run again under ``torch.profiler`` give the device's
+     busy share and its operations a step;
+ 12. identity detection (``core.detect.identity_detection``) on the card:
+     fig17's setup on the duke world (40 lost identities from t = 3,200,
+     seed 1), the baseline and theta 0.95, 0.85 and 0.75; every summary
+     must equal the CPU rerun's; each run's wall seconds are printed.
 
 Times are device times per call: CUDA-graph replays of back-to-back calls,
 timed with CUDA events, median over replays
@@ -205,6 +227,17 @@ MODEL_SHAPES = [
 TILE = 64                   # the split kernels' (query, gallery) tile,
                             # reid_topk.SPLIT_QB = SPLIT_GB
 HOLD_ROWS = 8               # decode rows the plain version holds at once
+#: phase 11's worlds: duke (entities, steps, profiled steps), porto
+#: (history entities x steps, live entities x steps), queries each, and the
+#: steps of the duke trace; phase 12's queries and search start
+TRACK_DUKE = (2700, 5100, 3000)
+TRACK_PORTO = ((6000, 7200), (2000, 3600))
+TRACK_QUERIES = 100
+TRACE_STEPS = 600
+DETECT_QUERIES, DETECT_START = 40, 3200
+#: the tracker's per-query result fields, compared query by query
+TRACK_FIELDS = ("cost", "n_match", "n_correct", "visit_hits", "gt_count",
+                "delay", "rescued")
 
 
 def fail(msg: str) -> None:
@@ -471,6 +504,302 @@ def compare_traces(gpu, cpu, match_thresh):
                      f"\n  cuda {a}\n  cpu  {b}")
             n += 1
     return n, None if parted is None else parted[0]
+
+
+def first_parting(tracker, np, trace_of, q, thresh):
+    """Trace query ``q`` alone (queries do not interact) on the card and
+    on the host and return (step, margin) of the first step where the two
+    differ, the margin being the least |d - match_thresh| of the two
+    winning distances there; None if the traces agree."""
+    a, b = trace_of(q, "cuda"), trace_of(q, "cpu")
+    diff = np.zeros(len(a["live"]), bool)
+    for k in tracker.TRACE_KEYS + ("best_d",):
+        diff |= (a[k] != b[k]).reshape(len(diff), -1).any(1)
+    if not diff.any():
+        return None
+    s = int(np.flatnonzero(diff)[0])
+    return s, float(min(abs(a["best_d"][s, 0] - thresh),
+                        abs(b["best_d"][s, 0] - thresh)))
+
+
+def compare_tracks(tracker, np, label, gpu, cpu, trace_of, thresh):
+    """Hold the card's ``TrackResult`` to the host rerun's: every
+    per-query field and ``rescue_pairs`` exact.  One query may part at a
+    near-threshold step (|d - match_thresh| <= 1e-5): it is printed and
+    left out.  Returns the parted query or None."""
+    n = len(cpu.cost)
+    bad = sorted({int(i) for f in TRACK_FIELDS for i in np.flatnonzero(
+        (getattr(gpu, f) != getattr(cpu, f)).reshape(n, -1).any(1))})
+    parted = None
+    for q in bad:
+        where = first_parting(tracker, np, trace_of, q, thresh)
+        if parted is None and where is not None and where[1] <= TOL:
+            say(f"  {label}: query {q} parts at step {where[0]}, "
+                f"|d - match_thresh| = {where[1]:.3g} (near threshold); "
+                f"its fields are not compared")
+            parted = q
+            continue
+        fail(f"{label}: query {q} differs from the cpu rerun "
+             + ("" if where is None else f"from step {where[0]}, "
+                f"|d - match_thresh| = {where[1]:.3g} ")
+             + "; ".join(f"{f} cuda {getattr(gpu, f)[q]} cpu "
+                         f"{getattr(cpu, f)[q]}" for f in TRACK_FIELDS))
+    if parted is None and not np.array_equal(gpu.rescue_pairs,
+                                             cpu.rescue_pairs):
+        fail(f"{label}: rescue_pairs differ from the cpu rerun")
+    return parted
+
+
+def track_line(r, wall, base_cost):
+    return (f"{wall:.2f} s, {r.steps} steps, {r.steps / wall:.1f} steps/s; "
+            f"cost {r.total_cost:.0f}, recall {r.recall:.4f}, precision "
+            f"{r.precision:.4f}, savings {base_cost / r.total_cost:.3f}x, "
+            f"mean delay {r.mean_delay:.3f}, rescues {int(r.rescued.sum())}")
+
+
+def tracker_share(run, tag: str, steps: int):
+    """Where a tracker step's time goes: ``run()`` (``steps`` steps of the
+    tracker on the card) under ``torch.profiler``; prints the device's
+    busy time against the host clock, the device operations (kernels and
+    copies) a step, and those that took the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()                            # ends with the trace on the host
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    ops = sum(e.count for e in events)
+    copies = sum(e.count for e in events if "Memcpy" in e.key)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
+    say(f"{tag} profiled {steps} steps: device busy {busy_ms:.3f} ms of "
+        f"{wall_ms:.3f} ms host clock ({100 * busy_ms / wall_ms:.2f} % "
+        f"busy); {ops / steps:.1f} device operations a step, "
+        f"{copies / steps:.1f} of them copies; most device time: "
+        + "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3:.3f} ms "
+                    f"x{e.count}" for e in top))
+
+
+def phase_tracker(np, device=DEVICE):
+    """Phase 11 (see the module docstring): the runs on ``device`` against
+    their reruns on the CPU."""
+    import contextlib
+    import io
+
+    from repro_torch import api
+    from repro_torch.core import tracker
+    from repro_torch.core.features import FeatureParams, make_features
+    from repro_torch.core.profiler import build_model
+    from repro_torch.core.simulate import (build_gallery, duke_like_network,
+                                           porto_like_network,
+                                           simulate_network)
+    from repro_torch.examples import quickstart as qs
+
+    t_phase = time.perf_counter()
+    seen = set()                       # devices of the loop state
+    real_step, real_track = tracker._track_step, api.track
+
+    def step(st, w, windows):
+        seen.update(t.device.type for t in (
+            st.q_feat, st.cost, st.visit_hits, st.rescue_pairs,
+            st.ps.f_curr, st.ps.done, w.gallery, w.feats, w.model.S))
+        return real_step(st, w, windows)
+
+    records = []
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        r = real_track(*a, **kw)
+        records.append((kw.get("device"), time.perf_counter() - t0, r))
+        return r
+
+    def on_card(fn):
+        seen.clear()
+        tracker._track_step = step
+        try:
+            return fn()
+        finally:
+            tracker._track_step = real_step
+            if seen != {device}:
+                fail(f"the tracker's loop state lived on {sorted(seen)}, "
+                     f"not {device}")
+
+    # (a) the quickstart world, through the example's own main()
+    api.track = timed
+    try:
+        lines = {}
+        for dev in (device, "cpu"):
+            t0 = time.perf_counter()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                if dev == device:
+                    on_card(lambda: qs.main(dev))
+                else:
+                    qs.main(dev)
+            lines[dev] = out.getvalue().splitlines()
+            say(f"[11 track] quickstart on {dev}: "
+                f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        api.track = real_track
+    for line in lines[device]:
+        say(f"  | {line}")
+    if lines[device] != lines["cpu"]:
+        fail("the quickstart's lines differ from the cpu rerun's:\n"
+             + "\n".join(lines["cpu"]))
+    for (dev, wall, r), name in zip(records, ("all", "S5-T2") * 2):
+        if dev == device:
+            say(f"[11 track] quickstart {name} on {dev}: "
+                + track_line(r, wall, records[0][2].total_cost))
+    for (_, _, a), (_, _, b) in zip(records[:2], records[2:]):
+        for f in TRACK_FIELDS + ("rescue_pairs",):
+            if not np.array_equal(getattr(a, f), getattr(b, f)):
+                fail(f"quickstart: {f} differs from the cpu rerun's")
+    say("[11 track] quickstart: lines and every TrackResult field "
+        "equal the cpu rerun's")
+
+    def run_world(label, model, vis, gal, feats, q, gt, runs):
+        """Each (name, policy, geo_adj) on the card, then on the host."""
+        model_cpu = model.to("cpu")
+        base = None
+        for name, pol, geo in runs:
+            t0 = time.perf_counter()
+            r = on_card(lambda: api.track(model, vis, gal, feats, q, gt, pol,
+                                          geo_adj=geo, device=device))
+            wall = time.perf_counter() - t0
+            base = base or r.total_cost
+            say(f"[11 track] {label} {name} on {device}: "
+                + track_line(r, wall, base))
+            t0 = time.perf_counter()
+            c = api.track(model_cpu, vis, gal, feats, q, gt, pol,
+                          geo_adj=geo, device="cpu")
+
+            def trace_of(i, dev, pol=pol, geo=geo, steps=r.steps):
+                return tracker.trace_queries(
+                    model if dev == device else model_cpu, vis, gal, feats,
+                    q[i:i + 1], gt[i:i + 1], pol, geo_adj=geo, n_steps=steps,
+                    device=device if dev == device else "cpu",
+                    with_dist=True)
+
+            parted = compare_tracks(tracker, np, f"{label} {name}", r, c,
+                                    trace_of, pol.match_thresh)
+            say(f"[11 track] {label} {name} cpu rerun in "
+                f"{time.perf_counter() - t0:.1f} s: "
+                + ("every field equal, rescue_pairs too" if parted is None
+                   else f"every field equal but query {parted}'s"))
+
+    s5t2 = api.SearchPolicy(scheme="rexcam", s_thresh=.05, t_thresh=.02)
+
+    # (b) fig11's duke world
+    t0 = time.perf_counter()
+    n_ent, horizon, t_prof = TRACK_DUKE
+    n_queries, trace_steps = TRACK_QUERIES, TRACE_STEPS
+    net = duke_like_network()
+    vis = simulate_network(net, n_ent, horizon, seed=0)
+    gal, _ = build_gallery(vis, 24)
+    feats, _ = make_features(vis, n_ent, FeatureParams())
+    q, gt = api.make_queries(vis, n_queries, seed=1)
+    model = api.profile(vis, time_limit=t_prof, device=device)
+    say(f"[11 track] duke world: {net.n_cams} cameras, {len(vis)} visits, "
+        f"horizon {horizon}, {len(q)} queries; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    run_world("duke", model, vis, gal, feats, q, gt,
+              [("all", api.SearchPolicy(scheme="all"), None),
+               ("geo", api.SearchPolicy(scheme="geo"), net.geo_adjacent),
+               ("S5-T2", s5t2, None)])
+    t0 = time.perf_counter()
+    tr = {device: on_card(lambda: tracker.trace_queries(
+        model, vis, gal, feats, q, gt, s5t2, n_steps=trace_steps,
+        device=device, with_dist=True))}
+    tr["cpu"] = tracker.trace_queries(model.to("cpu"), vis, gal, feats, q,
+                                      gt, s5t2, n_steps=trace_steps,
+                                      device="cpu", with_dist=True)
+    diff = np.zeros((trace_steps, len(q)), bool)       # (step, query)
+    for k in tracker.TRACE_KEYS + ("best_d",):
+        diff |= (tr[device][k] != tr["cpu"][k]).reshape(
+            trace_steps, len(q), -1).any(2)
+    for i in np.flatnonzero(diff.any(0)):
+        s = int(np.flatnonzero(diff[:, i])[0])
+        margin = min(abs(tr[dev]["best_d"][s, i] - s5t2.match_thresh)
+                     for dev in tr)
+        if diff.any(0).sum() > 1 or margin > TOL:
+            fail(f"duke S5-T2 trace: query {i} differs from the cpu rerun "
+                 f"from step {s} (|d - match_thresh| = {margin:.3g})")
+        say(f"  duke S5-T2 trace: query {i} parts at step {s}, "
+            f"|d - match_thresh| = {margin:.3g} (near threshold)")
+    say(f"[11 track] duke S5-T2 trace_queries, {trace_steps} steps x "
+        f"{len(q)} queries: every array equal to the cpu rerun's "
+        f"({int(tr[device]['live'].sum())} live query-steps, "
+        f"{int(tr[device]['matched'].sum())} matches) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    tracker_share(lambda: tracker.trace_queries(
+        model, vis, gal, feats, q, gt, s5t2, n_steps=200, device=device),
+        "[11 track] duke S5-T2", 200)
+
+    # (c) fig12's 130-camera porto world
+    t0 = time.perf_counter()
+    (h_ent, h_len), (l_ent, l_len) = TRACK_PORTO
+    net = porto_like_network(130)
+    hist = simulate_network(net, h_ent, h_len, seed=11)
+    model = build_model(hist.ent, hist.cam, hist.t_in, hist.t_out,
+                        net.n_cams, device=device)
+    vis = simulate_network(net, l_ent, l_len, seed=2)
+    gal, _ = build_gallery(vis, 16)
+    feats, _ = make_features(vis, l_ent, FeatureParams(n_clusters=400,
+                                                       seed=2))
+    q, gt = api.make_queries(vis, n_queries, seed=3)
+    say(f"[11 track] porto world: {net.n_cams} cameras, {len(vis)} visits, "
+        f"horizon {l_len}, {len(q)} queries; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    run_world("porto", model, vis, gal, feats, q, gt,
+              [("all", api.SearchPolicy(scheme="all"), None),
+               ("S5-T2", s5t2, None)])
+    say(f"[11 track] phase seconds {time.perf_counter() - t_phase:.1f}")
+
+
+def phase_detection(np, device=DEVICE):
+    """Phase 12 (see the module docstring)."""
+    from repro_torch import api
+    from repro_torch.core.detect import (DetectorParams, identity_detection,
+                                         make_detection_queries)
+    from repro_torch.core.features import FeatureParams, make_features
+    from repro_torch.core.simulate import duke_like_network, simulate_network
+
+    t_phase = time.perf_counter()
+    n_ent, horizon, t_prof = TRACK_DUKE
+    n_queries, t_start = DETECT_QUERIES, DETECT_START
+    vis = simulate_network(duke_like_network(), n_ent, horizon, seed=0)
+    feats, _ = make_features(vis, n_ent, FeatureParams())
+    model = api.profile(vis, time_limit=t_prof, device=device)
+    q = make_detection_queries(vis, n_queries, search_start=t_start, seed=1)
+    say(f"[12 detect] duke world, {len(q)} lost identities from "
+        f"t={t_start}")
+    base = None
+    for theta in (None, 0.95, 0.85, 0.75):
+        p = DetectorParams(theta=theta or 0.95)
+        out = {}
+        for dev in (device, "cpu"):
+            t0 = time.perf_counter()
+            out[dev] = identity_detection(
+                model if dev == device else model.to("cpu"), vis, feats, q,
+                p, baseline=theta is None, t_refs=t_start, device=dev)
+            out[dev + "_s"] = time.perf_counter() - t0
+        r = out[device]
+        base = base or r["cost"]
+        name = "baseline" if theta is None else f"theta {theta}"
+        if r != out["cpu"]:
+            fail(f"[12 detect] {name}: cuda {r} != cpu {out['cpu']}")
+        say(f"[12 detect] {name}: {out[device + '_s']:.2f} s on {device} "
+            f"(cpu {out['cpu_s']:.2f} s), cost {r['cost']:.0f} "
+            f"({base / r['cost']:.3f}x), recall {r['recall']:.4f}, "
+            f"precision {r['precision']:.4f}, found_rate "
+            f"{r['found_rate']:.4f}, rounds {r['rounds']}; equal to the cpu "
+            f"rerun")
+    say(f"[12 detect] phase seconds {time.perf_counter() - t_phase:.1f}")
 
 
 #: (label, share of bfloat16 outputs equal to the plain version's) of
@@ -1433,6 +1762,12 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
         del args, kwargs, lib
         torch.cuda.empty_cache()
+
+    # -- phase 11: the batched tracker ----------------------------------
+    phase_tracker(np)
+
+    # -- phase 12: identity detection ------------------------------------
+    phase_detection(np)
 
     say(smi)
     say(json.dumps({"kernels": [

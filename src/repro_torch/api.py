@@ -3,13 +3,16 @@
     from repro_torch import api as rexcam
 
     model  = rexcam.profile(history_visits)                 # offline §6
+    result = rexcam.track(model, visits, gallery, feats,    # batched Alg. 1
+                          q_vids, gt_vids,
+                          policy=rexcam.SearchPolicy(s_thresh=.05))
     engine = rexcam.serve(model, embed_fn,                  # live engine
                           policy=rexcam.SearchPolicy())
 
-Both default to ``device="cuda"`` and raise when no card is present;
-``device="cpu"`` runs the plain PyTorch path.  ``track`` (the batched
-tracker), the fleet and recalibration are not ported yet (ROADMAP.md,
-Queue 1): their keywords are accepted here and raise.
+All three default to ``device="cuda"`` and raise when no card is present;
+``device="cpu"`` runs the plain PyTorch path.  The fleet and
+recalibration are not ported yet (ROADMAP.md, Queue 1): their keywords
+are accepted by ``serve`` and raise.
 """
 from __future__ import annotations
 
@@ -20,7 +23,8 @@ from repro_torch.core.policy import (PhaseState, SearchPolicy, admit,  # noqa: F
                                      advance, phase_windows)
 from repro_torch.core.profiler import build_model
 from repro_torch.core.simulate import Visits
-from repro_torch.core.tracker import make_queries  # noqa: F401
+from repro_torch.core.tracker import (TrackResult, make_queries,  # noqa: F401
+                                      trace_queries, track_queries)
 from repro_torch.runtime.engine import EngineConfig, ServingEngine
 
 
@@ -40,6 +44,20 @@ def profile(visits: Visits, *, time_limit: int | None = None,
                        epoch=epoch, tile_xy=visits.tile_xy,
                        tile_grid=tile_grid, tile_keep=tile_keep,
                        device=device)
+
+
+def track(model: SpatioTemporalModel, visits: Visits, gallery, feats,
+          q_vids, gt_vids, policy: SearchPolicy = SearchPolicy(),
+          geo_adj=None, *, device="cuda") -> TrackResult:
+    """Batched Algorithm-1 tracking of all queries under one policy on
+    ``device`` (see ``repro.api.track`` for the arguments): the profiled
+    model M, the live ``Visits`` table, the dense per-(camera, step)
+    detection ``gallery`` (``build_gallery``), per-visit re-id features,
+    the query / ground-truth visit ids (``make_queries``), the shared
+    ``SearchPolicy`` and, for the geo scheme, a (C, C) bool proximity
+    mask (None degrades geo to all-camera)."""
+    return track_queries(model, visits, gallery, feats, q_vids, gt_vids,
+                         policy, geo_adj=geo_adj, device=device)
 
 
 def serve(model: SpatioTemporalModel, embed_fn: Callable,

@@ -8,8 +8,9 @@
 
   M(c_s, c_d, f) = [S ≥ s_thresh] ∧ [f ≥ f0] ∧ [CDF(elapsed) ≤ 1 - t_thresh]
 
-The threshold interface (mask construction, window exhaustion) lives in
-``repro_torch.core.policy``.
+The threshold interface (mask construction, window exhaustion, potential
+savings) lives in ``repro_torch.core.policy``; the methods below delegate
+to it.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from repro_torch.core import fporder, policy
 
 INF_TIME = np.int32(2 ** 30)
 
@@ -67,3 +70,46 @@ class SpatioTemporalModel:
         if self.tile_admit is not None:
             moved["tile_admit"] = self.tile_admit.to(device)
         return dataclasses.replace(self, **moved)
+
+    # -- the paper's query interface (delegates to repro_torch.core.policy)
+    def spatial_mask(self, c_s, s_thresh) -> torch.Tensor:
+        """(C,) bool: destinations spatially correlated with c_s."""
+        return policy.spatial_mask(self, c_s, s_thresh)
+
+    def temporal_mask(self, c_s, elapsed, t_thresh) -> torch.Tensor:
+        """(C,) bool: destinations temporally correlated at `elapsed`
+        steps."""
+        return policy.temporal_mask(self, c_s, elapsed, t_thresh)
+
+    def correlated(self, c_s, elapsed, s_thresh, t_thresh) -> torch.Tensor:
+        """M(c_s, ·, elapsed): (C,) bool mask over destination cameras."""
+        return policy.correlated(self, c_s, elapsed, s_thresh, t_thresh)
+
+    def window_end(self, s_thresh: float, t_thresh: float) -> torch.Tensor:
+        """(C,) per-source elapsed time at which every admitted
+        destination's temporal window has closed (Alg. 1 line 21)."""
+        return policy.window_end(self, s_thresh, t_thresh)
+
+    # -- §5.4 identity detection needs window-binned temporal mass --------
+    def window_transfer(self, window: int, n_windows: int) -> torch.Tensor:
+        """Tw (C, C, n_windows): fraction of c_s->c_d traffic arriving with
+        a delay of exactly w windows (w = dt // window).  Each window's
+        bins are summed in ``fporder.seq_sum``'s order, the reference's."""
+        C, _, NB = self.cdf.shape
+        pdf = torch.diff(self.cdf, dim=-1,
+                         prepend=self.cdf.new_zeros((C, C, 1)))
+        bins_per_w = max(window // self.bin_width, 1)
+        nw_src = NB // bins_per_w
+        trimmed = fporder.seq_sum(pdf[:, :, :nw_src * bins_per_w].reshape(
+            C, C, nw_src, bins_per_w))
+        if nw_src >= n_windows:
+            return trimmed[:, :, :n_windows]
+        return torch.nn.functional.pad(trimmed, (0, n_windows - nw_src))
+
+    def potential_savings(self, s_thresh: float, t_thresh: float,
+                          weight_by_traffic: bool = True) -> float:
+        """Analytic potential (paper §3.2): baseline camera-steps over the
+        camera-steps M admits.  Spatial-only: t_thresh=0.  Temporal-only:
+        s_thresh=0."""
+        return policy.potential_savings(self, s_thresh, t_thresh,
+                                        weight_by_traffic)

@@ -25,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 from typing import TYPE_CHECKING
 
+import numpy as np
 import torch
 
 if TYPE_CHECKING:
@@ -96,6 +97,32 @@ def window_end(model: "SpatioTemporalModel", s_thresh: float,
     admitted = model.S >= _f32(s_thresh, dev)
     ends = torch.where(admitted, open_bins, 0)
     return ends.max(dim=1).values
+
+
+def potential_savings(model: "SpatioTemporalModel", s_thresh: float,
+                      t_thresh: float, weight_by_traffic: bool = True) -> float:
+    """Analytic potential (paper §3.2): ratio of camera-steps searched by a
+    correlation-agnostic baseline (all C cameras for the max window) to the
+    camera-steps M admits, averaged over source cameras (optionally
+    traffic-weighted).  Host numpy over the model's fields, as in the
+    reference, so the float64 result is the reference's to the bit."""
+    C = model.n_cams
+    sp = model.S.cpu().numpy() >= s_thresh              # (C, C) searched pairs
+    cdf = model.cdf.cpu().numpy()
+    f0 = model.f0.cpu().numpy()
+    NB = cdf.shape[-1]
+    b = np.arange(NB)[None, None, :] * model.bin_width  # (1,1,NB) bin start times
+    active = (b >= f0[..., None]) & (cdf <= 1.0 - t_thresh)   # (C,C,NB)
+    steps = (active.sum(-1) * model.bin_width) * sp     # (C,C) searched steps
+    per_src = steps.sum(1).astype(np.float64)           # camera-steps per source
+    baseline = C * NB * model.bin_width
+    if weight_by_traffic:
+        w = model.counts.cpu().numpy().sum(1).astype(np.float64)
+        w = w / max(w.sum(), 1.0)
+        filt = float((per_src * w).sum())
+    else:
+        filt = float(per_src.mean())
+    return baseline / max(filt, 1e-9)
 
 
 # ---------------------------------------------------------------------------

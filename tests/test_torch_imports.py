@@ -29,7 +29,8 @@ def test_every_port_module_imports_without_jax_or_repro():
     for name in ("runtime.engine", "kernels.reid_topk",
                  "kernels.flash_attention", "kernels.decode_attention",
                  "kernels.mamba_scan", "kernels.ops", "kernels.build",
-                 "benchmarks.kernels_bench"):
+                 "benchmarks.kernels_bench", "core.tracker", "core.detect",
+                 "examples.quickstart", "examples.identity_detection"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
@@ -42,6 +43,8 @@ def test_every_port_module_imports_without_jax_or_repro():
         "assert not bad, bad\n")
     r = _run(code)
     assert r.returncode == 0, r.stdout + r.stderr
+    # importing the examples runs nothing: their work waits for __main__
+    assert r.stdout.strip() == "[]", r.stdout
 
 
 def test_chip_smoke_fails_without_a_card():
