@@ -117,7 +117,29 @@ Phases, one line or block each:
  12. identity detection (``core.detect.identity_detection``) on the card:
      fig17's setup on the duke world (40 lost identities from t = 3,200,
      seed 1), the baseline and theta 0.95, 0.85 and 0.75; every summary
-     must equal the CPU rerun's; each run's wall seconds are printed.
+     must equal the CPU rerun's; each run's wall seconds are printed;
+ 13. recalibration (the §6 drift loop) on the card, at the reference's own
+     sizes (``repro_torch.benchmarks.scenarios``, ``.drift``): (a)
+     ``drift_sweep``'s re-permuted duke world (8 cameras, history
+     2,000 x 4,000, live 300 x 400 then 800 x 1,800, 32 queries), frozen
+     and recalibrated; at least one swap and recalibrated recall above
+     frozen; (b) the same world profiled and served with ``tile_grid=8``
+     and recalibration on, the learned masks carried across the swap;
+     (c) ``soak_130`` on one engine (the 130-camera clustered city,
+     history 6,000 x 4,000, live 150 x 260 then 300 x 640, 12 queries, a
+     late wave at step 60): exhaustive, row-targeted and full rebuilds
+     under the reference's gates (savings >= 20x, targeted recall within
+     5 % of exhaustive and 2 % of full, fewer rows than C a swap), and the
+     targeted run again under ``torch.profiler`` for the device's busy
+     share; (d) ``sec6_drift``'s three tracker rows.  Each kernel's count
+     is reset before and read after (a) to (c), must equal the rounds that
+     ranked a non-empty gallery (the other kernel's 0), and every round
+     shape is held to the plain version.  Every run has a CPU rerun that
+     must agree record for record, with no parting forgiven: scores
+     within 1e-5, the counters, swap ticks, epochs, the controller's
+     events, polls, ``rows_reprofiled``, ``targeted_swaps`` and
+     ``full_rebuilds`` exact.  Each run prints ticks/s, tick p50 / p99,
+     the swap ticks and each swap's profile and swap milliseconds.
 
 Times are device times per call: CUDA-graph replays of back-to-back calls,
 timed with CUDA events, median over replays
@@ -800,6 +822,235 @@ def phase_detection(np, device=DEVICE):
             f"{r['found_rate']:.4f}, rounds {r['rounds']}; equal to the cpu "
             f"rerun")
     say(f"[12 detect] phase seconds {time.perf_counter() - t_phase:.1f}")
+
+
+def recal_line(run):
+    """ticks/s, tick p50/p99, the swap ticks and each swap's profile and
+    swap seconds of one serving run (``scenarios.drive``'s outputs)."""
+    import numpy as np
+
+    eng, lat = run["eng"], np.asarray(run["tick_s"]) * 1e3
+    walls = [] if eng.recal is None else eng.recal.walls
+    return (f"{len(lat)} ticks, {len(lat) / (lat.sum() / 1e3):.1f} ticks/s, "
+            f"tick p50 {np.percentile(lat, 50):.3f} ms p99 "
+            f"{np.percentile(lat, 99):.3f} ms; admitted_steps="
+            f"{eng.admitted_steps} unique_frames={eng.unique_frames} "
+            f"epoch {eng.model_epoch}, swaps at "
+            f"{[t for t, _ in eng.model_swaps]}"
+            + "".join(f"; swap {i + 1}: profile {p * 1e3:.3f} ms, swap "
+                      f"{w * 1e3:.3f} ms" for i, (p, w) in enumerate(walls)))
+
+
+def same_recal_runs(label, gpu_runs, cpu_runs, match_thresh):
+    """Hold each configuration's card run to its CPU rerun: every trace
+    record (scores within 1e-5, no parting forgiven: a swap moves with the
+    rescues), the engine's counters and swaps, and the controller's
+    events (scores within 1e-5), polls and counters."""
+    for config, g in gpu_runs.items():
+        c = cpu_runs[config]
+        n, parted = compare_traces(g["trace"], c["trace"], match_thresh)
+        if parted is not None:
+            fail(f"[13 recal] {label} {config}: query {parted} parted from "
+                 f"the cpu rerun")
+        ge, ce = g["eng"], c["eng"]
+        for f in ("admitted_steps", "unique_frames", "content_steps",
+                  "replay_steps", "model_epoch", "model_swaps"):
+            if getattr(ge, f) != getattr(ce, f):
+                fail(f"[13 recal] {label} {config}: {f} cuda "
+                     f"{getattr(ge, f)} cpu {getattr(ce, f)}")
+        if (ge.rescue_pairs != ce.rescue_pairs).any() or [
+                q.matches for q in ge.queries.values()] != [
+                q.matches for q in ce.queries.values()]:
+            fail(f"[13 recal] {label} {config}: rescues or matches differ")
+        if ge.recal is not None:
+            gc, cc = ge.recal, ce.recal
+            pairs = list(zip(gc.events, cc.events)) + list(zip(gc.polls,
+                                                               cc.polls))
+            if len(gc.events) != len(cc.events) or \
+                    len(gc.polls) != len(cc.polls) or any(
+                    {k: v for k, v in a.items() if k != "score"}
+                    != {k: v for k, v in b.items() if k != "score"}
+                    or abs(a["score"] - b["score"])
+                    > TOL * (1 + abs(b["score"])) for a, b in pairs):
+                fail(f"[13 recal] {label} {config}: controller events or "
+                     f"polls differ:\n  cuda {gc.events}\n  cpu  "
+                     f"{cc.events}")
+            for f in ("rows_reprofiled", "targeted_swaps", "full_rebuilds"):
+                if getattr(gc, f) != getattr(cc, f):
+                    fail(f"[13 recal] {label} {config}: {f} differs")
+        say(f"[13 recal] {label} {config}: {n} trace records, counters, "
+            f"swaps" + (" and controller" if ge.recal is not None else "")
+            + " equal to the cpu rerun's")
+
+
+def phase_recalibration(np, torch, recorder, kernels, max_err):
+    """Phase 13 (see the module docstring).  ``recorder`` wraps an
+    ``ops`` entry to record its round shapes and keep one input of each;
+    ``kernels`` are the camera and tile kernels' dicts (``call``,
+    ``plain``) and ``max_err`` their largest errors so far.  Returns each
+    kernel's launches over the phase's card runs."""
+    from repro_torch.benchmarks import drift, scenarios
+    from repro_torch.core.profiler import build_model
+    from repro_torch.kernels import ops, reid_topk
+
+    t_phase = time.perf_counter()
+    camera, tiles = kernels
+    launches = {}
+
+    def on_card(label, entry, fn):
+        """``fn()`` on the card with its kernel's count reset just before
+        and read just after; the count must equal the rounds that ranked
+        a non-empty gallery, the other kernel's must be 0."""
+        rounds, kept = [], {}
+        real, wrapped = recorder(entry, rounds, kept)
+        setattr(ops, entry, wrapped)
+        reid_topk.LAUNCHES = reid_topk.TILE_LAUNCHES = 0
+        try:
+            out = fn()
+        finally:
+            setattr(ops, entry, real)
+            cam_n, tile_n = reid_topk.LAUNCHES, reid_topk.TILE_LAUNCHES
+        n, other = (cam_n, tile_n) if entry == "reid_topk_segments" \
+            else (tile_n, cam_n)
+        nonempty = sum(1 for q, g in rounds if q > 0 and g > 0)
+        if n == 0 or n != nonempty or other:
+            fail(f"[13 recal] {label}: {entry} launches {n}, non-empty "
+                 f"rounds {nonempty}, the other kernel's launches {other}")
+        kern = camera if entry == "reid_topk_segments" else tiles
+        for shape, (args, k) in kept.items():
+            err = check_against_plain(torch, kern, f"{label} {shape}", args,
+                                      k, exact_idx=False)
+            max_err[kern["name"]] = max(max_err[kern["name"]], err)
+        launches[label] = n
+        say(f"[13 recal] {label}: {kern['name']} launches {n} (= non-empty "
+            f"rounds), the other kernel 0; {len(kept)} round shapes held "
+            f"to the plain version")
+        return out
+
+    # (1) drift_sweep's world, frozen and recalibrated
+    t0 = time.perf_counter()
+    sc = scenarios.drifted_duke()
+    say(f"[13 recal] duke-drift world: {sc['net'].n_cams} cameras, "
+        f"{len(sc['vis'])} live visits, horizon {sc['vis'].horizon}, shift "
+        f"at {sc['t_shift']}, {len(sc['q_vids'])} queries; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    runs = {DEVICE: {}, "cpu": {}}
+    rows, recs = {}, {}
+    for dev in (DEVICE, "cpu"):
+        scenarios.pop_bench_records("drift_sweep")
+        t0 = time.perf_counter()
+        sweep = (lambda d=dev: scenarios.drift_sweep(device=d,
+                                                     runs=runs[d]))
+        rows[dev] = on_card("drift_sweep", "reid_topk_segments", sweep) \
+            if dev == DEVICE else sweep()
+        recs[dev] = scenarios.pop_bench_records("drift_sweep")
+        say(f"[13 recal] drift_sweep on {dev}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    for name, _, derived in rows[DEVICE]:
+        say(f"  | {name}: {derived}")
+    for config, run in runs[DEVICE].items():
+        say(f"[13 recal] drift_sweep {config} on {DEVICE}: "
+            + recal_line(run))
+    frozen, fresh = recs[DEVICE]
+    if not runs[DEVICE]["recalibrated"]["eng"].recal.events or \
+            fresh["recall"] <= frozen["recall"]:
+        fail(f"[13 recal] drift_sweep: no swap, or recalibrated recall "
+             f"{fresh['recall']} not above frozen {frozen['recall']}")
+    same_recal_runs("drift_sweep", runs[DEVICE], runs["cpu"],
+                    scenarios.DRIFT_POLICY.match_thresh)
+
+    # (2) the same world profiled and served with tile_grid=8
+    hist = sc["hist"]
+    tile_model = build_model(hist.ent, hist.cam, hist.t_in, hist.t_out,
+                             hist.n_cams, tile_xy=hist.tile_xy,
+                             tile_grid=TILE_GRID, device="cpu")
+    t_runs = {}
+    for dev in (DEVICE, "cpu"):
+        trace = []
+        t0 = time.perf_counter()
+        serve = (lambda d=dev, tr=trace: scenarios.drive(
+            sc, scenarios.DRIFT_POLICY, device=d,
+            recal=scenarios.DRIFT_RECAL, tile_grid=TILE_GRID,
+            model=tile_model, trace=tr))
+        eng, wall, lat = on_card("tile drift", "reid_topk_tiles", serve) \
+            if dev == DEVICE else serve()
+        t_runs[dev] = {"tiles": dict(eng=eng, wall=wall, tick_s=lat,
+                                     trace=trace)}
+        say(f"[13 recal] tile drift on {dev}: {wall:.1f} s")
+    eng = t_runs[DEVICE]["tiles"]["eng"]
+    say(f"[13 recal] tile drift (tile_grid={TILE_GRID}) on {DEVICE}: "
+        + recal_line(t_runs[DEVICE]["tiles"])
+        + f"; admitted_tiles={eng.admitted_tiles} "
+        f"unique_tiles={eng.unique_tiles}, masks learned "
+        f"{eng.model.tile_learned}")
+    if not eng.recal.events or not eng.model.tile_learned:
+        fail("[13 recal] tile drift: no swap, or the learned masks were "
+             "not carried across it")
+    if (eng.admitted_tiles, eng.unique_tiles) != (
+            t_runs["cpu"]["tiles"]["eng"].admitted_tiles,
+            t_runs["cpu"]["tiles"]["eng"].unique_tiles):
+        fail("[13 recal] tile drift: tile counters differ from the cpu "
+             "rerun's")
+    same_recal_runs("tile drift", t_runs[DEVICE], t_runs["cpu"],
+                    scenarios.DRIFT_POLICY.match_thresh)
+
+    # (3) soak_130 on one engine
+    t0 = time.perf_counter()
+    sc = scenarios.soak_city()
+    say(f"[13 recal] city-130 world: {sc['net'].n_cams} cameras, "
+        f"{len(sc['vis'])} live visits, horizon {sc['vis'].horizon}, "
+        f"drifted rows {[int(r) for r in sc['drift_rows']]}, "
+        f"{len(sc['q_vids'])} "
+        f"queries; built in {time.perf_counter() - t0:.1f} s")
+    runs = {DEVICE: {}, "cpu": {}}
+    for dev in (DEVICE, "cpu"):
+        scenarios.pop_bench_records("soak_130")
+        t0 = time.perf_counter()
+        sweep = (lambda d=dev: scenarios.soak_130(device=d, runs=runs[d]))
+        rows[dev] = on_card("soak_130", "reid_topk_segments", sweep) \
+            if dev == DEVICE else sweep()
+        recs[dev] = scenarios.pop_bench_records("soak_130")
+        say(f"[13 recal] soak_130 on {dev}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    for name, _, derived in rows[DEVICE]:
+        say(f"  | {name}: {derived}")
+    for config, run in runs[DEVICE].items():
+        say(f"[13 recal] soak_130 {config} on {DEVICE}: " + recal_line(run))
+    gate = recs[DEVICE][-1]
+    C = sc["net"].n_cams
+    if gate["savings_x"] < 20 or \
+            gate["recall_targeted"] < gate["recall_exhaustive"] - .05 or \
+            gate["recall_targeted"] < gate["recall_full"] - .02 or \
+            gate["rows_per_targeted_swap"] >= C:
+        fail(f"[13 recal] soak_130 gate: {gate}")
+    if recs[DEVICE][1]["shards"] != 1:
+        fail("[13 recal] soak_130: targeted_fleet must record shards 1")
+    same_recal_runs("soak_130", runs[DEVICE], runs["cpu"],
+                    scenarios.SOAK_POLICY.match_thresh)
+
+    def soak_targeted(dev, _trace, _ticks):
+        eng, _, lat = scenarios.drive(
+            sc, scenarios.SOAK_POLICY, device=dev,
+            recal=scenarios.SOAK_RECAL_TARGETED, churn_wave=60)
+        return eng, lat
+
+    device_share(torch, soak_targeted, "[13 recal] soak_130 targeted_fleet")
+
+    # (4) sec6_drift through the tracker
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        out[dev] = drift.run(device=dev)
+        say(f"[13 recal] sec6_drift on {dev}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    for name, _, derived in out[DEVICE]:
+        say(f"  | {name}: {derived}")
+    if out[DEVICE] != out["cpu"]:
+        fail(f"[13 recal] sec6_drift rows differ from the cpu rerun's: "
+             f"{out['cpu']}")
+    say("[13 recal] sec6_drift: the three rows equal the cpu rerun's")
+    say(f"[13 recal] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches
 
 
 #: (label, share of bfloat16 outputs equal to the plain version's) of
@@ -1769,10 +2020,18 @@ def main() -> int:
     # -- phase 12: identity detection ------------------------------------
     phase_detection(np)
 
+    # -- phase 13: recalibration ------------------------------------------
+    recal_launches = phase_recalibration(np, torch, recorder,
+                                         (camera, tiles), max_err)
+    camera_row["max_abs_err"] = max_err[CAMERA["name"]]
+    tiles_row["max_abs_err"] = max_err[TILES["name"]]
+
     say(smi)
     say(json.dumps({"kernels": [
-        dict(CAMERA, **camera_row),
-        dict(TILES, **tiles_row)]
+        dict(CAMERA, **camera_row, recal_launches={
+            k: recal_launches[k] for k in ("drift_sweep", "soak_130")}),
+        dict(TILES, **tiles_row,
+             recal_launches={"tile drift": recal_launches["tile drift"]})]
         + [dict(BENCH[name], launches=bench_launches[name],
                 max_abs_err=errs[name], **bench[name], model=widths[name])
            for name in BENCH]}))

@@ -10,9 +10,10 @@
                           policy=rexcam.SearchPolicy())
 
 All three default to ``device="cuda"`` and raise when no card is present;
-``device="cpu"`` runs the plain PyTorch path.  The fleet and
-recalibration are not ported yet (ROADMAP.md, Queue 1): their keywords
-are accepted by ``serve`` and raise.
+``device="cpu"`` runs the plain PyTorch path.  ``serve(recalibrate=...)``
+attaches the §6 drift loop (``RecalibrationController``).  The fleet is
+not ported yet (ROADMAP.md, Queue 1): its keywords are accepted by
+``serve`` and raise.
 """
 from __future__ import annotations
 
@@ -26,6 +27,9 @@ from repro_torch.core.simulate import Visits
 from repro_torch.core.tracker import (TrackResult, make_queries,  # noqa: F401
                                       trace_queries, track_queries)
 from repro_torch.runtime.engine import EngineConfig, ServingEngine
+from repro_torch.runtime.recal import (RecalibrationController,  # noqa: F401
+                                       RecalibrationPolicy, match_log_source,
+                                       visits_window_source)
 
 
 def profile(visits: Visits, *, time_limit: int | None = None,
@@ -74,12 +78,15 @@ def serve(model: SpatioTemporalModel, embed_fn: Callable,
     ``tile_grid=T > 0`` ranks each round through the tile-masked kernel
     over the model's learned tile masks (all tiles for a tile-less model)
     and makes tile labels mandatory at ``engine.ingest(frames, tiles)``.
-    ``shards``, ``devices``, ``transport``, ``prefetch``, ``recalibrate``
-    and ``visit_source`` are not ported yet and raise."""
+    ``recalibrate=True`` (default knobs) or a ``RecalibrationPolicy``
+    attaches a ``RecalibrationController`` that re-profiles from
+    ``visit_source`` (``(lo, hi) -> (ent, cam, t_in, t_out)``, e.g.
+    ``visits_window_source(visits)``; None: the engine's own sighting log)
+    and hot-swaps M when drift trips its trigger; ``visit_source`` without
+    ``recalibrate`` raises.  ``shards``, ``devices``, ``transport`` and
+    ``prefetch`` are not ported yet and raise."""
     unported = dict(shards=shards is not None, devices=devices is not None,
-                    transport=transport is not None, prefetch=prefetch,
-                    recalibrate=recalibrate not in (None, False),
-                    visit_source=visit_source is not None)
+                    transport=transport is not None, prefetch=prefetch)
     named = [k for k, v in unported.items() if v]
     if named:
         raise NotImplementedError(
@@ -92,4 +99,15 @@ def serve(model: SpatioTemporalModel, embed_fn: Callable,
                        retention=retention, topk=topk,
                        consolidate=consolidate, tile_grid=tile_grid,
                        topk_rerank=topk_rerank)
-    return ServingEngine(model, embed_fn, cfg, geo_adj=geo_adj, device=device)
+    eng = ServingEngine(model, embed_fn, cfg, geo_adj=geo_adj, device=device)
+    if recalibrate is not None and recalibrate is not False:
+        rp = RecalibrationPolicy() if recalibrate is True else recalibrate
+        if not isinstance(rp, RecalibrationPolicy):
+            raise TypeError(f"recalibrate= takes True or a "
+                            f"RecalibrationPolicy, got {recalibrate!r}")
+        eng.recal = RecalibrationController(eng, visit_source, rp)
+    elif visit_source is not None:
+        raise ValueError("visit_source= given without recalibrate=: pass "
+                         "recalibrate=True (or a RecalibrationPolicy) to "
+                         "attach the recalibration loop")
+    return eng

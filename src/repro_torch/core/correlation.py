@@ -15,6 +15,7 @@ to it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -25,6 +26,49 @@ INF_TIME = np.int32(2 ** 30)
 
 #: the tensor fields of the model, in constructor order
 FIELDS = ("S", "exit_frac", "cdf", "f0", "entry", "counts")
+
+#: Model fields whose value at source-camera row ``r`` depends only on
+#: transitions departing r (and exits at r): counts, the travel-time CDF
+#: and f0 accumulate per (src, dst) pair, and the S / exit_frac normaliser
+#: is the row's own outbound total.  ``entry`` is the one global field
+#: (normalised over every camera's first appearances): a row-targeted
+#: re-profile always recomputes it from the full window.  This is what
+#: makes ``profiler.merge_reprofiled_rows`` equal a full rebuild on
+#: untouched rows, bit for bit.
+ROW_LOCAL_FIELDS = ("S", "exit_frac", "cdf", "f0", "counts", "tile_admit")
+
+
+def splice_rows(model: "SpatioTemporalModel", rows, updates: dict, *,
+                entry=None, epoch: int | None = None) -> "SpatioTemporalModel":
+    """Replace source-camera rows of the row-local fields with freshly
+    profiled blocks, carrying every untouched row bit for bit.
+
+    ``updates`` maps a field name (in ``ROW_LOCAL_FIELDS``) to a
+    ``(len(rows), ...)`` block.  The splice runs on the host in numpy in
+    the base array's dtype, so a float64 profiling block is cast exactly
+    as ``build_model``'s own float32 cast would; the result goes back to
+    the model's device.  ``entry`` (global) is replaced as a float32
+    tensor and ``epoch`` as an int.  Shapes never change, so the result
+    hot-swaps through ``engine.swap_model``."""
+    rows = np.asarray(rows, np.int64)
+    repl = {}
+    for name, block in updates.items():
+        if name not in ROW_LOCAL_FIELDS:
+            raise ValueError(f"splice_rows: {name!r} is not row-local "
+                             f"(row-local fields: {ROW_LOCAL_FIELDS})")
+        base = getattr(model, name)
+        if base is None:
+            raise ValueError(f"splice_rows: base model has no {name!r} to "
+                             f"splice into")
+        arr = np.asarray(base.cpu()).copy()
+        arr[rows] = block
+        repl[name] = torch.from_numpy(arr).to(base.device)
+    if entry is not None:
+        repl["entry"] = torch.from_numpy(
+            np.asarray(entry).astype(np.float32)).to(model.device)
+    if epoch is not None:
+        repl["epoch"] = int(epoch)
+    return dataclasses.replace(model, **repl)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +106,13 @@ class SpatioTemporalModel:
     @property
     def device(self) -> torch.device:
         return self.S.device
+
+    @functools.cached_property
+    def host_counts(self) -> np.ndarray:
+        """``counts`` as a float64 host array, copied off the device once
+        per model (a swap makes a new model): what ``drift_score`` reads
+        at every poll."""
+        return self.counts.cpu().numpy().astype(np.float64)
 
     def to(self, device) -> "SpatioTemporalModel":
         """The same model with every tensor (``tile_admit`` too) on

@@ -14,13 +14,18 @@ some multiple of k intersects and quantizes their timestamps.
 ``tile_grid=T`` also learns the CrossRoI-style (C, C, T*T) entry-region
 admit tensor from the visits' normalized positions, as
 ``repro.core.profiler.tile_admit_from_visits`` does.
+
+Recalibration (§6) reads ``drift_score`` and re-profiles either the whole
+model or, row-targeted, only the drifted source rows
+(``merge_reprofiled_rows``).
 """
 from __future__ import annotations
 
 import numpy as np
 
 from repro_torch.convert import model_from_numpy
-from repro_torch.core.correlation import INF_TIME, SpatioTemporalModel
+from repro_torch.core.correlation import (INF_TIME, SpatioTemporalModel,
+                                          splice_rows)
 from repro_torch.core.simulate import tile_index
 from repro_torch.device import resolve_device
 
@@ -158,18 +163,43 @@ def build_model(ent, cam, t_in, t_out, n_cams: int, *, n_bins: int = 256,
         tile_admit = tile_admit_from_visits(ent, cam, t_in, tile_xy, n_cams,
                                             tile_grid, tile_keep)
 
+    return model_from_numpy(
+        _profile_rows(src, dst, dt, exit_cams, entry_cams, n_cams, n_bins,
+                      bin_width),
+        bin_width=bin_width, epoch=epoch, tile_admit=tile_admit,
+        tile_grid=tile_grid, tile_learned=tile_admit is not None,
+        device=device)
+
+
+def _profile_rows(src, dst, dt, exit_cams, entry_cams, n_cams: int,
+                  n_bins: int, bin_width: int, rows=None) -> dict:
+    """The model's statistics in float64 from the transitions: ``S``,
+    ``exit_frac``, ``cdf``, ``f0`` and ``counts`` of the source-camera
+    ``rows`` (sorted camera ids; every camera when None) as (R, C[, NB])
+    blocks, and the global ``entry`` over every camera.  Each row depends
+    only on the transitions departing it and the exits at it."""
     C, NB = n_cams, n_bins
-    counts = np.zeros((C, C), np.float64)
+    if rows is None:
+        R = C
+    else:
+        R = len(rows)
+        row_of = np.full(C, -1, np.int64)       # source cam -> block row
+        row_of[rows] = np.arange(R)
+        keep = row_of[src] >= 0
+        src, dst, dt = row_of[src[keep]], dst[keep], dt[keep]
+        exit_cams = row_of[exit_cams[row_of[exit_cams] >= 0]]
+
+    counts = np.zeros((R, C), np.float64)
     np.add.at(counts, (src, dst), 1.0)
 
-    hist = np.zeros((C, C, NB), np.float64)
+    hist = np.zeros((R, C, NB), np.float64)
     b = np.clip(dt // bin_width, 0, NB - 1)
     np.add.at(hist, (src, dst, b), 1.0)
 
-    f0 = np.full((C, C), int(INF_TIME), np.int64)
+    f0 = np.full((R, C), int(INF_TIME), np.int64)
     np.minimum.at(f0, (src, dst), dt)
 
-    exits = np.zeros((C,), np.float64)
+    exits = np.zeros((R,), np.float64)
     np.add.at(exits, exit_cams, 1.0)
     entry = np.zeros((C,), np.float64)
     np.add.at(entry, entry_cams, 1.0)
@@ -183,10 +213,74 @@ def build_model(ent, cam, t_in, t_out, n_cams: int, *, n_bins: int = 256,
     cdf = cdf / np.maximum(cdf[..., -1:], 1.0)
 
     entry = entry / max(entry.sum(), 1.0)
+    return dict(S=S, exit_frac=exit_frac, cdf=cdf,
+                f0=np.minimum(f0, int(INF_TIME)), entry=entry, counts=counts)
 
-    return model_from_numpy(
-        dict(S=S, exit_frac=exit_frac, cdf=cdf,
-             f0=np.minimum(f0, int(INF_TIME)), entry=entry, counts=counts),
-        bin_width=bin_width, epoch=epoch, tile_admit=tile_admit,
-        tile_grid=tile_grid, tile_learned=tile_admit is not None,
-        device=device)
+
+def merge_reprofiled_rows(old: SpatioTemporalModel, ent, cam, t_in, t_out,
+                          rows, *, tile_xy=None, tile_keep: float = 1.0,
+                          epoch: int | None = None) -> SpatioTemporalModel:
+    """Row-targeted re-profile (§6 at 130-camera scale): recompute only the
+    drifted source-camera ``rows`` from a fresh visit window and carry
+    every other row of ``old`` bit for bit.
+
+    Every per-pair statistic is row-local in the source camera
+    (``correlation.ROW_LOCAL_FIELDS``), so a recomputed row is what a full
+    ``build_model`` over the same window would put there: the same float64
+    accumulation and the same numpy cast to float32.  ``entry``, the one
+    global field, is always recomputed from the whole window.  With
+    ``tile_xy`` and a tile-learned ``old`` the drifted rows' entry-region
+    masks are re-learned from the window; without window positions the
+    incumbent masks ride forward on every row.
+
+    Shapes, ``n_bins`` and ``bin_width`` come from ``old`` and the merged
+    model lands on ``old``'s device.  ``rows`` is deduplicated and sorted;
+    ``epoch`` defaults to ``old.epoch`` (``engine.swap_model`` stamps the
+    bump either way)."""
+    ent, cam, t_in, t_out = map(np.asarray, (ent, cam, t_in, t_out))
+    rows = np.unique(np.asarray(rows, np.int64))
+    C = old.n_cams
+    if len(rows) == 0 or rows[0] < 0 or rows[-1] >= C:
+        raise ValueError(f"merge_reprofiled_rows: rows {rows} outside the "
+                         f"model's [0, {C}) camera range (or empty)")
+    updates = _profile_rows(*transitions_from_visits(ent, cam, t_in, t_out),
+                            C, old.n_bins, old.bin_width, rows=rows)
+    entry = updates.pop("entry")             # global: the whole window
+    if old.tile_admit is not None and tile_xy is not None \
+            and old.tile_grid > 0:
+        updates["tile_admit"] = tile_admit_from_visits(
+            ent, cam, t_in, np.asarray(tile_xy), C, old.tile_grid,
+            tile_keep, rows=rows)
+    return splice_rows(old, rows, updates, entry=entry,
+                       epoch=old.epoch if epoch is None else epoch)
+
+
+def profiling_cost(ent, cam, t_in, t_out, sample_every: int = 1,
+                   time_limit: int | None = None) -> int:
+    """Frames the MTMC tracker must label for this profile (paper §8.4
+    x-axis): one frame per camera per labeled tick in the profile window."""
+    t_out = np.asarray(t_out)
+    horizon = int(t_out.max()) + 1 if time_limit is None else time_limit
+    n_cams = int(np.asarray(cam).max()) + 1
+    ticks = horizon // max(sample_every, 1)
+    return int(ticks * n_cams)
+
+
+def drift_score(model: SpatioTemporalModel, replay_rescues,
+                smoothing: float = 3.0) -> np.ndarray:
+    """Paper §6 drift detection: rescue events per (c_s, c_d) normalised by
+    the profile's transition counts (additively smoothed so single rescues
+    on near-empty pairs don't dominate), as a (C, C) float64 host array.
+
+    An all-zero rescue matrix scores exactly zero without touching the
+    division or the model.  Otherwise the counts come from
+    ``model.host_counts``, copied off the device once per model."""
+    rescues = np.asarray(replay_rescues, np.float64)
+    if not rescues.any():
+        return np.zeros_like(rescues)
+    counts = model.host_counts + smoothing
+    with np.errstate(divide="ignore", invalid="ignore"):
+        score = rescues / counts
+    # smoothing=0 on a never-profiled pair: a rescue there is infinite
+    # surprise; keep it finite but dominant
+    return np.nan_to_num(score, nan=0.0, posinf=np.float64(1e18))

@@ -13,6 +13,13 @@ and raises without a card; ``--device cpu`` runs the plain PyTorch path.
 tile grid and serves through the tile-masked kernel:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --tile-grid 8
+
+``--recalibrate`` closes the §6 drift loop: the engine's live rescue matrix
+is polled and a model re-profiled from the world's recent visits hot-swaps
+in when the drift score trips the trigger (``--drift-threshold``,
+``--recal-cooldown``, ``--recal-window``):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --recalibrate
 """
 from __future__ import annotations
 
@@ -100,6 +107,16 @@ def main():
                     help="sub-frame spatial admission: T > 0 profiles per "
                          "camera-pair entry-region masks on a T x T grid "
                          "and ranks through the tile-masked kernel")
+    ap.add_argument("--recalibrate", action="store_true",
+                    help="close the §6 drift loop: watch the live rescue "
+                         "matrix and hot-swap a re-profiled model when the "
+                         "drift score trips the trigger")
+    ap.add_argument("--drift-threshold", type=float, default=0.1,
+                    help="recalibration trigger: max drift_score to trip at")
+    ap.add_argument("--recal-cooldown", type=int, default=240,
+                    help="min ticks between model swaps (hysteresis)")
+    ap.add_argument("--recal-window", type=int, default=1200,
+                    help="sliding re-profile window (recent steps)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args()
     resolve_device(args.device)     # no card: fail before building the world
@@ -109,10 +126,15 @@ def main():
                            tile_grid=args.tile_grid, device=args.device)
     policy = rexcam.SearchPolicy(scheme=args.scheme, s_thresh=args.s_thresh,
                                  t_thresh=args.t_thresh)
+    recal = rexcam.RecalibrationPolicy(
+        drift_threshold=args.drift_threshold, cooldown=args.recal_cooldown,
+        window=args.recal_window) if args.recalibrate else None
     eng = rexcam.serve(model, embed_fn=lambda x: x, policy=policy,
                        geo_adj=world.net.geo_adjacent, topk=args.topk,
                        topk_rerank=args.topk_rerank,
-                       tile_grid=args.tile_grid, device=args.device)
+                       tile_grid=args.tile_grid, recalibrate=recal,
+                       visit_source=rexcam.visits_window_source(world.vis)
+                       if args.recalibrate else None, device=args.device)
     tick_s = run_stream(eng, world, args.steps)
     wall = sum(tick_s)
 
@@ -141,6 +163,17 @@ def main():
           f"past retention: {eng.replay_misses})")
     print(f"wall: {wall:.3f}s ({len(tick_s) / max(wall, 1e-9):.1f} ticks/s; "
           f"tick p50 {p50:.3f} ms, p99 {p99:.3f} ms)")
+    if args.recalibrate:
+        ev = eng.recal.events
+        print(f"recalibration [epoch {eng.model_epoch}]: {len(ev)} swaps, "
+              f"{len(eng.recal.polls)} polls "
+              f"(threshold {args.drift_threshold}, "
+              f"cooldown {args.recal_cooldown}, window {args.recal_window})")
+        for e in ev:
+            print(f"  t={e['t']}: epoch {e['epoch']} "
+                  f"(score {e['score']:.2f}, {e['rescues']} rescues, "
+                  f"re-profiled {e['visits']} visits in "
+                  f"[{e['window'][0]}, {e['window'][1]}))")
 
 
 if __name__ == "__main__":

@@ -28,6 +28,9 @@ pacing, the host short-circuit of sampled-out skip-mode rounds, both cost
 conventions (``admitted_steps`` per query camera-step, ``unique_frames``
 per deduplicated pair) and the trace records are the reference's.
 
+After every tick an attached ``RecalibrationController`` (``self.recal``,
+``runtime/recal.py``) may hot-swap M through ``swap_model``.
+
 Not ported yet (they raise): ``prefetch`` and ``transport`` (the fleet).
 """
 from __future__ import annotations
@@ -336,10 +339,13 @@ class ServingEngine:
         # (C, C) replay-rescue attribution (phase >= 2 matches, keyed by the
         # anchor camera at match time): the §6 drift-detection signal
         self.rescue_pairs = np.zeros((self.C, self.C), np.int64)
-        # (qid, cam, frame) confirmed-sighting log, pruned each tick past
-        # twice the retention window
+        # (qid, cam, frame) confirmed-sighting log, which
+        # runtime.recal.match_log_source re-profiles from; pruned each tick
+        # past twice the retention window (or the recalibration window,
+        # when a controller is attached and its window is longer)
         self.sightings: collections.deque[tuple[int, int, int]] = \
             collections.deque()
+        self.recal = None            # attached RecalibrationController
         self._in_round = False       # swap_model atomicity guard
         self._set_windows()
 
@@ -555,7 +561,15 @@ class ServingEngine:
             self._round(qs, stats, record_trace)
         self.t += 1
         self.ticks += 1
-        cutoff = self.t - 2 * self.cfg.retention
+        # drift-aware recalibration (§6): the attached controller polls the
+        # live rescue matrix and may hot-swap M, strictly between rounds
+        if self.recal is not None:
+            self.recal.on_tick()
+        # bound the sighting log: drop entries no recalibration window can
+        # still reach (sightings arrive near-sorted by frame)
+        keep = max(self.cfg.retention,
+                   self.recal.policy.window if self.recal is not None else 0)
+        cutoff = self.t - 2 * keep
         while self.sightings and self.sightings[0][2] < cutoff:
             self.sightings.popleft()
         return stats

@@ -151,7 +151,7 @@ def test_swap_model_bumps_epoch_between_rounds():
 
 
 @pytest.mark.parametrize("kw", [dict(shards=2), dict(prefetch=True),
-                                dict(recalibrate=True),
+                                dict(devices=["cuda:0"]),
                                 dict(transport="inproc")])
 def test_unported_serve_options_raise(kw):
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -30,7 +30,9 @@ def test_every_port_module_imports_without_jax_or_repro():
                  "kernels.flash_attention", "kernels.decode_attention",
                  "kernels.mamba_scan", "kernels.ops", "kernels.build",
                  "benchmarks.kernels_bench", "core.tracker", "core.detect",
-                 "examples.quickstart", "examples.identity_detection"):
+                 "examples.quickstart", "examples.identity_detection",
+                 "runtime.recal", "benchmarks.drift",
+                 "benchmarks.scenarios"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
