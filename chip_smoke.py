@@ -105,15 +105,17 @@ Phases, one line or block each:
      ``trace_queries`` over the first 600 steps of S5-T2; (c) fig12's
      130-camera porto world (history 6,000 x 7,200, seed 11; live
      2,000 x 3,600, seed 2; K = 16; 400 feature clusters; 100 queries)
-     under ``all`` and S5-T2.  The loop state must live on the card.  Every
+     under S5-T2 (porto's ``all`` run is left out to keep the script
+     inside its time limit: the ``all`` scheme is held on the quickstart
+     and duke worlds).  The loop state must live on the card.  Every
      ``TrackResult`` field and every trace array must equal the CPU
      rerun's.  One query may part at a step whose winning distance lies
      within 1e-5 of the match threshold: its margin is printed and its
-     fields (and ``rescue_pairs``) are not compared.  Each
-     run prints its wall seconds, steps, steps/s, cost, recall,
-     precision, savings, mean delay and rescues; 200 steps of the duke
-     S5-T2 trace run again under ``torch.profiler`` give the device's
-     busy share and its operations a step;
+     fields (and ``rescue_pairs``) are not compared.  Each run prints its
+     wall seconds, steps, steps/s, cost, recall, precision, savings, mean
+     delay and rescues; 200 steps of the duke S5-T2 trace run again under
+     ``torch.profiler`` give the device's busy share and its operations a
+     step;
  12. identity detection (``core.detect.identity_detection``) on the card:
      fig17's setup on the duke world (40 lost identities from t = 3,200,
      seed 1), the baseline and theta 0.95, 0.85 and 0.75; every summary
@@ -125,21 +127,54 @@ Phases, one line or block each:
      and recalibrated; at least one swap and recalibrated recall above
      frozen; (b) the same world profiled and served with ``tile_grid=8``
      and recalibration on, the learned masks carried across the swap;
-     (c) ``soak_130`` on one engine (the 130-camera clustered city,
-     history 6,000 x 4,000, live 150 x 260 then 300 x 640, 12 queries, a
-     late wave at step 60): exhaustive, row-targeted and full rebuilds
-     under the reference's gates (savings >= 20x, targeted recall within
-     5 % of exhaustive and 2 % of full, fewer rows than C a swap), and the
-     targeted run again under ``torch.profiler`` for the device's busy
-     share; (d) ``sec6_drift``'s three tracker rows.  Each kernel's count
-     is reset before and read after (a) to (c), must equal the rounds that
-     ranked a non-empty gallery (the other kernel's 0), and every round
-     shape is held to the plain version.  Every run has a CPU rerun that
+     (a) ends with the recalibrating run on an 8-worker fleet
+     (``recalibrated_shards8``: admitted steps, swap ticks and recall equal
+     to the single engine's); (c) ``soak_130`` (the 130-camera clustered
+     city, history 6,000 x 4,000, live 150 x 260 then 300 x 640, 12
+     queries, a late wave at step 60): exhaustive and full rebuilds on one
+     engine, row-targeted on an 8-worker fleet that loses w1 at step 120
+     (one rebalance), under the reference's gates (savings >= 20x,
+     targeted recall within 5 % of exhaustive and 2 % of full, fewer rows
+     than C a swap), and the targeted configuration on one engine again
+     under ``torch.profiler`` for the device's busy share; (d)
+     ``sec6_drift``'s three tracker rows.  Each kernel's count is reset
+     before and read after (a) to (c), must equal the rounds that ranked
+     a non-empty gallery (a fleet's round once a worker holding a row; the
+     other kernel's 0), each fleet's launches must equal its
+     ``worker_dispatches``, and every round shape is held to the plain
+     version.  Every run has a CPU rerun that
      must agree record for record, with no parting forgiven: scores
      within 1e-5, the counters, swap ticks, epochs, the controller's
      events, polls, ``rows_reprofiled``, ``targeted_swaps`` and
      ``full_rebuilds`` exact.  Each run prints ticks/s, tick p50 / p99,
-     the swap ticks and each swap's profile and swap milliseconds.
+     the swap ticks and each swap's profile and swap milliseconds;
+ 14. the serving fleet (``repro_torch.api.serve(shards=...)``) on the
+     duke world of phase 4 with phase 4's engine settings: (a) 4 workers
+     on the card, the sharded gallery, w1 lost at tick 1,000, to the
+     horizon; (b) the same at ``tile_grid=8``; (c) 8 workers behind a
+     ``FakeRpcTransport`` on a virtual clock (latency 2 ms, jitter 1 ms;
+     w3 drops every attempt, so its first fetch exhausts the retry
+     budget, re-homes the gallery mid-round and the fleet scales down at
+     the end of that tick) with prefetch; each to the horizon.  Each
+     trace must equal phase 4's (phase 6's for (b)) card trace record for
+     record — masks, indices, counters and epochs exact, scores within
+     1e-5, with the count of scores that differ at all printed — and the
+     cost counters and ``rescue_pairs`` the single engine's; the
+     per-worker rows must tile the totals,
+     the lost worker must have served rounds, each kernel's launches must
+     equal the fleet's ``worker_dispatches`` (the other kernel's 0) and
+     every per-worker round shape is held to the plain version; (c) must
+     see one dead peer, remote fetches and prefetch hits.  200 ticks of
+     (a) under ``torch.profiler`` print the busy share, the device
+     operations and the device-to-host copies a tick beside phase 4's
+     (phases 4, 6 and 13 print the same two counts).  Each run prints
+     ticks/s and tick p50 / p99.
+
+The CPU reruns of phases 11 and 13 run in two worker processes of one
+thread each (``cpu_job``) while the card runs go on: the quickstart's and
+phase 13's start with the build, the duke and porto worlds' as phase 11
+builds them.  Phases 4, 6 and 12 rerun in line; phase 11's host-clock
+rates are taken with the workers busy beside them.
 
 Times are device times per call: CUDA-graph replays of back-to-back calls,
 timed with CUDA events, median over replays
@@ -184,7 +219,7 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 BF16_SHARE = 0.99           # bfloat16 attention outputs equal bit for bit
 MODEL_TOL = 1e-4            # attention and scan at model widths
 SCAN_TOL = 1e-4
-TICKS = 600                 # ticks of the tile path's profiled window
+TICKS = 200                 # ticks of the tile path's profiled window
 DEVICE = "cuda"
 TILE_GRID = 8
 CAMERA = dict(name="reid_topk_segment_masked", route="cuda",
@@ -257,9 +292,23 @@ TRACK_PORTO = ((6000, 7200), (2000, 3600))
 TRACK_QUERIES = 100
 TRACE_STEPS = 600
 DETECT_QUERIES, DETECT_START = 40, 3200
+#: phase 14's fleets: workers of the camera and tile fleets, the tick w1
+#: is lost at, workers of the transport fleet
+FLEET_SHARDS, FLEET_LOSE_AT, TRANSPORT_SHARDS = 4, 1000, 8
+FLEET_COUNTERS = ("admitted_steps", "unique_frames", "content_steps",
+                  "replay_steps", "model_epoch", "admitted_tiles",
+                  "unique_tiles")
 #: the tracker's per-query result fields, compared query by query
 TRACK_FIELDS = ("cost", "n_match", "n_correct", "visit_hits", "gt_count",
                 "delay", "rescued")
+#: what phase 13's comparisons read of a serving engine
+ENGINE_FIELDS = ("admitted_steps", "unique_frames", "content_steps",
+                 "replay_steps", "model_epoch", "model_swaps",
+                 "rescue_pairs", "admitted_tiles", "unique_tiles")
+#: worker processes for the CPU reruns of phases 11 and 13 (``cpu_job``)
+CPU_WORKERS = 2
+CPU_POOL = None
+RERUN_WAIT = 600            # seconds a phase waits for a rerun's result
 
 
 def fail(msg: str) -> None:
@@ -269,6 +318,110 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# CPU reruns in worker processes
+# ---------------------------------------------------------------------------
+
+def _cpu_worker_init() -> None:
+    """One thread a worker: the card runs beside it are host-bound."""
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def _timed(fn, args, kw):
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    return out, time.perf_counter() - t0
+
+
+def cpu_job(fn, *args, **kw):
+    """Start ``fn(*args, **kw)``, a CPU rerun, in a worker process, so that
+    it runs while the card runs go on; ``.get(RERUN_WAIT)`` on the handle
+    returns (its result, its seconds) or raises what it raised.  ``fn`` is a
+    function of the port or of this script, and its arguments are
+    pickled.  The workers are spawned (they never touch the card) with
+    this process's ``sys.path``, at the first job, and run one thread
+    each; ``main``'s caller terminates them."""
+    global CPU_POOL
+    if CPU_POOL is None:
+        import multiprocessing
+
+        CPU_POOL = multiprocessing.get_context("spawn").Pool(
+            CPU_WORKERS, _cpu_worker_init)
+    return CPU_POOL.apply_async(_timed, (fn, args, kw))
+
+
+def engine_view(eng):
+    """What phase 13's comparisons read of a serving engine
+    (``ENGINE_FIELDS``, the queries' matches, the controller's events,
+    polls and counters), as a picklable namespace."""
+    from types import SimpleNamespace as NS
+
+    rc = eng.recal
+    return NS(**{f: getattr(eng, f) for f in ENGINE_FIELDS},
+              queries={k: NS(matches=q.matches)
+                       for k, q in eng.queries.items()},
+              recal=None if rc is None else NS(
+                  events=rc.events, polls=rc.polls,
+                  rows_reprofiled=rc.rows_reprofiled,
+                  targeted_swaps=rc.targeted_swaps,
+                  full_rebuilds=rc.full_rebuilds))
+
+
+def recal_rerun(which: str):
+    """Phase 13's CPU rerun of ``which`` (``drift_sweep``, ``tile drift``,
+    ``soak_130`` or ``sec6_drift``): for ``sec6_drift`` its rows, else
+    each configuration's trace and ``engine_view``."""
+    from repro_torch.benchmarks import drift, scenarios
+    from repro_torch.core.profiler import build_model
+
+    if which == "sec6_drift":
+        return drift.run(device="cpu")
+    runs = {}
+    if which == "drift_sweep":
+        scenarios.drift_sweep(device="cpu", runs=runs)
+    elif which == "soak_130":
+        scenarios.soak_130(device="cpu", runs=runs)
+    else:
+        sc = scenarios.drifted_duke()
+        hist, trace = sc["hist"], []
+        tile_model = build_model(hist.ent, hist.cam, hist.t_in, hist.t_out,
+                                 hist.n_cams, tile_xy=hist.tile_xy,
+                                 tile_grid=TILE_GRID, device="cpu")
+        eng, _, _ = scenarios.drive(
+            sc, scenarios.DRIFT_POLICY, device="cpu",
+            recal=scenarios.DRIFT_RECAL, tile_grid=TILE_GRID,
+            model=tile_model, trace=trace)
+        runs = {"tiles": dict(eng=eng, trace=trace)}
+    return {config: dict(trace=r["trace"], eng=engine_view(r["eng"]))
+            for config, r in runs.items()}
+
+
+def quickstart_rerun():
+    """Phase 11's CPU rerun of the quickstart: its printed lines and the
+    ``TrackResult`` of each ``api.track`` call, in order."""
+    import contextlib
+    import io
+
+    from repro_torch import api
+    from repro_torch.examples import quickstart as qs
+
+    real_track, results = api.track, []
+
+    def track(*a, **kw):
+        results.append(real_track(*a, **kw))
+        return results[-1]
+
+    api.track, out = track, io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            qs.main("cpu")
+    finally:
+        api.track = real_track
+    return out.getvalue().splitlines(), results
 
 
 # ---------------------------------------------------------------------------
@@ -437,14 +590,17 @@ def check_and_time(torch, kern, lib, label, args, k, exact_idx):
 def device_share(torch, serve, tag: str, ticks: int = 200):
     """Where a tick's time goes: the main path served again for ``ticks``
     ticks under ``torch.profiler``; prints the device's busy time (kernels
-    and copies) against the host clock, and the operations that took the
-    most device time.  The profiler's own overhead lengthens the host
-    clock, so the busy share it gives is a lower bound."""
+    and copies) against the host clock, the device operations and the
+    device-to-host copies a tick, and the operations that took the most
+    device time; returns the busy share and the two per-tick counts.  Only
+    device activity is recorded (the host's operations would multiply the
+    profiler's own work, which grows with every event it must sort out);
+    its overhead still lengthens the host clock, so the busy share it gives
+    is a lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, tick_s = serve(DEVICE, None, ticks)
         torch.cuda.synchronize()
     # device-side events only (kernels, copies): a host op's device time
@@ -456,12 +612,20 @@ def device_share(torch, serve, tag: str, ticks: int = 200):
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
     rank_ms = sum(e.self_device_time_total for e in events
                   if "reid_topk" in e.key or "merge_slices" in e.key) / 1e3
-    say(f"{tag} profiled {len(tick_s)} ticks: device busy "
+    n = len(tick_s)
+    share = dict(busy=busy_ms / wall_ms,
+                 ops=sum(e.count for e in events) / n,
+                 d2h=sum(e.count for e in events if "DtoH" in e.key) / n)
+    say(f"{tag} profiled {n} ticks: device busy "
         f"{busy_ms:.3f} ms of {wall_ms:.3f} ms host clock "
-        f"({100 * busy_ms / wall_ms:.2f} % busy), of it the re-id top-k "
-        f"kernels (and their merges) {rank_ms:.3f} ms; most device time: "
+        f"({100 * share['busy']:.2f} % busy), of it the re-id top-k "
+        f"kernels (and their merges) {rank_ms:.3f} ms; "
+        f"{share['ops']:.1f} device operations a tick, "
+        f"{share['d2h']:.1f} of them device-to-host copies; most device "
+        f"time: "
         + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms "
                     f"x{e.count}" for e in top))
+    return share
 
 
 def record_key(r, with_idx=True):
@@ -572,11 +736,16 @@ def compare_tracks(tracker, np, label, gpu, cpu, trace_of, thresh):
     return parted
 
 
-def track_line(r, wall, base_cost):
+def track_line(r, wall, base_cost=None):
+    """One tracker run; savings against ``base_cost``, the all-camera
+    run's cost, where that run was made."""
     return (f"{wall:.2f} s, {r.steps} steps, {r.steps / wall:.1f} steps/s; "
             f"cost {r.total_cost:.0f}, recall {r.recall:.4f}, precision "
-            f"{r.precision:.4f}, savings {base_cost / r.total_cost:.3f}x, "
-            f"mean delay {r.mean_delay:.3f}, rescues {int(r.rescued.sum())}")
+            f"{r.precision:.4f}, "
+            + (f"savings {base_cost / r.total_cost:.3f}x, " if base_cost
+               else "")
+            + f"mean delay {r.mean_delay:.3f}, rescues "
+            f"{int(r.rescued.sum())}")
 
 
 def tracker_share(run, tag: str, steps: int):
@@ -587,8 +756,7 @@ def tracker_share(run, tag: str, steps: int):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()                            # ends with the trace on the host
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -606,9 +774,10 @@ def tracker_share(run, tag: str, steps: int):
                     f"x{e.count}" for e in top))
 
 
-def phase_tracker(np, device=DEVICE):
+def phase_tracker(np, qs_rerun, device=DEVICE):
     """Phase 11 (see the module docstring): the runs on ``device`` against
-    their reruns on the CPU."""
+    their reruns on the CPU, which run in worker processes meanwhile
+    (``qs_rerun``: the quickstart's, started with the build)."""
     import contextlib
     import io
 
@@ -636,7 +805,7 @@ def phase_tracker(np, device=DEVICE):
     def timed(*a, **kw):
         t0 = time.perf_counter()
         r = real_track(*a, **kw)
-        records.append((kw.get("device"), time.perf_counter() - t0, r))
+        records.append((time.perf_counter() - t0, r))
         return r
 
     def on_card(fn):
@@ -653,41 +822,39 @@ def phase_tracker(np, device=DEVICE):
     # (a) the quickstart world, through the example's own main()
     api.track = timed
     try:
-        lines = {}
-        for dev in (device, "cpu"):
-            t0 = time.perf_counter()
-            out = io.StringIO()
-            with contextlib.redirect_stdout(out):
-                if dev == device:
-                    on_card(lambda: qs.main(dev))
-                else:
-                    qs.main(dev)
-            lines[dev] = out.getvalue().splitlines()
-            say(f"[11 track] quickstart on {dev}: "
-                f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            on_card(lambda: qs.main(device))
+        say(f"[11 track] quickstart on {device}: "
+            f"{time.perf_counter() - t0:.1f} s")
     finally:
         api.track = real_track
-    for line in lines[device]:
+    lines = out.getvalue().splitlines()
+    for line in lines:
         say(f"  | {line}")
-    if lines[device] != lines["cpu"]:
+    for (wall, r), name in zip(records, ("all", "S5-T2")):
+        say(f"[11 track] quickstart {name} on {device}: "
+            + track_line(r, wall, records[0][1].total_cost))
+    (cpu_lines, cpu_results), secs = qs_rerun.get(RERUN_WAIT)
+    if lines != cpu_lines:
         fail("the quickstart's lines differ from the cpu rerun's:\n"
-             + "\n".join(lines["cpu"]))
-    for (dev, wall, r), name in zip(records, ("all", "S5-T2") * 2):
-        if dev == device:
-            say(f"[11 track] quickstart {name} on {dev}: "
-                + track_line(r, wall, records[0][2].total_cost))
-    for (_, _, a), (_, _, b) in zip(records[:2], records[2:]):
+             + "\n".join(cpu_lines))
+    for (_, a), b in zip(records, cpu_results, strict=True):
         for f in TRACK_FIELDS + ("rescue_pairs",):
             if not np.array_equal(getattr(a, f), getattr(b, f)):
                 fail(f"quickstart: {f} differs from the cpu rerun's")
-    say("[11 track] quickstart: lines and every TrackResult field "
-        "equal the cpu rerun's")
+    say(f"[11 track] quickstart cpu rerun in {secs:.1f} s: lines and every "
+        f"TrackResult field equal, rescue_pairs too")
 
     def run_world(label, model, vis, gal, feats, q, gt, runs):
-        """Each (name, policy, geo_adj) on the card, then on the host."""
+        """Each (name, policy, geo_adj) on the card; the reruns on the host
+        start first, in the worker processes."""
         model_cpu = model.to("cpu")
+        reruns = [cpu_job(api.track, model_cpu, vis, gal, feats, q, gt, pol,
+                          geo_adj=geo, device="cpu") for _, pol, geo in runs]
         base = None
-        for name, pol, geo in runs:
+        for (name, pol, geo), rerun in zip(runs, reruns):
             t0 = time.perf_counter()
             r = on_card(lambda: api.track(model, vis, gal, feats, q, gt, pol,
                                           geo_adj=geo, device=device))
@@ -695,9 +862,7 @@ def phase_tracker(np, device=DEVICE):
             base = base or r.total_cost
             say(f"[11 track] {label} {name} on {device}: "
                 + track_line(r, wall, base))
-            t0 = time.perf_counter()
-            c = api.track(model_cpu, vis, gal, feats, q, gt, pol,
-                          geo_adj=geo, device="cpu")
+            c, secs = rerun.get(RERUN_WAIT)
 
             def trace_of(i, dev, pol=pol, geo=geo, steps=r.steps):
                 return tracker.trace_queries(
@@ -708,8 +873,7 @@ def phase_tracker(np, device=DEVICE):
 
             parted = compare_tracks(tracker, np, f"{label} {name}", r, c,
                                     trace_of, pol.match_thresh)
-            say(f"[11 track] {label} {name} cpu rerun in "
-                f"{time.perf_counter() - t0:.1f} s: "
+            say(f"[11 track] {label} {name} cpu rerun in {secs:.1f} s: "
                 + ("every field equal, rescue_pairs too" if parted is None
                    else f"every field equal but query {parted}'s"))
 
@@ -728,6 +892,9 @@ def phase_tracker(np, device=DEVICE):
     say(f"[11 track] duke world: {net.n_cams} cameras, {len(vis)} visits, "
         f"horizon {horizon}, {len(q)} queries; built in "
         f"{time.perf_counter() - t0:.1f} s")
+    trace_rerun = cpu_job(tracker.trace_queries, model.to("cpu"), vis, gal,
+                          feats, q, gt, s5t2, n_steps=trace_steps,
+                          device="cpu", with_dist=True)
     run_world("duke", model, vis, gal, feats, q, gt,
               [("all", api.SearchPolicy(scheme="all"), None),
                ("geo", api.SearchPolicy(scheme="geo"), net.geo_adjacent),
@@ -736,9 +903,7 @@ def phase_tracker(np, device=DEVICE):
     tr = {device: on_card(lambda: tracker.trace_queries(
         model, vis, gal, feats, q, gt, s5t2, n_steps=trace_steps,
         device=device, with_dist=True))}
-    tr["cpu"] = tracker.trace_queries(model.to("cpu"), vis, gal, feats, q,
-                                      gt, s5t2, n_steps=trace_steps,
-                                      device="cpu", with_dist=True)
+    tr["cpu"], secs = trace_rerun.get(RERUN_WAIT)
     diff = np.zeros((trace_steps, len(q)), bool)       # (step, query)
     for k in tracker.TRACE_KEYS + ("best_d",):
         diff |= (tr[device][k] != tr["cpu"][k]).reshape(
@@ -756,7 +921,8 @@ def phase_tracker(np, device=DEVICE):
         f"{len(q)} queries: every array equal to the cpu rerun's "
         f"({int(tr[device]['live'].sum())} live query-steps, "
         f"{int(tr[device]['matched'].sum())} matches) in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s on {device}, the rerun "
+        f"{secs:.1f} s")
 
     tracker_share(lambda: tracker.trace_queries(
         model, vis, gal, feats, q, gt, s5t2, n_steps=200, device=device),
@@ -778,8 +944,7 @@ def phase_tracker(np, device=DEVICE):
         f"horizon {l_len}, {len(q)} queries; built in "
         f"{time.perf_counter() - t0:.1f} s")
     run_world("porto", model, vis, gal, feats, q, gt,
-              [("all", api.SearchPolicy(scheme="all"), None),
-               ("S5-T2", s5t2, None)])
+              [("S5-T2", s5t2, None)])
     say(f"[11 track] phase seconds {time.perf_counter() - t_phase:.1f}")
 
 
@@ -883,12 +1048,13 @@ def same_recal_runs(label, gpu_runs, cpu_runs, match_thresh):
             + " equal to the cpu rerun's")
 
 
-def phase_recalibration(np, torch, recorder, kernels, max_err):
+def phase_recalibration(np, torch, recorder, kernels, max_err, reruns):
     """Phase 13 (see the module docstring).  ``recorder`` wraps an
     ``ops`` entry to record its round shapes and keep one input of each;
     ``kernels`` are the camera and tile kernels' dicts (``call``,
-    ``plain``) and ``max_err`` their largest errors so far.  Returns each
-    kernel's launches over the phase's card runs."""
+    ``plain``) and ``max_err`` their largest errors so far; ``reruns``
+    the handles of the CPU reruns (``recal_rerun``), started with the
+    build.  Returns each kernel's launches over the phase's card runs."""
     from repro_torch.benchmarks import drift, scenarios
     from repro_torch.core.profiler import build_model
     from repro_torch.kernels import ops, reid_topk
@@ -896,19 +1062,48 @@ def phase_recalibration(np, torch, recorder, kernels, max_err):
     t_phase = time.perf_counter()
     camera, tiles = kernels
     launches = {}
+    fleet_runs = []         # (launches, engine) of each fleet run on the card
+    real_drive = scenarios.drive
+
+    def counted_drive(*a, **kw):
+        """``scenarios.drive`` keeping each fleet run's kernel launches."""
+        n0 = reid_topk.LAUNCHES + reid_topk.TILE_LAUNCHES
+        out = real_drive(*a, **kw)
+        if kw.get("shards"):
+            fleet_runs.append((reid_topk.LAUNCHES + reid_topk.TILE_LAUNCHES
+                               - n0, out[0]))
+        return out
+
+    def fleet_launches(label, shards):
+        """The one fleet run of ``label``: its launches must equal its
+        rank dispatches, one per worker holding a row of a ranked round."""
+        n, eng = fleet_runs.pop()
+        fleet_runs.clear()
+        if eng.n_shards + eng.rebalances != shards or \
+                n != eng.worker_dispatches or n == 0:
+            fail(f"[13 recal] {label}: {shards}-worker fleet launched "
+                 f"{n} times against {eng.worker_dispatches} worker "
+                 f"dispatches ({eng.n_shards} live workers)")
+        say(f"[13 recal] {label}: fleet of {shards} workers, "
+            f"{eng.rebalances} rebalances, camera kernel launches {n} (= "
+            f"worker_dispatches, over {len(eng.model_swaps)} swaps)")
+        return eng
 
     def on_card(label, entry, fn):
         """``fn()`` on the card with its kernel's count reset just before
         and read just after; the count must equal the rounds that ranked
-        a non-empty gallery, the other kernel's must be 0."""
+        a non-empty gallery (a fleet's round one a worker holding a row),
+        the other kernel's must be 0."""
         rounds, kept = [], {}
         real, wrapped = recorder(entry, rounds, kept)
         setattr(ops, entry, wrapped)
+        scenarios.drive = counted_drive
         reid_topk.LAUNCHES = reid_topk.TILE_LAUNCHES = 0
         try:
             out = fn()
         finally:
             setattr(ops, entry, real)
+            scenarios.drive = real_drive
             cam_n, tile_n = reid_topk.LAUNCHES, reid_topk.TILE_LAUNCHES
         n, other = (cam_n, tile_n) if entry == "reid_topk_segments" \
             else (tile_n, cam_n)
@@ -934,28 +1129,28 @@ def phase_recalibration(np, torch, recorder, kernels, max_err):
         f"{len(sc['vis'])} live visits, horizon {sc['vis'].horizon}, shift "
         f"at {sc['t_shift']}, {len(sc['q_vids'])} queries; built in "
         f"{time.perf_counter() - t0:.1f} s")
-    runs = {DEVICE: {}, "cpu": {}}
-    rows, recs = {}, {}
-    for dev in (DEVICE, "cpu"):
-        scenarios.pop_bench_records("drift_sweep")
-        t0 = time.perf_counter()
-        sweep = (lambda d=dev: scenarios.drift_sweep(device=d,
-                                                     runs=runs[d]))
-        rows[dev] = on_card("drift_sweep", "reid_topk_segments", sweep) \
-            if dev == DEVICE else sweep()
-        recs[dev] = scenarios.pop_bench_records("drift_sweep")
-        say(f"[13 recal] drift_sweep on {dev}: "
-            f"{time.perf_counter() - t0:.1f} s")
+    runs, rows, recs = {DEVICE: {}}, {}, {}
+    scenarios.pop_bench_records("drift_sweep")
+    t0 = time.perf_counter()
+    rows[DEVICE] = on_card("drift_sweep", "reid_topk_segments",
+                           lambda: scenarios.drift_sweep(
+                               device=DEVICE, runs=runs[DEVICE]))
+    recs[DEVICE] = scenarios.pop_bench_records("drift_sweep")
+    say(f"[13 recal] drift_sweep on {DEVICE}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    runs["cpu"], secs = reruns["drift_sweep"].get(RERUN_WAIT)
+    say(f"[13 recal] drift_sweep on cpu: {secs:.1f} s")
     for name, _, derived in rows[DEVICE]:
         say(f"  | {name}: {derived}")
     for config, run in runs[DEVICE].items():
         say(f"[13 recal] drift_sweep {config} on {DEVICE}: "
             + recal_line(run))
-    frozen, fresh = recs[DEVICE]
+    frozen, fresh = recs[DEVICE][:2]
     if not runs[DEVICE]["recalibrated"]["eng"].recal.events or \
             fresh["recall"] <= frozen["recall"]:
         fail(f"[13 recal] drift_sweep: no swap, or recalibrated recall "
              f"{fresh['recall']} not above frozen {frozen['recall']}")
+    fleet_launches("drift_sweep recalibrated_shards8", 8)
     same_recal_runs("drift_sweep", runs[DEVICE], runs["cpu"],
                     scenarios.DRIFT_POLICY.match_thresh)
 
@@ -964,20 +1159,18 @@ def phase_recalibration(np, torch, recorder, kernels, max_err):
     tile_model = build_model(hist.ent, hist.cam, hist.t_in, hist.t_out,
                              hist.n_cams, tile_xy=hist.tile_xy,
                              tile_grid=TILE_GRID, device="cpu")
-    t_runs = {}
-    for dev in (DEVICE, "cpu"):
-        trace = []
-        t0 = time.perf_counter()
-        serve = (lambda d=dev, tr=trace: scenarios.drive(
-            sc, scenarios.DRIFT_POLICY, device=d,
-            recal=scenarios.DRIFT_RECAL, tile_grid=TILE_GRID,
-            model=tile_model, trace=tr))
-        eng, wall, lat = on_card("tile drift", "reid_topk_tiles", serve) \
-            if dev == DEVICE else serve()
-        t_runs[dev] = {"tiles": dict(eng=eng, wall=wall, tick_s=lat,
-                                     trace=trace)}
-        say(f"[13 recal] tile drift on {dev}: {wall:.1f} s")
-    eng = t_runs[DEVICE]["tiles"]["eng"]
+    trace = []
+    eng, wall, lat = on_card("tile drift", "reid_topk_tiles",
+                             lambda: scenarios.drive(
+                                 sc, scenarios.DRIFT_POLICY, device=DEVICE,
+                                 recal=scenarios.DRIFT_RECAL,
+                                 tile_grid=TILE_GRID, model=tile_model,
+                                 trace=trace))
+    t_runs = {DEVICE: {"tiles": dict(eng=eng, wall=wall, tick_s=lat,
+                                     trace=trace)}}
+    say(f"[13 recal] tile drift on {DEVICE}: {wall:.1f} s")
+    t_runs["cpu"], secs = reruns["tile drift"].get(RERUN_WAIT)
+    say(f"[13 recal] tile drift on cpu: {secs:.1f} s")
     say(f"[13 recal] tile drift (tile_grid={TILE_GRID}) on {DEVICE}: "
         + recal_line(t_runs[DEVICE]["tiles"])
         + f"; admitted_tiles={eng.admitted_tiles} "
@@ -994,7 +1187,7 @@ def phase_recalibration(np, torch, recorder, kernels, max_err):
     same_recal_runs("tile drift", t_runs[DEVICE], t_runs["cpu"],
                     scenarios.DRIFT_POLICY.match_thresh)
 
-    # (3) soak_130 on one engine
+    # (3) soak_130: exhaustive and full on one engine, targeted on 8 workers
     t0 = time.perf_counter()
     sc = scenarios.soak_city()
     say(f"[13 recal] city-130 world: {sc['net'].n_cams} cameras, "
@@ -1002,16 +1195,17 @@ def phase_recalibration(np, torch, recorder, kernels, max_err):
         f"drifted rows {[int(r) for r in sc['drift_rows']]}, "
         f"{len(sc['q_vids'])} "
         f"queries; built in {time.perf_counter() - t0:.1f} s")
-    runs = {DEVICE: {}, "cpu": {}}
-    for dev in (DEVICE, "cpu"):
-        scenarios.pop_bench_records("soak_130")
-        t0 = time.perf_counter()
-        sweep = (lambda d=dev: scenarios.soak_130(device=d, runs=runs[d]))
-        rows[dev] = on_card("soak_130", "reid_topk_segments", sweep) \
-            if dev == DEVICE else sweep()
-        recs[dev] = scenarios.pop_bench_records("soak_130")
-        say(f"[13 recal] soak_130 on {dev}: "
-            f"{time.perf_counter() - t0:.1f} s")
+    runs = {DEVICE: {}}
+    scenarios.pop_bench_records("soak_130")
+    t0 = time.perf_counter()
+    rows[DEVICE] = on_card("soak_130", "reid_topk_segments",
+                           lambda: scenarios.soak_130(device=DEVICE,
+                                                      runs=runs[DEVICE]))
+    recs[DEVICE] = scenarios.pop_bench_records("soak_130")
+    say(f"[13 recal] soak_130 on {DEVICE}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    runs["cpu"], secs = reruns["soak_130"].get(RERUN_WAIT)
+    say(f"[13 recal] soak_130 on cpu: {secs:.1f} s")
     for name, _, derived in rows[DEVICE]:
         say(f"  | {name}: {derived}")
     for config, run in runs[DEVICE].items():
@@ -1023,8 +1217,10 @@ def phase_recalibration(np, torch, recorder, kernels, max_err):
             gate["recall_targeted"] < gate["recall_full"] - .02 or \
             gate["rows_per_targeted_swap"] >= C:
         fail(f"[13 recal] soak_130 gate: {gate}")
-    if recs[DEVICE][1]["shards"] != 1:
-        fail("[13 recal] soak_130: targeted_fleet must record shards 1")
+    fleet = fleet_launches("soak_130 targeted_fleet", 8)
+    if recs[DEVICE][1]["shards"] != 8 or fleet.rebalances != 1:
+        fail("[13 recal] soak_130: targeted_fleet must run 8 workers and "
+             "rebalance once")
     same_recal_runs("soak_130", runs[DEVICE], runs["cpu"],
                     scenarios.SOAK_POLICY.match_thresh)
 
@@ -1034,15 +1230,18 @@ def phase_recalibration(np, torch, recorder, kernels, max_err):
             recal=scenarios.SOAK_RECAL_TARGETED, churn_wave=60)
         return eng, lat
 
-    device_share(torch, soak_targeted, "[13 recal] soak_130 targeted_fleet")
+    # the targeted run on one engine, as in earlier runs (phase 14
+    # profiles the fleet)
+    device_share(torch, soak_targeted,
+                 "[13 recal] soak_130 targeted (one engine)")
 
     # (4) sec6_drift through the tracker
-    out = {}
-    for dev in (DEVICE, "cpu"):
-        t0 = time.perf_counter()
-        out[dev] = drift.run(device=dev)
-        say(f"[13 recal] sec6_drift on {dev}: "
-            f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out = {DEVICE: drift.run(device=DEVICE)}
+    say(f"[13 recal] sec6_drift on {DEVICE}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    out["cpu"], secs = reruns["sec6_drift"].get(RERUN_WAIT)
+    say(f"[13 recal] sec6_drift on cpu: {secs:.1f} s")
     for name, _, derived in out[DEVICE]:
         say(f"  | {name}: {derived}")
     if out[DEVICE] != out["cpu"]:
@@ -1050,6 +1249,160 @@ def phase_recalibration(np, torch, recorder, kernels, max_err):
              f"{out['cpu']}")
     say("[13 recal] sec6_drift: the three rows equal the cpu rerun's")
     say(f"[13 recal] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
+def fleet_trace_equal(label, got, want):
+    """A fleet's card trace against the single engine's, record by record
+    with no parting forgiven: masks, indices, bands' cameras and frames,
+    counters and epochs exact, scores within 1e-5.  Returns how many
+    scores differ at all."""
+    if len(got) != len(want):
+        fail(f"[14 fleet] {label}: {len(got)} trace records, the single "
+             f"engine {len(want)}")
+    n_diff = 0
+    for a, b in zip(got, want):
+        if not same_record(a, b):
+            fail(f"[14 fleet] {label}: trace record differs from the single "
+                 f"engine's:\n  fleet  {a}\n  single {b}")
+        n_diff += sum(x != y for x, y in zip(
+            [a["match_val"]] + [v for v, _, _ in a["topk"]],
+            [b["match_val"]] + [v for v, _, _ in b["topk"]]))
+    return n_diff
+
+
+def phase_fleet(np, torch, serve_stream, singles, recorder, kernels,
+                max_err):
+    """Phase 14 (see the module docstring).  ``serve_stream(model_key,
+    trace, ticks, on_step, **serve_kw)`` serves the duke world of phase 4
+    with its engine settings through ``api.serve(device="cuda",
+    **serve_kw)`` and returns (engine, tick seconds); ``singles`` holds
+    phase 4's and phase 6's card traces and engines (and phase 4's
+    profile).  Returns each kernel's launches over the fleet runs."""
+    from repro_torch.kernels import ops, reid_topk
+    from repro_torch.runtime.transport import (FakeRpcTransport,
+                                               FaultProfile, manual_clock)
+
+    t_phase = time.perf_counter()
+    camera, tiles = kernels
+    launches = {"camera": 0, "tiles": 0}
+
+    def run(label, entry, single, model_key, lose_at=None, **serve_kw):
+        """One fleet run, to the horizon, held to the single engine's card
+        run (``single``: its trace and engine)."""
+        rounds, kept = [], {}
+        real, wrapped = recorder(entry, rounds, kept)
+        setattr(ops, entry, wrapped)
+        trace = []
+
+        def on_step(eng, step):
+            if step == lose_at:
+                eng.lose_worker(1)
+
+        reid_topk.LAUNCHES = reid_topk.TILE_LAUNCHES = 0
+        try:
+            eng, tick_s = serve_stream(model_key, trace, None, on_step,
+                                       **serve_kw)
+        finally:
+            setattr(ops, entry, real)
+            cam_n, tile_n = reid_topk.LAUNCHES, reid_topk.TILE_LAUNCHES
+        n, other = (cam_n, tile_n) if entry == "reid_topk_segments" \
+            else (tile_n, cam_n)
+        nonempty = sum(1 for q, g in rounds if q > 0 and g > 0)
+        if n == 0 or n != eng.worker_dispatches or n != nonempty or other:
+            fail(f"[14 fleet] {label}: {entry} launches {n}, "
+                 f"worker_dispatches {eng.worker_dispatches}, non-empty "
+                 f"worker rounds {nonempty}, the other kernel {other}")
+        launches["camera" if entry == "reid_topk_segments" else "tiles"] += n
+        ref = single["eng"]
+        n_diff = fleet_trace_equal(label, trace, single["trace"])
+        counters = list(FLEET_COUNTERS[:5])
+        if eng.tile_grid:
+            counters += ["admitted_tiles", "unique_tiles"]
+        for f in counters:
+            if getattr(eng, f) != getattr(ref, f):
+                fail(f"[14 fleet] {label}: {f} {getattr(eng, f)}, the "
+                     f"single engine {getattr(ref, f)}")
+        if (eng.rescue_pairs != ref.rescue_pairs).any():
+            fail(f"[14 fleet] {label}: rescue_pairs differ")
+        rep = eng.shard_report()
+        if sum(r["admitted_steps"] for r in rep) != eng.admitted_steps or \
+                sum(r["owned_frames"] for r in rep) != eng.unique_frames:
+            fail(f"[14 fleet] {label}: per-worker rows do not tile the "
+                 f"totals: {rep}")
+        for shape, (args, k) in kept.items():
+            kern = camera if entry == "reid_topk_segments" else tiles
+            err = check_against_plain(torch, kern, f"{label} {shape}", args,
+                                      k, exact_idx=False)
+            max_err[kern["name"]] = max(max_err[kern["name"]], err)
+        lat = np.asarray(tick_s) * 1e3
+        say(f"[14 fleet] {label}: {len(tick_s)} ticks, "
+            f"{len(tick_s) / sum(tick_s):.1f} ticks/s, tick p50 "
+            f"{np.percentile(lat, 50):.3f} ms p99 "
+            f"{np.percentile(lat, 99):.3f} ms; {entry} launches {n} (= "
+            f"worker_dispatches, over {len(rounds)} worker rounds), the "
+            f"other kernel 0; {len(trace)} trace records equal to the single "
+            f"engine's, {n_diff} scores differ at all; "
+            + " ".join(f"{f}={getattr(eng, f)}" for f in counters)
+            + f"; {eng.n_shards} live workers, {eng.rebalances} "
+            f"rebalances; {len(kept)} worker round shapes held to the plain "
+            f"version")
+        for r in rep:
+            say(f"  {r['worker']} [{'live' if r['alive'] else 'lost'}]: "
+                + " ".join(f"{k}={v}" for k, v in r.items()
+                           if k not in ("worker", "alive")))
+        return eng, rep
+
+    # (a) the camera fleet: 4 workers, w1 lost at tick 1,000
+    eng, rep = run("camera fleet", "reid_topk_segments", singles["camera"],
+                   "camera", lose_at=FLEET_LOSE_AT, shards=FLEET_SHARDS,
+                   gallery="sharded")
+    lost = {r["worker"]: r for r in rep}["w1"]
+    if eng.rebalances != 1 or lost["alive"] or lost["admitted_steps"] == 0:
+        fail("[14 fleet] camera fleet: w1 was not lost after serving rounds")
+    share = device_share(
+        torch, lambda dev, trace, ticks: serve_stream(
+            "camera", trace, ticks, None, shards=FLEET_SHARDS,
+            gallery="sharded"),
+        f"[14 fleet] camera fleet ({FLEET_SHARDS} workers)")
+    p4 = singles["camera"]["share"]
+    say(f"[14 fleet] camera fleet profile beside phase 4's: busy "
+        f"{100 * share['busy']:.2f} % ({100 * p4['busy']:.2f} %), "
+        f"{share['ops']:.1f} device operations a tick ({p4['ops']:.1f}), "
+        f"{share['d2h']:.1f} device-to-host copies a tick "
+        f"({p4['d2h']:.1f})")
+
+    # (b) the tile fleet
+    eng, _ = run("tile fleet", "reid_topk_tiles", singles["tiles"], "tiles",
+                 lose_at=FLEET_LOSE_AT, shards=FLEET_SHARDS,
+                 gallery="sharded")
+    if eng.rebalances != 1:
+        fail("[14 fleet] tile fleet: no rebalance")
+
+    # (c) the transport fleet: 8 workers, fake RPC, prefetch, w3 dead
+    clock, sleep = manual_clock()
+    transport = FakeRpcTransport(
+        {"w3": FaultProfile(drop=1.0)},
+        default=FaultProfile(latency=.002, jitter=.001), clock=clock,
+        sleep=sleep)
+    eng, rep = run("transport fleet", "reid_topk_segments",
+                   singles["camera"], "camera",
+                   shards=TRANSPORT_SHARDS, transport=transport,
+                   prefetch=True)
+    c = eng.gallery.counters()
+    if c["dead_peers"] != 1 or "w3" in eng._workers or \
+            eng.rebalances != 1 or c["remote_fetches"] == 0 or \
+            c["prefetch_hits"] == 0 or \
+            sum(r["remote_fetches"] for r in rep) != c["remote_fetches"]:
+        fail(f"[14 fleet] transport fleet: counters {c}, live workers "
+             f"{eng._workers}")
+    say(f"[14 fleet] transport fleet: {c['remote_fetches']} remote fetches "
+        f"({c['prefetch_hits']} served by prefetch, {c['prefetch_wasted']} "
+        f"wasted), {c['retries']} retries, {c['timeouts']} timeouts, "
+        f"{c['dead_peers']} dead peer (w3, re-homed mid-round, "
+        f"{c['rehomed_blocks']} blocks moved), {clock():.3f} s of virtual "
+        f"fetch time")
+    say(f"[14 fleet] phase seconds {time.perf_counter() - t_phase:.1f}")
     return launches
 
 
@@ -1224,6 +1577,10 @@ def main() -> int:
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
     # -- phase 2: build, one nvcc per source, all started together -------
+    # (the CPU reruns that need nothing from the card start with it)
+    qs_rerun = cpu_job(quickstart_rerun)
+    recal_reruns = {which: cpu_job(recal_rerun, which) for which in (
+        "drift_sweep", "tile drift", "soak_130", "sec6_drift")}
     t0 = time.perf_counter()
     sources = ("reid_topk", "reid_topk_tiles", "reid_topk_plain",
                "flash_attention", "decode_attention", "mamba_scan")
@@ -1473,7 +1830,8 @@ def main() -> int:
            f"; query {parted} parted at a near-threshold record, so the "
            f"cost counters are not compared"))
 
-    device_share(torch, serve, "[4 main]")
+    singles = {"camera": dict(trace=gpu_trace, eng=eng,
+                              share=device_share(torch, serve, "[4 main]"))}
 
     # -- phase 5: the camera path's round shapes --------------------------
     shapes = sorted(kept, key=lambda s: s[0] * s[1])
@@ -1597,6 +1955,7 @@ def main() -> int:
           f"of {live[1]} ({100 * live_share:.2f} %)")
 
     device_share(torch, serve_tiles, "[6 tiles]", ticks=TICKS)
+    singles["tiles"] = dict(trace=gpu_trace, eng=eng)
 
     # -- phase 7: the tile path's round shapes ----------------------------
     t_shapes = sorted(t_kept, key=lambda s: s[0] * s[1])
@@ -2015,23 +2374,40 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # -- phase 11: the batched tracker ----------------------------------
-    phase_tracker(np)
+    phase_tracker(np, qs_rerun)
 
     # -- phase 12: identity detection ------------------------------------
     phase_detection(np)
 
     # -- phase 13: recalibration ------------------------------------------
     recal_launches = phase_recalibration(np, torch, recorder,
-                                         (camera, tiles), max_err)
+                                         (camera, tiles), max_err,
+                                         recal_reruns)
+
+    # -- phase 14: the serving fleet ----------------------------------------
+    def serve_stream(model_key, trace, ticks, on_step, **serve_kw):
+        m = model if model_key == "camera" else tile_model
+        eng = api.serve(m, lambda x: x, policy,
+                        geo_adj=world.net.geo_adjacent, topk=3,
+                        consolidate=True, device=DEVICE,
+                        tile_grid=TILE_GRID if model_key == "tiles" else 0,
+                        **serve_kw)
+        return eng, run_stream(eng, world, ticks or horizon_ticks, trace,
+                               on_step)
+
+    fleet = phase_fleet(np, torch, serve_stream, singles, recorder,
+                        (camera, tiles), max_err)
     camera_row["max_abs_err"] = max_err[CAMERA["name"]]
     tiles_row["max_abs_err"] = max_err[TILES["name"]]
 
     say(smi)
     say(json.dumps({"kernels": [
         dict(CAMERA, **camera_row, recal_launches={
-            k: recal_launches[k] for k in ("drift_sweep", "soak_130")}),
+            k: recal_launches[k] for k in ("drift_sweep", "soak_130")},
+             fleet_launches=fleet["camera"]),
         dict(TILES, **tiles_row,
-             recal_launches={"tile drift": recal_launches["tile drift"]})]
+             recal_launches={"tile drift": recal_launches["tile drift"]},
+             fleet_launches=fleet["tiles"])]
         + [dict(BENCH[name], launches=bench_launches[name],
                 max_abs_err=errs[name], **bench[name], model=widths[name])
            for name in BENCH]}))
@@ -2042,4 +2418,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        if CPU_POOL is not None:
+            CPU_POOL.terminate()
+            CPU_POOL.join()
+    sys.exit(code)

@@ -2,10 +2,14 @@
 the PyTorch port, both on the CPU.
 
 Runs ``sec6_drift`` (``benchmarks/drift.py::run`` against
-``repro_torch.benchmarks.drift.run``), ``drift_sweep`` (frozen and
-recalibrated) and ``soak_130`` (exhaustive, targeted and full rebuilds,
-one engine) from ``benchmarks/scenarios.py`` against
-``repro_torch.benchmarks.scenarios``, at the reference's sizes:
+``repro_torch.benchmarks.drift.run``), ``drift_sweep`` (frozen,
+recalibrated, and recalibrated on an 8-worker fleet) and ``soak_130``
+(exhaustive, row-targeted on an 8-worker fleet that loses a worker at step
+120, and full rebuilds) from ``benchmarks/scenarios.py`` against
+``repro_torch.benchmarks.scenarios``, at the reference's sizes.  The
+reference's fleets run on 8 host devices
+(``XLA_FLAGS=--xla_force_host_platform_device_count=8``, set here before
+``jax`` is imported); the port's on 8 workers on the CPU:
 
 - sec6_drift: duke, history 2,000 x 4,000, live 2,000 x 4,000, 60 queries;
 - drift_sweep: duke re-permuted at t = 400, history 2,000 x 4,000, live
@@ -16,8 +20,9 @@ one engine) from ``benchmarks/scenarios.py`` against
 Each sweep's rows and records must be equal with their wall-clock fields
 taken out.  Then every configuration of the two serving sweeps is driven
 once more on each side, the same loop as the sweeps', and the engine's
-counters, swap ticks, epochs, per-query matches and the controller's
-events, polls and counters must be equal.  Prints one line per compared
+counters, swap ticks, epochs, per-query matches, the controller's events,
+polls and counters and, for the two fleets, the rebalances and every
+per-worker row of ``shard_report`` must be equal.  Prints one line per compared
 item and the wall seconds of each side; exits non-zero if anything
 differs.
 
@@ -32,6 +37,10 @@ import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+# the reference's fleets need 8 devices; jax reads this at import
+os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " "
+                           "--xla_force_host_platform_device_count=8").strip()
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 #: record fields read off a clock, left out of the comparison
 WALL_KEYS = ("wall_s", "p50_tick_ms", "p99_tick_ms", "profile_wall_s",
@@ -63,6 +72,8 @@ def engine_counts(eng):
                    rows_reprofiled=ctl.rows_reprofiled,
                    targeted_swaps=ctl.targeted_swaps,
                    full_rebuilds=ctl.full_rebuilds)
+    if hasattr(eng, "shard_report"):
+        out.update(rebalances=eng.rebalances, shard_report=eng.shard_report())
     return out
 
 
@@ -125,31 +136,45 @@ def main() -> int:
         return None if p is None else \
             japi.RecalibrationPolicy(**dataclasses.asdict(p))
 
-    runs = [("drift_sweep/frozen", "drift", t_scen.DRIFT_POLICY, None, None),
+    # (label, world, policy, recalibration, late wave, shards, loss step)
+    runs = [("drift_sweep/frozen", "drift", t_scen.DRIFT_POLICY, None, None,
+             None, None),
             ("drift_sweep/recalibrated", "drift", t_scen.DRIFT_POLICY,
-             t_scen.DRIFT_RECAL, None),
-            ("soak_130/exhaustive", "soak", t_scen.SOAK_EXHAUSTIVE, None, 60),
+             t_scen.DRIFT_RECAL, None, None, None),
+            ("drift_sweep/recalibrated_shards8", "drift", t_scen.DRIFT_POLICY,
+             t_scen.DRIFT_RECAL, None, 8, None),
+            ("soak_130/exhaustive", "soak", t_scen.SOAK_EXHAUSTIVE, None, 60,
+             None, None),
             ("soak_130/targeted_fleet", "soak", t_scen.SOAK_POLICY,
-             t_scen.SOAK_RECAL_TARGETED, 60),
+             t_scen.SOAK_RECAL_TARGETED, 60, 8, 120),
             ("soak_130/full_single", "soak", t_scen.SOAK_POLICY,
-             t_scen.SOAK_RECAL_FULL, 60)]
-    for label, world, pol, recal, wave in runs:
+             t_scen.SOAK_RECAL_FULL, 60, None, None)]
+    for label, world, pol, recal, wave, shards, lose_at in runs:
         j_sc = j_scen.drifted_duke(32) if world == "drift" \
             else j_scen.soak_city(n_queries=12)
         t_sc = t_scen.drifted_duke(32) if world == "drift" \
             else t_scen.soak_city(n_queries=12)
         j, t = both(label,
                     lambda: j_scen._drive_soak(j_sc, jpol(pol),
+                                               shards=shards,
                                                recal=jrecal(recal),
-                                               churn_wave=wave)[0],
+                                               churn_wave=wave,
+                                               lose_at=lose_at,
+                                               lose_worker=1)[0],
                     lambda: t_scen.drive(t_sc, pol, device="cpu",
-                                         recal=recal, churn_wave=wave)[0])
+                                         recal=recal, churn_wave=wave,
+                                         shards=shards, lose_at=lose_at,
+                                         lose_worker=1)[0])
         jc, tc = engine_counts(j), engine_counts(t)
         swaps = tc["model_swaps"]
         extra = "" if t.recal is None else (
             f", rows_reprofiled {tc['rows_reprofiled']}, targeted "
             f"{tc['targeted_swaps']}, full {tc['full_rebuilds']}, "
             f"{len(tc['polls'])} polls")
+        if shards is not None:
+            extra += (f", {shards} workers, {tc['rebalances']} rebalances, "
+                      f"admitted_steps by worker "
+                      f"{[r['admitted_steps'] for r in tc['shard_report']]}")
         print(f"  {label}: admitted_steps {tc['admitted_steps']}, "
               f"unique_frames {tc['unique_frames']}, replay_steps "
               f"{tc['replay_steps']}, epoch {tc['model_epoch']}, swaps "

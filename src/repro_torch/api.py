@@ -11,9 +11,10 @@
 
 All three default to ``device="cuda"`` and raise when no card is present;
 ``device="cpu"`` runs the plain PyTorch path.  ``serve(recalibrate=...)``
-attaches the §6 drift loop (``RecalibrationController``).  The fleet is
-not ported yet (ROADMAP.md, Queue 1): its keywords are accepted by
-``serve`` and raise.
+attaches the §6 drift loop (``RecalibrationController``);
+``serve(shards=k)`` (or ``devices=``) builds the sharded fleet
+(``ShardedServingEngine``: k workers, on one card by default, a sharded
+gallery, optional transports and prefetch).
 """
 from __future__ import annotations
 
@@ -27,9 +28,13 @@ from repro_torch.core.simulate import Visits
 from repro_torch.core.tracker import (TrackResult, make_queries,  # noqa: F401
                                       trace_queries, track_queries)
 from repro_torch.runtime.engine import EngineConfig, ServingEngine
+from repro_torch.runtime.fleet import ShardedServingEngine
 from repro_torch.runtime.recal import (RecalibrationController,  # noqa: F401
                                        RecalibrationPolicy, match_log_source,
                                        visits_window_source)
+from repro_torch.runtime.transport import (FakeRpcTransport,  # noqa: F401
+                                           FaultProfile, InProcTransport,
+                                           Transport, manual_clock)
 
 
 def profile(visits: Visits, *, time_limit: int | None = None,
@@ -71,35 +76,52 @@ def serve(model: SpatioTemporalModel, embed_fn: Callable,
           transport=None, prefetch: bool = False, consolidate: bool = True,
           tile_grid: int = 0, topk_rerank: bool = False, recalibrate=None,
           visit_source=None, device="cuda") -> ServingEngine:
-    """The single serving engine on ``device`` (see ``repro.api.serve`` for
-    the keywords).  ``consolidate`` ranks each round in one segment-ID
-    kernel call (default) or per frame tag; ``topk`` surfaces k candidate
-    bands; ``topk_rerank`` turns on the §5.2 confidence vote;
-    ``tile_grid=T > 0`` ranks each round through the tile-masked kernel
-    over the model's learned tile masks (all tiles for a tile-less model)
-    and makes tile labels mandatory at ``engine.ingest(frames, tiles)``.
+    """The serving engine on ``device`` (see ``repro.api.serve`` for the
+    keywords).  ``consolidate`` ranks each round in one segment-ID kernel
+    call (default) or per frame tag; ``topk`` surfaces k candidate bands;
+    ``topk_rerank`` turns on the §5.2 confidence vote; ``tile_grid=T > 0``
+    ranks each round through the tile-masked kernel over the model's
+    learned tile masks (all tiles for a tile-less model) and makes tile
+    labels mandatory at ``engine.ingest(frames, tiles)``.
+
+    ``shards=k`` or ``devices=[...]`` builds a ``ShardedServingEngine``:
+    the query axis partitioned over k workers (by default all on
+    ``device``; ``devices`` maps worker i to ``devices[i]``), each worker's
+    rows ranked in its own kernel launch, trace-identical to the single
+    engine.  ``gallery`` picks the embedding plane: "auto" (local for one
+    engine, the fleet-shared ``ShardedGalleryStore`` for the fleet),
+    "local" or "sharded" (fleet only).  ``transport`` (fleet only): None,
+    "inproc" or a ``Transport`` such as ``FakeRpcTransport`` routes every
+    owner-shard block fetch through the fetch plane; ``prefetch=True``
+    issues the next round's cached reads at the end of each round.
+
     ``recalibrate=True`` (default knobs) or a ``RecalibrationPolicy``
     attaches a ``RecalibrationController`` that re-profiles from
     ``visit_source`` (``(lo, hi) -> (ent, cam, t_in, t_out)``, e.g.
     ``visits_window_source(visits)``; None: the engine's own sighting log)
-    and hot-swaps M when drift trips its trigger; ``visit_source`` without
-    ``recalibrate`` raises.  ``shards``, ``devices``, ``transport`` and
-    ``prefetch`` are not ported yet and raise."""
-    unported = dict(shards=shards is not None, devices=devices is not None,
-                    transport=transport is not None, prefetch=prefetch)
-    named = [k for k, v in unported.items() if v]
-    if named:
-        raise NotImplementedError(
-            f"serve({', '.join(named)}=...) is not ported yet (ROADMAP.md, "
-            f"Queue 1): the port serves one engine")
-    if gallery not in ("auto", "local"):
-        raise ValueError(f"gallery={gallery!r}: the single engine keeps a "
-                         f"local gallery ('auto' or 'local')")
+    and hot-swaps M (on every worker of a fleet) when drift trips its
+    trigger; ``visit_source`` without ``recalibrate`` raises."""
+    if transport == "inproc":
+        transport = InProcTransport()
+    elif isinstance(transport, str):
+        raise ValueError(f"unknown transport {transport!r} (expected None, "
+                         f"'inproc' or a runtime.transport.Transport)")
+    if transport is not None and shards is None and devices is None:
+        raise ValueError("transport= requires the sharded fleet "
+                         "(serve(..., shards=k)): the single engine's local "
+                         "gallery has no remote owners to fetch from")
     cfg = EngineConfig(policy=policy, max_batch=max_batch,
-                       retention=retention, topk=topk,
+                       retention=retention, gallery=gallery, topk=topk,
+                       transport=transport, prefetch=prefetch,
                        consolidate=consolidate, tile_grid=tile_grid,
                        topk_rerank=topk_rerank)
-    eng = ServingEngine(model, embed_fn, cfg, geo_adj=geo_adj, device=device)
+    if shards is not None or devices is not None:
+        eng = ShardedServingEngine(model, embed_fn, cfg, geo_adj=geo_adj,
+                                   shards=shards, devices=devices,
+                                   device=device)
+    else:
+        eng = ServingEngine(model, embed_fn, cfg, geo_adj=geo_adj,
+                            device=device)
     if recalibrate is not None and recalibrate is not False:
         rp = RecalibrationPolicy() if recalibrate is True else recalibrate
         if not isinstance(rp, RecalibrationPolicy):

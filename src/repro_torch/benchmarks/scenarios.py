@@ -1,19 +1,23 @@
-"""Serving scenarios of the §6 recalibration loop on one engine: the
-counterparts of ``benchmarks/scenarios.py``'s ``drift_sweep`` and
-``soak_130``, with its record schema.
+"""Serving scenarios of the §6 recalibration loop: the counterparts of
+``benchmarks/scenarios.py``'s ``drift_sweep`` and ``soak_130``, with its
+record schema.
 
   drift_sweep  the duke world whose camera topology is re-permuted
-               mid-run, served frozen and with recalibration; the
-               recalibrated recall must beat the frozen one.
+               mid-run, served frozen, with recalibration, and with
+               recalibration on an 8-worker fleet
+               (``recalibrated_shards8``); the recalibrated recall must
+               beat the frozen one and the fleet must equal the single
+               engine (admitted steps, swap ticks, recall).
   soak_130     the 130-camera clustered city with localized hub drift and
                a late query wave, served exhaustively, with row-targeted
-               recalibration and with full rebuilds, under the reference's
-               gates (savings >= 20x, targeted recall within 5 % of
-               exhaustive and 2 % of full, fewer rows than C a swap).
+               recalibration on an 8-worker fleet that loses worker w1 at
+               step 120 (``targeted_fleet``, one rebalance) and with full
+               rebuilds on one engine, under the reference's gates
+               (savings >= 20x, targeted recall within 5 % of exhaustive
+               and 2 % of full, fewer rows than C a swap).
 
-The fleet is not ported: ``drift_sweep``'s sharded row is reported as
-skipped and ``soak_130``'s ``targeted_fleet`` runs on one engine
-(``shards: 1``), as the reference does when it sees one device.
+The fleets' workers are logical partitions of the query axis, all on the
+engine's device (``runtime.fleet``).
 
     PYTHONPATH=src python -m repro_torch.benchmarks.scenarios \\
         --only drift_sweep soak_130 [--device cpu] [--bench-dir DIR]
@@ -100,15 +104,17 @@ def _serving_recall(eng, vis, q_vids, gt_vids) -> float:
 
 
 def drive(sc, policy, *, device="cuda", recal=None, churn_wave=None,
-          tile_grid=0, model=None, trace=None):
+          tile_grid=0, model=None, trace=None, shards=None, lose_at=None,
+          lose_worker=1):
     """Serve the scenario's live stream on one engine until its horizon:
     every query submitted at the first anchor's tick, or with
     ``churn_wave`` half of them there and the rest that many steps in
     (replaying to catch up).  ``recal`` (a ``RecalibrationPolicy``)
     attaches the drift loop over the world's ground-truth visits;
     ``tile_grid=T`` serves the tile plane (``model`` overrides the world's
-    profile); ``trace`` collects the trace records.  The counterpart of
-    ``drift_sweep``'s inner drive and ``_drive_soak`` (no worker to lose).
+    profile); ``trace`` collects the trace records; ``shards=k`` serves on
+    a k-worker fleet, which loses ``lose_worker`` at step ``lose_at``.
+    The counterpart of ``drift_sweep``'s inner drive and ``_drive_soak``.
     Returns (engine, wall_s, per-tick latencies)."""
     vis, gal, feats, net = sc["vis"], sc["gal"], sc["feats"], sc["net"]
     q_vids = sc["q_vids"]
@@ -118,7 +124,7 @@ def drive(sc, policy, *, device="cuda", recal=None, churn_wave=None,
     eng = rexcam.serve(sc["model"] if model is None else model,
                        embed_fn=lambda x: x, policy=policy,
                        geo_adj=net.geo_adjacent, tile_grid=tile_grid,
-                       recalibrate=recal,
+                       shards=shards, recalibrate=recal,
                        visit_source=rexcam.visits_window_source(vis)
                        if recal is not None else None, device=device)
     t0 = int(vis.t_out[q_vids].min())
@@ -134,6 +140,8 @@ def drive(sc, policy, *, device="cuda", recal=None, churn_wave=None,
                 q = q_vids[j]
                 eng.submit_query(j, feats[q], int(vis.cam[q]),
                                  int(vis.t_out[q]))
+        if lose_at is not None and step == lose_at and shards is not None:
+            eng.lose_worker(lose_worker)
         frames, tiles = {}, {}
         for c in range(net.n_cams):
             vids = gal[c, t][gal[c, t] >= 0]
@@ -194,13 +202,17 @@ def drifted_duke(n_queries: int = 32, t_shift: int = 400,
                 name="duke-drift")
 
 
-def drift_sweep(n_queries: int = 32, *, device="cuda", runs=None):
+def drift_sweep(n_queries: int = 32, shards: int = 8, *, device="cuda",
+                runs=None):
     """§6 on the serving plane: the re-permuted topology makes the frozen
     profile prune the frames the traffic now uses; with recalibration the
     live rescue matrix trips the trigger, a model re-profiled from the
     recent window hot-swaps in and post-shift recall recovers.  Asserts a
-    swap and recalibrated recall strictly above frozen.  ``runs`` (a dict)
-    receives each configuration's engine, wall, tick latencies and trace."""
+    swap and recalibrated recall strictly above frozen, then serves the
+    recalibrating run again on a ``shards``-worker fleet, whose admitted
+    steps, swap ticks and recall must equal the single engine's (the swap
+    is atomic across the workers).  ``runs`` (a dict) receives each
+    configuration's engine, wall, tick latencies and trace."""
     device = resolve_device(device)
     sc = drifted_duke(n_queries)
     vis, q_vids, gt_vids = sc["vis"], sc["q_vids"], sc["gt_vids"]
@@ -248,8 +260,27 @@ def drift_sweep(n_queries: int = 32, *, device="cuda", runs=None):
     assert r_fresh > r_frozen, \
         f"drift_sweep: recalibrated recall {r_fresh:.3f} must beat the " \
         f"frozen model's {r_frozen:.3f} after the injected shift"
-    rows.append((f"drift_sweep/{sc['name']}/recalibrated_shards8", 0.0,
-                 "skipped: the fleet is not ported"))
+
+    trace = [] if runs is not None else None
+    fleet, wall_s, lat_s = drive(sc, DRIFT_POLICY, device=device,
+                                 recal=DRIFT_RECAL, trace=trace,
+                                 shards=shards)
+    _keep(runs, f"recalibrated_shards{shards}", fleet, wall_s, lat_s, trace)
+    r_fleet = _serving_recall(fleet, vis, q_vids, gt_vids)
+    assert fleet.admitted_steps == fresh.admitted_steps, \
+        "recalibrating fleet diverged from the single engine"
+    assert fleet.model_swaps == fresh.model_swaps, \
+        "fleet model swaps did not land on the single engine's ticks"
+    assert r_fleet == r_fresh
+    record(f"recalibrated_shards{shards}", fleet, wall_s, lat_s, r_fleet,
+           swaps=len(fleet.model_swaps))
+    rows.append((f"drift_sweep/{sc['name']}/recalibrated_shards{shards}",
+                 wall_s * 1e6 / max(len(q_vids), 1),
+                 f"recall={r_fleet:.2f} "
+                 f"admitted_steps={fleet.admitted_steps} "
+                 f"epoch={fleet.model_epoch} "
+                 f"note=swap atomic across the mesh (same ticks as the "
+                 f"single engine)"))
     return rows
 
 
@@ -324,23 +355,24 @@ def soak_city(n_cams=130, n_queries=12, t_shift=260, horizon=900, seed=9,
                 drift_rows=drift_rows, name=f"city-{n_cams}")
 
 
-def soak_130(n_queries=12, churn_wave=60, *, device="cuda", runs=None):
-    """The 130-camera soak on one engine under three configurations:
-    ``exhaustive`` (scheme="all", the cost baseline and recall ceiling),
-    ``targeted_fleet`` (rexcam with row-targeted recalibration; one engine,
-    ``shards: 1``) and ``full_single`` (rexcam with full rebuilds), each
-    with the late query wave.  Asserts the reference's gates; emits one
-    record per configuration and a derived gate row.  ``runs`` (a dict)
-    receives each configuration's engine, wall, tick latencies and trace."""
+def soak_130(n_queries=12, shards=8, churn_wave=60, lose_at=120, *,
+             device="cuda", runs=None):
+    """The 130-camera soak under three configurations: ``exhaustive``
+    (scheme="all" on one engine, the cost baseline and recall ceiling),
+    ``targeted_fleet`` (rexcam with row-targeted recalibration on a
+    ``shards``-worker fleet that loses worker w1 at step ``lose_at``) and
+    ``full_single`` (rexcam with full rebuilds on one engine), each with
+    the late query wave.  Asserts the reference's gates, the fleet's one
+    rebalance among them; emits one record per configuration and a derived
+    gate row.  ``runs`` (a dict) receives each configuration's engine,
+    wall, tick latencies and trace."""
     device = resolve_device(device)
     sc = soak_city(n_queries=n_queries)
     vis, net = sc["vis"], sc["net"]
     q_vids, gt_vids = sc["q_vids"], sc["gt_vids"]
     C = net.n_cams
     n_q = len(q_vids)
-    rows = [("soak_130/shards", 0.0,
-             "degraded: the fleet is not ported, targeted_fleet runs "
-             "shards=1 (one engine)")]
+    rows = []
 
     def record(config, eng, wall, lat, recall, **extra):
         p50, p99 = _tick_pcts(lat)
@@ -353,10 +385,11 @@ def soak_130(n_queries=12, churn_wave=60, *, device="cuda", runs=None):
                      p99_tick_ms=round(p99, 3), recall=round(recall, 4),
                      epoch=int(eng.model_epoch), **extra)
 
-    def run(config, policy, recal):
+    def run(config, policy, recal, fleet=None):
         trace = [] if runs is not None else None
         out = drive(sc, policy, device=device, recal=recal,
-                    churn_wave=churn_wave, trace=trace)
+                    churn_wave=churn_wave, trace=trace, shards=fleet,
+                    lose_at=lose_at if fleet else None, lose_worker=1)
         _keep(runs, config, *out, trace)
         return out
 
@@ -369,10 +402,10 @@ def soak_130(n_queries=12, churn_wave=60, *, device="cuda", runs=None):
                  f"note=all-camera baseline, the recall ceiling"))
 
     tg, wall_t, lat_t = run("targeted_fleet", SOAK_POLICY,
-                            SOAK_RECAL_TARGETED)
+                            SOAK_RECAL_TARGETED, fleet=shards)
     r_tg = _serving_recall(tg, vis, q_vids, gt_vids)
     ctl_t = tg.recal
-    record("targeted_fleet", tg, wall_t, lat_t, r_tg, shards=1,
+    record("targeted_fleet", tg, wall_t, lat_t, r_tg, shards=shards,
            swaps=ctl_t.targeted_swaps,
            rows_reprofiled=int(ctl_t.rows_reprofiled),
            profile_wall_s=round(ctl_t.profile_wall, 4))
@@ -394,6 +427,7 @@ def soak_130(n_queries=12, churn_wave=60, *, device="cuda", runs=None):
         f"soak_130: targeted recall {r_tg:.3f} more than 5% below the " \
         f"exhaustive ceiling {r_ex:.3f}"
     assert tg.replay_steps > 0, "soak_130: late wave never replayed"
+    assert tg.rebalances == 1, "soak_130: worker loss never rebalanced"
     assert ctl_t.targeted_swaps >= 1 and ctl_t.full_rebuilds == 0
     assert ctl_f.full_rebuilds >= 1 and ctl_f.targeted_swaps == 0
     assert r_tg >= r_fu - 0.02, \

@@ -20,6 +20,17 @@ in when the drift score trips the trigger (``--drift-threshold``,
 ``--recal-cooldown``, ``--recal-window``):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --recalibrate
+
+``--shards K`` serves through the sharded fleet: K workers on the one
+device, each ranking its own block of query rows, with the fleet-shared
+sharded gallery by default (``--gallery``); ``--transport inproc|fake``
+routes gallery fetches through the fetch plane (``fake`` injects
+``--rtt`` / ``--jitter`` / ``--drop`` per fetch on a virtual clock, so no
+real time passes) and ``--prefetch`` issues the next round's cached
+reads at the end of each round:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --shards 4 \
+      --gallery sharded --transport fake --rtt 0.002 --prefetch
 """
 from __future__ import annotations
 
@@ -58,13 +69,15 @@ def duke_world(n_queries: int = 100, n_entities: int = 2700,
     return World(net, vis, gal, feats, q_vids)
 
 
-def run_stream(eng, world: World, ticks: int, trace: list | None = None):
+def run_stream(eng, world: World, ticks: int, trace: list | None = None,
+               on_step=None):
     """Submit every query at its anchor, then stream ``ticks`` wall steps
     of detections into ``eng`` (stopping early once every query is done).
     A tile-mode engine also gets each detection's tile on its
-    ``eng.tile_grid`` grid.  Returns the host-clock seconds of each tick;
-    each tick ends with the round's outcome on the host, so the clock
-    covers the device work."""
+    ``eng.tile_grid`` grid; ``on_step(eng, step)`` runs before each step's
+    ingest (a fleet may lose a worker there).  Returns the host-clock
+    seconds of each tick; each tick ends with the round's outcome on the
+    host, so the clock covers the device work."""
     vis, gal, feats = world.vis, world.gal, world.feats
     vis_tiles = tile_index(vis.tile_xy, eng.tile_grid) \
         if eng.tile_grid > 0 else None
@@ -73,8 +86,10 @@ def run_stream(eng, world: World, ticks: int, trace: list | None = None):
     for i, q in enumerate(world.q_vids):
         eng.submit_query(i, feats[q], int(vis.cam[q]), int(vis.t_out[q]))
     tick_s = []
-    for t in range(t0, t0 + ticks):
+    for step, t in enumerate(range(t0, t0 + ticks)):
         t_start = time.perf_counter()
+        if on_step is not None:
+            on_step(eng, step)
         if t < vis.horizon:
             frames, tiles = {}, {}
             for c in range(vis.n_cams):
@@ -99,6 +114,14 @@ def main():
     ap.add_argument("--t-thresh", type=float, default=0.02)
     ap.add_argument("--scheme", default="rexcam",
                     choices=["rexcam", "all", "geo", "spatial_only"])
+    ap.add_argument("--shards", type=int, default=None,
+                    help="partition the query axis over this many workers "
+                         "on the device (default: the single engine)")
+    ap.add_argument("--gallery", default="auto",
+                    choices=["auto", "local", "sharded"],
+                    help="embedding plane: auto (local for one engine, "
+                         "fleet-shared sharded store for --shards), local "
+                         "(replicated baseline) or sharded (fleet only)")
     ap.add_argument("--topk", type=int, default=1,
                     help="candidate bands surfaced per query round")
     ap.add_argument("--topk-rerank", action="store_true",
@@ -107,6 +130,26 @@ def main():
                     help="sub-frame spatial admission: T > 0 profiles per "
                          "camera-pair entry-region masks on a T x T grid "
                          "and ranks through the tile-masked kernel")
+    ap.add_argument("--transport", default="none",
+                    choices=["none", "inproc", "fake"],
+                    help="gallery fetch plane (fleet only): none (direct "
+                         "reads), inproc (the same through the Transport "
+                         "contract, counters tick) or fake (FakeRpcTransport "
+                         "with --rtt/--jitter/--drop injected per fetch on a "
+                         "virtual clock, timeout/retry/backoff)")
+    ap.add_argument("--rtt", type=float, default=0.005,
+                    help="injected fetch latency in seconds (--transport "
+                         "fake)")
+    ap.add_argument("--jitter", type=float, default=0.0,
+                    help="uniform extra latency bound in seconds "
+                         "(--transport fake)")
+    ap.add_argument("--drop", type=float, default=0.0,
+                    help="per-attempt drop probability; dropped fetches "
+                         "time out and retry with backoff (--transport fake)")
+    ap.add_argument("--prefetch", action="store_true",
+                    help="double-buffered speculative fetch: issue the next "
+                         "round's predicted gallery reads at the end of "
+                         "each round")
     ap.add_argument("--recalibrate", action="store_true",
                     help="close the §6 drift loop: watch the live rescue "
                          "matrix and hot-swap a re-profiled model when the "
@@ -129,8 +172,19 @@ def main():
     recal = rexcam.RecalibrationPolicy(
         drift_threshold=args.drift_threshold, cooldown=args.recal_cooldown,
         window=args.recal_window) if args.recalibrate else None
+    if args.transport == "fake":
+        clock, sleep = rexcam.manual_clock()
+        transport = rexcam.FakeRpcTransport(
+            default=rexcam.FaultProfile(latency=args.rtt, jitter=args.jitter,
+                                        drop=args.drop),
+            timeout=max(4 * (args.rtt + args.jitter), 1.0), clock=clock,
+            sleep=sleep)
+    else:
+        transport = None if args.transport == "none" else args.transport
     eng = rexcam.serve(model, embed_fn=lambda x: x, policy=policy,
                        geo_adj=world.net.geo_adjacent, topk=args.topk,
+                       shards=args.shards, gallery=args.gallery,
+                       transport=transport, prefetch=args.prefetch,
                        topk_rerank=args.topk_rerank,
                        tile_grid=args.tile_grid, recalibrate=recal,
                        visit_source=rexcam.visits_window_source(world.vis)
@@ -161,6 +215,37 @@ def main():
     rescues = sum(q.rescued for q in eng.queries.values())
     print(f"matches: {matches} (replay rescues: {rescues}, replay misses "
           f"past retention: {eng.replay_misses})")
+    g = eng.gallery_report()
+    print(f"gallery plane [{g['kind']}]: {g['cached']} blocks resident "
+          f"({g['bytes']} bytes), {g['hits']} hits / {g['misses']} misses, "
+          f"{g['evictions']} evictions")
+    if args.transport != "none" or args.prefetch:
+        c = eng.gallery.counters()
+        kind = getattr(getattr(eng.gallery, "transport", None), "kind",
+                       "local")
+        print(f"transport plane [{kind}]: {c['remote_fetches']} remote "
+              f"fetches ({c['prefetch_hits']} served by prefetch, "
+              f"{c['prefetch_wasted']} wasted speculations), "
+              f"{c['retries']} retries, {c['timeouts']} timeouts, "
+              f"{c.get('dead_peers', 0)} dead peers")
+    if args.shards is not None:
+        # per-worker demand is shard-local dedup; owned_frames is each
+        # worker's slice of the fleet-global dedup (sums to the engine
+        # total with the sharded gallery)
+        print(f"fleet: {eng.n_shards} shards (workers on {eng.device}), "
+              f"{eng.rebalances} rebalances, {eng.worker_dispatches} "
+              f"worker rank dispatches")
+        per_worker = g.get("per_worker", {})
+        for row in eng.shard_report():
+            state = "live" if row["alive"] else "lost"
+            gw = per_worker.get(row["worker"])
+            gal = (f" gallery={gw['blocks']} blocks/{gw['bytes']}B "
+                   f"({gw['cameras']} cams)" if gw else "")
+            print(f"  {row['worker']} [{state}]: {row['queries']} queries, "
+                  f"admitted_steps={row['admitted_steps']} "
+                  f"unique_frames={row['unique_frames']} "
+                  f"owned_frames={row['owned_frames']} "
+                  f"query_rounds={row['query_rounds']}{gal}")
     print(f"wall: {wall:.3f}s ({len(tick_s) / max(wall, 1e-9):.1f} ticks/s; "
           f"tick p50 {p50:.3f} ms, p99 {p99:.3f} ms)")
     if args.recalibrate:

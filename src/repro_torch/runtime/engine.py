@@ -31,7 +31,16 @@ per deduplicated pair) and the trace records are the reference's.
 After every tick an attached ``RecalibrationController`` (``self.recal``,
 ``runtime/recal.py``) may hot-swap M through ``swap_model``.
 
-Not ported yet (they raise): ``prefetch`` and ``transport`` (the fleet).
+The device work goes through hooks that ``runtime.fleet.
+ShardedServingEngine`` overrides to run the same step bodies once per
+worker: ``_layout`` (which batch row each query occupies), the
+``_dispatch_*`` calls (admit, admit_tiles, the three rank-and-advance
+bodies, advance), ``_make_gallery``, ``_account_round`` and
+``_on_query_done``.  ``cfg.prefetch`` issues the next round's cached
+gallery reads at the end of each round (``runtime.transport.
+PrefetchPipeline``); the round consumes them first and falls back to the
+blocking read, so the trace cannot change.  ``cfg.transport`` needs the
+fleet's sharded gallery and raises on the single engine.
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ from repro_torch.kernels.reid_topk import NEG_INF
 from repro_torch.runtime.gallery import (GalleryStore, LocalGalleryStore,
                                          assemble_round_gallery, l2_normalize)
 from repro_torch.runtime.stream_store import FrameStore
+from repro_torch.runtime.transport import PrefetchPipeline
 
 # effectively "never": the live engine terminates queries via exit_t /
 # window exhaustion, not a simulation horizon
@@ -67,11 +77,19 @@ class EngineConfig:
     retention: int = 600
     embed_cache: bool = True          # gallery-plane embedding cache (§5.3)
     short_circuit_skips: bool = True  # host fast path for sampled-out rounds
+    # which GalleryStore backs the embedding plane: "auto" (local for the
+    # single engine, the fleet-shared sharded store for the fleet),
+    # "local" (replicated per engine) or "sharded" (fleet only)
+    gallery: str = "auto"
     # top-k candidate bands surfaced per query round in the trace records;
     # the argmax match path is always band 0
     topk: int = 1
-    transport: Any = None             # fleet only: not ported yet
-    prefetch: bool = False            # fleet only: not ported yet
+    # the gallery fetch plane (runtime.transport): None reads blocks
+    # directly; a Transport routes every fetch of an owner-resident block
+    # through it (fleet and sharded gallery only)
+    transport: Any = None
+    # double-buffered speculative fetch of the next round's cached blocks
+    prefetch: bool = False
     # rank the whole round in one segment-ID kernel call; False keeps the
     # per-frame reference path (trace-identical)
     consolidate: bool = True
@@ -267,6 +285,7 @@ class RoundPlan:
 
     qs: list
     ps: PhaseState
+    slots: np.ndarray                       # qs index -> batch row
     mask: np.ndarray                        # (N, C) admission, host copy
     admitted: int                           # per-(query, camera) steps
     cams_by_q: list
@@ -296,10 +315,6 @@ class ServingEngine:
         if cfg.topk < 1:
             raise ValueError(f"topk={cfg.topk} must be >= 1 (band 0 is the "
                              f"argmax match path)")
-        if cfg.prefetch or cfg.transport is not None:
-            raise NotImplementedError(
-                "prefetch= and transport= are not ported yet (ROADMAP.md, "
-                "Queue 1: the fleet, gallery and transport plane)")
         self.device = resolve_device(device)
         self.tile_grid = int(cfg.tile_grid)
         self.model = model.to(self.device)
@@ -315,8 +330,11 @@ class ServingEngine:
         self._geo_adj = torch.as_tensor(
             geo_adj if geo_adj is not None else np.ones((self.C, self.C), bool),
             dtype=torch.bool, device=self.device)
-        self.gallery: GalleryStore = LocalGalleryStore(self.C, cfg.retention)
+        self.gallery = self._make_gallery()
         self.store = FrameStore(self.C, cfg.retention, gallery=self.gallery)
+        # the double buffer over the gallery fetch plane (harmless but
+        # pointless without a transport: the local path delivers at once)
+        self._prefetch = PrefetchPipeline(self.store) if cfg.prefetch else None
         self.queries: dict[int, QueryState] = {}
         self.t = 0
         self.frames_processed = 0    # (cam, frame) batches actually embedded
@@ -408,6 +426,23 @@ class ServingEngine:
         return self.model_epoch
 
     # -- the gallery plane -------------------------------------------------
+    def _make_gallery(self) -> GalleryStore:
+        """Which GalleryStore backs the embedding plane.  The fleet
+        overrides this to put the shared ``ShardedGalleryStore`` in."""
+        if self.cfg.transport is not None:
+            raise ValueError(
+                "transport= requires the sharded fleet gallery "
+                "(serve(..., shards=k)); the single engine's local store "
+                "has no remote owners to fetch from")
+        if self.cfg.gallery in ("auto", "local"):
+            return LocalGalleryStore(self.C, self.cfg.retention)
+        if self.cfg.gallery == "sharded":
+            raise ValueError(
+                "gallery='sharded' requires the sharded fleet "
+                "(serve(..., shards=k)); the single engine is local-only")
+        raise ValueError(f"unknown gallery mode {self.cfg.gallery!r} "
+                         f"(expected 'auto', 'local' or 'sharded')")
+
     def gallery_report(self) -> dict:
         """The embedding plane's accounting, with rescue-failure cost in both
         conventions."""
@@ -423,13 +458,30 @@ class ServingEngine:
             submit_t=self.t)
         self.sightings.append((qid, cam, frame))
 
+    def _on_query_done(self, q: QueryState) -> None:
+        """Fired exactly once per query, on its not-done -> done transition
+        (the device round and the host skip fast path alike).  The fleet
+        keeps its O(1) per-worker live-load counters here."""
+
     # -- batched state marshalling ---------------------------------------
-    def _gather(self, qs: list[QueryState]) -> PhaseState:
-        """Engine QueryStates -> one batched PhaseState on the device, row i
-        for ``qs[i]`` (no padding rows: eager PyTorch has no shapes to
-        hold fixed).  The live frontier is the engine wall clock."""
+    def _layout(self, qs: list[QueryState]) -> tuple[int, np.ndarray]:
+        """(batch rows N, slots): the batch row ``slots[i]`` of ``qs[i]``.
+        The single engine packs the rows in ``qs`` order; the fleet groups
+        them by worker.  No padding rows: eager PyTorch has no shapes to
+        hold fixed."""
+        return len(qs), np.arange(len(qs))
+
+    def _gather(self, qs: list[QueryState]) -> tuple[PhaseState,
+                                                     np.ndarray]:
+        """Engine QueryStates -> (one batched PhaseState on the device,
+        slots), rows placed by ``_layout``: ``slots[i]`` is the batch row of
+        ``qs[i]``.  The live frontier is the engine wall clock."""
+        N, slots = self._layout(qs)
+
         def col(vals, dtype):
-            return torch.from_numpy(np.asarray(vals, dtype)).to(self.device)
+            a = np.empty(N, dtype)
+            a[slots] = vals
+            return torch.from_numpy(a).to(self.device)
 
         return PhaseState(
             f_q=col([q.f_q for q in qs], np.int32),
@@ -438,14 +490,16 @@ class ServingEngine:
             phase=col([q.phase for q in qs], np.int32),
             live_f=col([float(self.t)] * len(qs), np.float32),
             done=col([False] * len(qs), np.bool_),
-        )
+        ), slots
 
-    def _scatter(self, qs: list[QueryState], state: dict,
+    def _scatter(self, qs: list[QueryState], slots: np.ndarray, state: dict,
                  matched: np.ndarray, match_cam: np.ndarray,
                  match_emb: np.ndarray | None):
-        """Write the advanced state (host arrays) back into the queries."""
+        """Write the advanced state (host arrays, batch rows; ``slots[i]``
+        the row of ``qs[i]``) back into the queries."""
         a = self.policy.feat_alpha
-        for j, q in enumerate(qs):
+        for i, q in enumerate(qs):
+            j = slots[i]
             if matched[j]:
                 emb = match_emb[j]
                 q.feat = l2_normalize((1 - a) * q.feat + a * emb)
@@ -460,24 +514,61 @@ class ServingEngine:
             q.f_q, q.c_q = int(state["f_q"][j]), int(state["c_q"][j])
             q.f_curr, q.phase = int(state["f_curr"][j]), int(state["phase"][j])
             q.done = bool(state["done"][j])
+            if q.done:          # qs never holds done queries: a transition
+                self._on_query_done(q)
+
+    # -- device dispatch ---------------------------------------------------
+    # The fleet overrides these to run the same step bodies once per
+    # worker, on the worker's device, over its block of batch rows.
+    def _dispatch_admit(self, ps: PhaseState):
+        return admit(self.model, self.policy, ps, self._geo_adj)
+
+    def _dispatch_admit_tiles(self, ps: PhaseState, tile_q):
+        return admit_tiles(self.model, self.policy, ps, self._geo_adj, tile_q)
+
+    def _dispatch_rank_advance(self, ps: PhaseState, q_feat, mask, gallery,
+                               gal_cam, gal_frame):
+        return rank_advance_round(self.policy, self._windows, ps, q_feat,
+                                  mask, gallery, gal_cam, gal_frame,
+                                  k=self.cfg.topk,
+                                  topk_rerank=self.cfg.topk_rerank)
+
+    def _dispatch_rank_advance_seg(self, ps: PhaseState, q_feat, q_seg,
+                                   mask, gallery, gal_cam, gal_frame,
+                                   gal_seg):
+        return rank_advance_round_seg(self.policy, self._windows, ps, q_feat,
+                                      q_seg, mask, gallery, gal_cam,
+                                      gal_frame, gal_seg, k=self.cfg.topk,
+                                      topk_rerank=self.cfg.topk_rerank)
+
+    def _dispatch_rank_advance_tiles(self, ps: PhaseState, q_feat, q_seg,
+                                     mask_ct, gallery, gal_ct, gal_cam,
+                                     gal_frame, gal_seg):
+        return rank_advance_round_tiles(self.policy, self._windows, ps,
+                                        q_feat, q_seg, mask_ct, gallery,
+                                        gal_ct, gal_cam, gal_frame, gal_seg,
+                                        k=self.cfg.topk, n_cams=self.C,
+                                        topk_rerank=self.cfg.topk_rerank)
+
+    def _dispatch_advance(self, ps: PhaseState):
+        return advance_round(self.policy, self._windows, ps)
 
     def _plan_round(self, qs: list[QueryState]) -> RoundPlan:
         """Gather + admit, then build the round's work queue: the
         deduplicated (cam, frame) demand with per-key want counts, and the
         injective content-frame -> segment relabeling."""
-        ps = self._gather(qs)
+        ps, sl = self._gather(qs)
         mask_ct = None
         if self.tile_grid > 0:
             # the (N, C) camera mask and the (N, C*T*T) tile-refined
             # admission in one pass; tile_q -1 admits every self tile
-            tile_q = torch.tensor([q.tile_q for q in qs], dtype=torch.int32,
-                                  device=self.device)
-            mask, mask_ct = _to_host(*admit_tiles(
-                self.model, self.policy, ps, self._geo_adj, tile_q))
+            tq = np.empty(len(sl), np.int32)
+            tq[sl] = [q.tile_q for q in qs]
+            mask, mask_ct = _to_host(*self._dispatch_admit_tiles(
+                ps, torch.from_numpy(tq).to(self.device)))
         else:
-            (mask,) = _to_host(admit(self.model, self.policy, ps,
-                                     self._geo_adj))
-        cams_by_q = [np.flatnonzero(row) for row in mask]
+            (mask,) = _to_host(self._dispatch_admit(ps))
+        cams_by_q = [np.flatnonzero(mask[sl[i]]) for i in range(len(qs))]
         want_count: dict[tuple[int, int], int] = {}
         for i, q in enumerate(qs):
             for cam in cams_by_q[i]:
@@ -485,12 +576,19 @@ class ServingEngine:
                 want_count[key] = want_count.get(key, 0) + 1
         seg_of_frame = {f: s for s, f in
                         enumerate(sorted({q.f_curr for q in qs}))}
-        q_seg = np.array([seg_of_frame[q.f_curr] for q in qs], np.int32)
-        return RoundPlan(qs=qs, ps=ps, mask=mask,
+        q_seg = np.empty(len(sl), np.int32)
+        q_seg[sl] = [seg_of_frame[q.f_curr] for q in qs]
+        return RoundPlan(qs=qs, ps=ps, slots=sl, mask=mask,
                          admitted=int(mask.sum()), cams_by_q=cams_by_q,
                          work=sorted(want_count), want_count=want_count,
                          seg_of_frame=seg_of_frame, q_seg=q_seg,
                          mask_ct=mask_ct)
+
+    def _account_round(self, plan: RoundPlan) -> None:
+        """Per-round accounting hook over the ``RoundPlan``:
+        ``plan.cams_by_q[i]`` is the camera set query i admitted,
+        ``plan.work`` the round's deduplicated (cam, frame) demand (the
+        fleet adds its per-worker cost here)."""
 
     # -- per-tick ----------------------------------------------------------
     def ingest(self, frames_by_cam: dict[int, Any],
@@ -532,6 +630,11 @@ class ServingEngine:
                  "replay_miss_steps": 0, "content_steps": 0,
                  "replay_steps": 0, "skipped_rounds": 0,
                  "admitted_tiles": 0, "unique_tiles": 0}
+        # drop prefetch handles whose blocks were evicted since they were
+        # issued (ingest ran between ticks): exact waste accounting and a
+        # buffer bounded by the cache size
+        if self._prefetch is not None:
+            self._prefetch.sweep()
         budget = {}
         for q in self.queries.values():
             if q.done:
@@ -607,12 +710,15 @@ class ServingEngine:
                 if not qs:
                     if trace is not None:
                         trace.extend(records[q.qid] for q in all_qs)
+                    if self._prefetch is not None:
+                        self._issue_prefetch(all_qs)
                     return
 
         plan = self._plan_round(qs)
-        ps, mask = plan.ps, plan.mask
+        ps, mask, sl = plan.ps, plan.mask, plan.slots
         stats["admitted_steps"] += plan.admitted
         self.admitted_steps += plan.admitted
+        self._account_round(plan)
         stats["unique_frames"] += len(plan.work)
         self.unique_frames += len(plan.work)
         if self.tile_grid > 0:
@@ -625,7 +731,13 @@ class ServingEngine:
         key_emb: dict[tuple[int, int], np.ndarray] = {}
         for key in plan.work:
             if self.cfg.embed_cache:
-                emb = self.store.get_emb(*key)
+                # a block the previous round prefetched first; any
+                # misspeculation falls back to the blocking read
+                emb = None
+                if self._prefetch is not None:
+                    emb = self._prefetch.consume(*key)
+                if emb is None:
+                    emb = self.store.get_emb(*key)
                 if emb is not None:     # replay re-read: skip re-embedding
                     key_emb[key] = emb
                     batch_keys.append(key)
@@ -681,7 +793,8 @@ class ServingEngine:
         if batch_keys:
             gal, gal_cam, gal_frame = assemble_round_gallery(batch_keys,
                                                              key_emb)
-            q_feat = np.stack([q.feat for q in qs]).astype(np.float32)
+            q_feat = np.empty((N, gal.shape[1]), np.float32)
+            q_feat[sl] = np.stack([q.feat for q in qs])
 
             def dev_t(a):
                 return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -693,25 +806,21 @@ class ServingEngine:
                                              gal.shape[0])
                 gal_seg = plan.gallery_segments(batch_keys, key_emb,
                                                 gal.shape[0])
-                out = rank_advance_round_tiles(
-                    self.policy, self._windows, ps, dev_t(q_feat),
-                    dev_t(plan.q_seg), dev_t(plan.mask_ct), dev_t(gal),
-                    dev_t(gal_ct), dev_t(gal_cam), dev_t(gal_frame),
-                    dev_t(gal_seg), k=K, n_cams=self.C,
-                    topk_rerank=self.cfg.topk_rerank)
+                out = self._dispatch_rank_advance_tiles(
+                    ps, dev_t(q_feat), dev_t(plan.q_seg),
+                    dev_t(plan.mask_ct), dev_t(gal), dev_t(gal_ct),
+                    dev_t(gal_cam), dev_t(gal_frame), dev_t(gal_seg))
             elif self.cfg.consolidate:
                 gal_seg = plan.gallery_segments(batch_keys, key_emb,
                                                 gal.shape[0])
-                out = rank_advance_round_seg(
-                    self.policy, self._windows, ps, dev_t(q_feat),
-                    dev_t(plan.q_seg), dev_t(mask), dev_t(gal),
-                    dev_t(gal_cam), dev_t(gal_frame), dev_t(gal_seg),
-                    k=K, topk_rerank=self.cfg.topk_rerank)
+                out = self._dispatch_rank_advance_seg(
+                    ps, dev_t(q_feat), dev_t(plan.q_seg), dev_t(mask),
+                    dev_t(gal), dev_t(gal_cam), dev_t(gal_frame),
+                    dev_t(gal_seg))
             else:
-                out = rank_advance_round(
-                    self.policy, self._windows, ps, dev_t(q_feat),
-                    dev_t(mask), dev_t(gal), dev_t(gal_cam), dev_t(gal_frame),
-                    k=K, topk_rerank=self.cfg.topk_rerank)
+                out = self._dispatch_rank_advance(
+                    ps, dev_t(q_feat), dev_t(mask), dev_t(gal),
+                    dev_t(gal_cam), dev_t(gal_frame))
             ps_next = out[0]
             (f_q, c_q, f_curr, phase, done, matched, match_cam, match_emb,
              topk_val, topk_idx, topk_cam, topk_frame) = _to_host(
@@ -720,15 +829,16 @@ class ServingEngine:
             stats["matches"] += int(matched.sum())
             if self.tile_grid > 0:
                 self._follow_tiles(qs, matched, match_cam, topk_idx,
-                                   topk_cam, gal_ct)
+                                   topk_cam, gal_ct, sl)
         else:
-            ps_next = advance_round(self.policy, self._windows, ps)
+            ps_next = self._dispatch_advance(ps)
             f_q, c_q, f_curr, phase, done = _to_host(
                 ps_next.f_q, ps_next.c_q, ps_next.f_curr, ps_next.phase,
                 ps_next.done)
 
         if trace is not None:
-            for j, q in enumerate(qs):
+            for i, q in enumerate(qs):
+                j = sl[i]
                 records[q.qid] = dict(
                     qid=q.qid, f_curr=q.f_curr, phase=q.phase,
                     epoch=self.model_epoch,
@@ -740,9 +850,36 @@ class ServingEngine:
                                 int(topk_frame[j, b])) for b in range(K)))
             trace.extend(records[q.qid] for q in all_qs)
 
-        self._scatter(qs, dict(f_q=f_q, c_q=c_q, f_curr=f_curr, phase=phase,
-                               done=done),
+        self._scatter(qs, sl, dict(f_q=f_q, c_q=c_q, f_curr=f_curr,
+                                   phase=phase, done=done),
                       matched, match_cam, match_emb)
+
+        # double buffer: with the outcomes scattered, the cohort's next
+        # cursors are known — speculate the next round's admission and
+        # start its cached fetches now
+        if self._prefetch is not None:
+            self._issue_prefetch(all_qs)
+
+    def _issue_prefetch(self, qs: list[QueryState]) -> None:
+        """Speculatively issue async fetches for the cohort's next round.
+
+        The next admission is re-evaluated on the real advanced state; the
+        only guesses are the live frontier (the next tick moves it) and
+        what may change between rounds (a swap, an eviction).  A wrong
+        guess costs accuracy, never correctness: ``PrefetchPipeline.
+        consume`` checks at use time.  Only replay cursors (behind the
+        frontier) can read a cache-resident block, so only they are
+        speculated."""
+        live = [q for q in qs if not q.done and q.f_curr < self.t]
+        if not live:
+            return
+        ps, sl = self._gather(live)
+        (mask,) = _to_host(self._dispatch_admit(ps))
+        keys: set[tuple[int, int]] = set()
+        for i, q in enumerate(live):
+            for cam in np.flatnonzero(mask[sl[i]]):
+                keys.add((int(cam), q.f_curr))
+        self._prefetch.issue(keys)
 
     def _account_tiles(self, plan: RoundPlan, stats: dict) -> None:
         """Both cost conventions, tile-refined: ``admitted_tiles`` counts
@@ -754,7 +891,7 @@ class ServingEngine:
         self.admitted_tiles += adm_tiles
         tiles_by_key: dict[tuple[int, int], np.ndarray] = {}
         for i, q in enumerate(plan.qs):
-            row = plan.mask_ct[i]
+            row = plan.mask_ct[plan.slots[i]]
             for cam in plan.cams_by_q[i]:
                 key = (int(cam), q.f_curr)
                 seg = row[key[0] * TT:(key[0] + 1) * TT]
@@ -789,11 +926,13 @@ class ServingEngine:
         return gal_ct
 
     def _follow_tiles(self, qs, matched, match_cam, topk_idx, topk_cam,
-                      gal_ct) -> None:
+                      gal_ct, slots) -> None:
         """A confirmed match pins the query to the matched row's tile; a
-        re-ranked match takes the first band of the winning camera."""
+        re-ranked match takes the first band of the winning camera.
+        ``slots[i]`` is the batch row of ``qs[i]``."""
         TT = self.tile_grid * self.tile_grid
-        for j, q in enumerate(qs):
+        for i, q in enumerate(qs):
+            j = slots[i]
             if not matched[j]:
                 continue
             mi = int(topk_idx[j, 0])
@@ -842,3 +981,5 @@ class ServingEngine:
                 phase_new = q.phase + 1 if esc else q.phase
                 f_new = q.f_q + 1 if esc else f_next
             q.f_curr, q.phase, q.done = f_new, phase_new, bool(done)
+            if q.done:
+                self._on_query_done(q)

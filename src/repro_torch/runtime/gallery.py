@@ -1,14 +1,24 @@
 """The gallery/embedding plane: the (camera, frame) -> embedding-block
-cache the serving engine consults before calling ``embed_fn``.
+cache the serving engines consult before calling ``embed_fn``.
 
-``LocalGalleryStore`` keeps host-resident per-camera dicts.  The base
-class's retention bookkeeping mirrors ``FrameStore``: a per-camera
-monotonic key deque gives O(1) amortized retention-horizon eviction on
-``put``; an out-of-order ``put`` stays correct (``get`` re-checks the
-horizon) but its eviction may be deferred until the deque head catches up
-to it.  ``FrameStore`` calls ``drop`` for every frame key it evicts, so
-embeddings never outlive their frames.  The fleet-wide sharded store is
-not ported yet (ROADMAP.md, Queue 1).
+Two implementations of one ``GalleryStore`` contract:
+
+* ``LocalGalleryStore`` — host-resident per-camera dicts: the single
+  engine's default and the fleet's replicated baseline.
+* ``ShardedGalleryStore`` — one gallery for the whole fleet: each camera
+  hashes to an owner worker and that camera's blocks live as torch tensors
+  on the owner's device, rows padded to a power of two.  A cache hit reads
+  the block back to the host (one device-to-host copy a hit on the card),
+  because the round gallery is assembled on the host
+  (``assemble_round_gallery``).  With a transport (``runtime.transport``)
+  every such read goes through the fetch plane addressed to the owner.
+
+The base class's retention bookkeeping mirrors ``FrameStore``: a
+per-camera monotonic key deque gives O(1) amortized retention-horizon
+eviction on ``put``; an out-of-order ``put`` stays correct (``get``
+re-checks the horizon) but its eviction may be deferred until the deque
+head catches up to it.  ``FrameStore`` calls ``drop`` for every frame key
+it evicts, so embeddings never outlive their frames.
 """
 from __future__ import annotations
 
@@ -16,8 +26,9 @@ import collections
 from typing import Any
 
 import numpy as np
+import torch
 
-from repro_torch.runtime.transport import LocalFetchHandle
+from repro_torch.runtime.transport import LocalFetchHandle, PeerDeadError
 
 
 def pow2(n: int) -> int:
@@ -36,6 +47,12 @@ def l2_normalize(a: np.ndarray, eps: float = 1e-9) -> np.ndarray:
     if a.ndim == 1:
         return a / max(float(np.linalg.norm(a)), eps)
     return a / np.maximum(np.linalg.norm(a, axis=-1, keepdims=True), eps)
+
+
+def _cam_hash(cam: int) -> int:
+    """Stable camera hash (Knuth multiplicative) for owner-shard choice —
+    spreads consecutive camera ids instead of striping them."""
+    return ((cam + 1) * 2654435761) & 0xFFFFFFFF
 
 
 class GalleryStore:
@@ -206,6 +223,154 @@ class LocalGalleryStore(GalleryStore):
     def memory_bytes(self):
         return sum(getattr(e, "nbytes", 0)
                    for d in self._emb for e in d.values())
+
+
+class ShardedGalleryStore(GalleryStore):
+    """One fleet-wide gallery: camera-hash owner shards over the workers.
+
+    Every camera maps to one owner worker (``_cam_hash(cam) % live``) and
+    that camera's blocks are torch tensors on the owner's device, rows
+    padded to a power of two.  ``rehome`` migrates a lost worker's cameras
+    (and their resident blocks) onto the survivors; surviving owners keep
+    their cameras, so only the lost shard moves.
+
+    Blocks are the engines' (n, D) float32 numpy embedding batches; values
+    round-trip the device bit for bit, which keeps the sharded-gallery
+    fleet trace-identical to the single engine.
+
+    With a ``transport`` every fetch of an owner-resident block goes
+    through the fetch plane addressed to the block's owner.  A
+    ``PeerDeadError`` during a blocking fetch re-resolves ownership: if the
+    dead-peer signal re-homed the camera (the fleet's ``on_dead`` wiring),
+    the fetch retries against the new owner; otherwise it surfaces.
+    """
+
+    kind = "sharded"
+
+    def __init__(self, n_cams: int, retention: int, workers: list[str],
+                 device_of: dict[str, Any], transport: Any = None):
+        super().__init__(n_cams, retention)
+        if not workers:
+            raise ValueError("sharded gallery needs at least one worker")
+        missing = [w for w in workers if w not in device_of]
+        if missing:
+            raise ValueError(f"workers {missing} have no device mapping")
+        self._device_of = dict(device_of)
+        self._owner = {cam: workers[_cam_hash(cam) % len(workers)]
+                       for cam in range(n_cams)}
+        # (cam, t) -> (padded block on the owner's device, valid row count)
+        self._blocks: dict[tuple[int, int], tuple[torch.Tensor, int]] = {}
+        self.rehomed_blocks = 0
+        self.transport = transport
+
+    def owner_of(self, cam: int) -> str:
+        return self._owner[cam]
+
+    def _store(self, cam, t, emb):
+        emb = np.asarray(emb)
+        n = emb.shape[0]
+        rows = pow2(n)
+        if rows > n:
+            emb = np.concatenate(
+                [emb, np.zeros((rows - n,) + emb.shape[1:], emb.dtype)])
+        self._blocks[(cam, t)] = (
+            torch.tensor(emb, device=self._device_of[self._owner[cam]]), n)
+
+    @staticmethod
+    def _read_block(blk):
+        """The block's valid rows as a fresh host array (a device-to-host
+        copy on the card)."""
+        arr, n = blk
+        return arr[:n].to("cpu", copy=True).numpy()
+
+    def _fetch(self, cam, t):
+        while True:
+            blk = self._blocks.get((cam, t))
+            if blk is None:
+                return None
+            if self.transport is None:
+                return self._read_block(blk)
+            owner = self._owner[cam]
+            try:
+                return self.transport.fetch(owner, (cam, t),
+                                            lambda b=blk: self._read_block(b))
+            except PeerDeadError:
+                if self._owner[cam] == owner:
+                    raise          # nobody re-homed the camera: surface it
+                # the dead-peer signal re-homed it mid-fetch — retry against
+                # the new owner (the block moved with the camera)
+
+    def _fetch_async(self, cam, t):
+        if self.transport is None:
+            return super()._fetch_async(cam, t)
+        blk = self._blocks[(cam, t)]
+        return self.transport.fetch_async(self._owner[cam], (cam, t),
+                                          lambda: self._read_block(blk))
+
+    def wait_fetch(self, handle):
+        if isinstance(handle, LocalFetchHandle):
+            return super().wait_fetch(handle)
+        return self.transport.wait(handle)
+
+    def _drop(self, cam, t):
+        return self._blocks.pop((cam, t), None) is not None
+
+    def _has(self, cam, t):
+        return (cam, t) in self._blocks
+
+    def rehome(self, lost: str, survivors: list[str]) -> int:
+        """Re-home the lost worker's cameras onto the survivors (camera-hash
+        over the surviving list) and migrate their resident blocks to the
+        new owners' devices (no copy where the device is the same).
+        Returns the number of blocks moved."""
+        if not survivors:
+            raise RuntimeError("cannot re-home the gallery: no survivors")
+        remap = {cam: survivors[_cam_hash(cam) % len(survivors)]
+                 for cam, w in self._owner.items() if w == lost}
+        self._owner.update(remap)
+        moved = 0
+        for key, (arr, n) in list(self._blocks.items()):
+            if key[0] in remap:
+                self._blocks[key] = (
+                    arr.to(self._device_of[remap[key[0]]]), n)
+                moved += 1
+        self.rehomed_blocks += moved
+        return moved
+
+    def cached_embeddings(self):
+        return len(self._blocks)
+
+    def memory_bytes(self):
+        return sum(arr.numel() * arr.element_size()
+                   for arr, _ in self._blocks.values())
+
+    def counters(self):
+        c = dict(super().counters(), rehomed_blocks=self.rehomed_blocks)
+        if self.transport is not None:
+            c.update(self.transport.counters())
+        return c
+
+    def per_worker_report(self) -> dict[str, dict]:
+        """Owner-resident cache memory, per worker: cameras owned, resident
+        blocks/rows/bytes, plus the fetch plane's per-peer traffic when a
+        transport is attached.  Lost workers report zeros after ``rehome``."""
+        rep = {w: dict(cameras=0, blocks=0, rows=0, bytes=0,
+                       remote_fetches=0, retries=0, timeouts=0)
+               for w in self._device_of}
+        for w in self._owner.values():
+            rep[w]["cameras"] += 1
+        for (cam, _t), (arr, n) in self._blocks.items():
+            r = rep[self._owner[cam]]
+            r["blocks"] += 1
+            r["rows"] += n
+            r["bytes"] += arr.numel() * arr.element_size()
+        if self.transport is not None:
+            for w, st in self.transport.peer_counters().items():
+                if w in rep:
+                    rep[w]["remote_fetches"] = st["fetches"]
+                    rep[w]["retries"] = st["retries"]
+                    rep[w]["timeouts"] = st["timeouts"]
+        return rep
 
 
 def assemble_round_gallery(batch_keys: list[tuple[int, int]],

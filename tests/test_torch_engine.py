@@ -150,12 +150,42 @@ def test_swap_model_bumps_epoch_between_rounds():
     assert eng.model.epoch == 1 and eng.model_swaps == [(0, 1)]
 
 
-@pytest.mark.parametrize("kw", [dict(shards=2), dict(prefetch=True),
-                                dict(devices=["cuda:0"]),
-                                dict(transport="inproc")])
-def test_unported_serve_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        api.serve(_port_model(_world(0)), lambda x: x, device="cpu", **kw)
+@pytest.mark.parametrize("kw,kind,n", [
+    (dict(shards=2), "fleet", 2),
+    (dict(prefetch=True), "single", 1),
+    (dict(devices=["cpu", "cpu"]), "fleet", 2),
+    (dict(transport="inproc"), "raises", 0),
+    (dict(shards=3, transport="inproc", prefetch=True), "fleet", 3),
+    (dict(gallery="sharded"), "raises", 0),
+], ids=["shards", "prefetch", "devices", "transport-alone", "fleet-transport",
+        "sharded-alone"])
+def test_unported_serve_options_raise(kw, kind, n):
+    """The fleet keywords behave as the reference's: ``shards`` and
+    ``devices`` build a ``ShardedServingEngine`` (``shards`` workers on the
+    engine's device, or one a listed device), ``prefetch`` alone gives the
+    single engine a pipeline, and ``transport`` or ``gallery='sharded'``
+    without a fleet raise the reference's ``ValueError``."""
+    from repro import api as japi
+    from repro_torch.runtime.fleet import ShardedServingEngine
+    from repro_torch.runtime.transport import PrefetchPipeline
+
+    world = _world(0)
+    if kind == "raises":
+        with pytest.raises(ValueError) as port_err:
+            api.serve(_port_model(world), lambda x: x, device="cpu", **kw)
+        with pytest.raises(ValueError) as ref_err:
+            japi.serve(world["model"], lambda x: x, **kw)
+        assert str(port_err.value) == str(ref_err.value)
+        return
+    eng = api.serve(_port_model(world), lambda x: x, device="cpu", **kw)
+    assert isinstance(eng, ShardedServingEngine) == (kind == "fleet")
+    if kind == "fleet":
+        assert eng.n_shards == n and eng.gallery.kind == "sharded"
+        assert all(d == torch.device("cpu") for d in eng._device_of.values())
+    assert isinstance(eng._prefetch, PrefetchPipeline) == \
+        bool(kw.get("prefetch"))
+    if "transport" in kw:
+        assert eng.gallery.transport.kind == "inproc"
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
@@ -316,7 +346,8 @@ def test_follow_tile_takes_the_matched_band(rerank):
                         np.int32)
     gal_ct = np.array([5 * 16 + 3, 2 * 16 + 9, 2 * 16 + 1, 5 * 16 + 15,
                        5 * 16 + 2, 2 * 16, -1], np.int32)
-    eng._follow_tiles(qs, matched, match_cam, topk_idx, topk_cam, gal_ct)
+    eng._follow_tiles(qs, matched, match_cam, topk_idx, topk_cam, gal_ct,
+                      np.arange(4))
     if rerank:
         # query 0: camera 2 won, first at band 1 (row 1, tile 9); query 3:
         # camera 1 won at band 1, row 6, which has no cell

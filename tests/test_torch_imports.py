@@ -32,7 +32,8 @@ def test_every_port_module_imports_without_jax_or_repro():
                  "benchmarks.kernels_bench", "core.tracker", "core.detect",
                  "examples.quickstart", "examples.identity_detection",
                  "runtime.recal", "benchmarks.drift",
-                 "benchmarks.scenarios"):
+                 "benchmarks.scenarios", "runtime.fleet", "runtime.cluster",
+                 "runtime.transport", "runtime.gallery"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
