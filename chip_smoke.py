@@ -100,10 +100,11 @@ Phases, one line or block each:
      quickstart world through ``repro_torch.examples.quickstart.main``
      (1,200 entities, 2,400 steps, profiled to 1,600, K = 24, 25 queries,
      ``all`` and S5-T2), whose printed lines must equal a CPU rerun's;
-     (b) fig11's duke world (2,700 entities, 5,100 steps, profiled to
-     3,000, K = 24, 100 queries) under ``all``, ``geo`` and S5-T2, and
-     ``trace_queries`` over the first 600 steps of S5-T2; (c) fig12's
-     130-camera porto world (history 6,000 x 7,200, seed 11; live
+     (b) fig11's duke world (``benchmarks.scenarios.duke()``: 2,700
+     entities, 5,100 steps, profiled to 3,000, K = 24, 100 queries) under
+     ``all``, ``geo`` and S5-T2, and ``trace_queries`` over the first 600
+     steps of S5-T2; (c) fig12's 130-camera porto world
+     (``scenarios.porto(130)``: history 6,000 x 7,200, seed 11; live
      2,000 x 3,600, seed 2; K = 16; 400 feature clusters; 100 queries)
      under S5-T2 (porto's ``all`` run is left out to keep the script
      inside its time limit: the ``all`` scheme is held on the quickstart
@@ -116,10 +117,14 @@ Phases, one line or block each:
      delay and rescues; 200 steps of the duke S5-T2 trace run again under
      ``torch.profiler`` give the device's busy share and its operations a
      step;
- 12. identity detection (``core.detect.identity_detection``) on the card:
-     fig17's setup on the duke world (40 lost identities from t = 3,200,
-     seed 1), the baseline and theta 0.95, 0.85 and 0.75; every summary
-     must equal the CPU rerun's; each run's wall seconds are printed;
+ 12. identity detection on the card through the ported table,
+     ``repro_torch.benchmarks.tables.fig17_identity_detection`` (the duke
+     world of phase 11, 40 lost identities from t = 3,200, seed 1): the
+     baseline and theta 0.95, 0.85 and 0.75; every row's count fields
+     (cost, recall, precision, savings, rounds) and every run's whole
+     summary (cost, recall, precision, found_rate, rounds, at full
+     precision) must equal the CPU rerun's; each row's wall a query is
+     printed;
  13. recalibration (the §6 drift loop) on the card, at the reference's own
      sizes (``repro_torch.benchmarks.scenarios``, ``.drift``): (a)
      ``drift_sweep``'s re-permuted duke world (8 cameras, history
@@ -155,12 +160,13 @@ Phases, one line or block each:
      ``FakeRpcTransport`` on a virtual clock (latency 2 ms, jitter 1 ms;
      w3 drops every attempt, so its first fetch exhausts the retry
      budget, re-homes the gallery mid-round and the fleet scales down at
-     the end of that tick) with prefetch; each to the horizon.  Each
-     trace must equal phase 4's (phase 6's for (b)) card trace record for
-     record — masks, indices, counters and epochs exact, scores within
-     1e-5, with the count of scores that differ at all printed — and the
-     cost counters and ``rescue_pairs`` the single engine's; the
-     per-worker rows must tile the totals,
+     the end of that tick) with prefetch; (b) and (c) serve the first
+     2,000 ticks.  Each trace must equal phase 4's (phase 6's for (b))
+     card trace over the same ticks record for record — masks, indices,
+     counters and epochs exact, scores within 1e-5, with the count of
+     scores that differ at all printed — and the cost counters and
+     ``rescue_pairs`` the single engine's at the same tick (phases 4 and
+     6 keep them at tick 2,000); the per-worker rows must tile the totals,
      the lost worker must have served rounds, each kernel's launches must
      equal the fleet's ``worker_dispatches`` (the other kernel's 0) and
      every per-worker round shape is held to the plain version; (c) must
@@ -168,13 +174,44 @@ Phases, one line or block each:
      (a) under ``torch.profiler`` print the busy share, the device
      operations and the device-to-host copies a tick beside phase 4's
      (phases 4, 6 and 13 print the same two counts).  Each run prints
-     ticks/s and tick p50 / p99.
+     ticks/s and tick p50 / p99;
+ 15. the benchmark suite's sweeps and tables on the card, called as
+     functions (not through the suite's catching command line) at their
+     own sizes: the serving sweeps of ``repro_torch.benchmarks.scenarios``
+     on the duke world of ``scenarios.duke(60)`` (8 cameras, 64-d features, 16 queries,
+     180-600 ticks): ``serving_sweep`` (four schemes, three replay
+     modes), ``tile_sweep`` (camera, all tiles admitted, learned masks;
+     >= 2x fewer tiles at recall no lower), ``serving_shard_sweep`` (1, 2,
+     4 and 8 workers), ``gallery_sweep`` (local and sharded, 4 workers),
+     ``transport_sweep`` (4 workers behind a real-clock
+     ``FakeRpcTransport`` whose RTT is the measured p50 tick: blocking at
+     1x, 4x and 8x, prefetched at 1x, under the three gates, the
+     prefetch gate on medians of three drives) and
+     ``query_churn_sweep`` (N = 8, 64 and 256: the consolidated 8-worker
+     fleet trace-identical to the unconsolidated engine, which ranks
+     through ``reid_topk_masked``; sublinear in N); then ``sec3_potential``
+     and ``fig10_anoncampus`` (``repro_torch.benchmarks.tables``).  Every
+     CSV row and ``BENCH`` record must equal the CPU rerun's with the
+     clock readings taken out (``scenarios.strip_clock_row`` /
+     ``strip_clock_records``).  Each kernel's count is reset before and
+     read after each entry, and every drive of a sweep must launch as many
+     times as it ranked non-empty (worker) rounds, a fleet's also its
+     ``worker_dispatches``, on one kernel (the tile kernel for tile runs);
+     an unconsolidated drive only through ``reid_topk_masked``; the
+     tables none; every round shape is held to the plain version.  Each
+     entry prints its seconds and its largest run's ticks/s.
+     ``policy_sweep``, ``fig11``-``fig17`` and ``sec6_drift`` run on the
+     card through phases 11-13's tracker, detection and drift runs on the
+     same worlds; ``scripts/torch_bench_counts.py`` holds their counts to
+     the JAX reference on the CPU.
 
-The CPU reruns of phases 11 and 13 run in two worker processes of one
-thread each (``cpu_job``) while the card runs go on: the quickstart's and
-phase 13's start with the build, the duke and porto worlds' as phase 11
-builds them.  Phases 4, 6 and 12 rerun in line; phase 11's host-clock
-rates are taken with the workers busy beside them.
+The CPU reruns of phases 11, 12, 13 and 15 run in three worker processes
+of one thread each (``cpu_job``) while the card runs go on: the
+quickstart's, phase 12's, phase 13's and phase 15's start with the build,
+the duke and porto worlds' as phase 11 builds them.  Phases 4 and 6 rerun
+in line; phase 11's host-clock rates are taken with the workers busy
+beside them.  On the host the sweeps' wall gates give their ratios
+unasserted (``suite_rerun``): they judge the card's walls.
 
 Times are device times per call: CUDA-graph replays of back-to-back calls,
 timed with CUDA events, median over replays
@@ -284,17 +321,19 @@ MODEL_SHAPES = [
 TILE = 64                   # the split kernels' (query, gallery) tile,
                             # reid_topk.SPLIT_QB = SPLIT_GB
 HOLD_ROWS = 8               # decode rows the plain version holds at once
-#: phase 11's worlds: duke (entities, steps, profiled steps), porto
-#: (history entities x steps, live entities x steps), queries each, and the
-#: steps of the duke trace; phase 12's queries and search start
-TRACK_DUKE = (2700, 5100, 3000)
-TRACK_PORTO = ((6000, 7200), (2000, 3600))
-TRACK_QUERIES = 100
+#: steps of phase 11's duke trace
 TRACE_STEPS = 600
-DETECT_QUERIES, DETECT_START = 40, 3200
 #: phase 14's fleets: workers of the camera and tile fleets, the tick w1
-#: is lost at, workers of the transport fleet
+#: is lost at, workers of the transport fleet, and the ticks the tile and
+#: transport fleets serve (the camera fleet serves to the horizon)
 FLEET_SHARDS, FLEET_LOSE_AT, TRANSPORT_SHARDS = 4, 1000, 8
+FLEET_CUT_TICKS = 2000
+#: phase 15's entries on the card, each beside a CPU rerun: the serving
+#: sweeps (``repro_torch.benchmarks.scenarios``) and two tables
+#: (``repro_torch.benchmarks.tables``); fig17's rerun serves phase 12
+SUITE_SWEEPS = ("serving_sweep", "tile_sweep", "serving_shard_sweep",
+                 "gallery_sweep", "transport_sweep", "query_churn_sweep")
+SUITE_TABLES = ("sec3_potential", "fig10_anoncampus")
 FLEET_COUNTERS = ("admitted_steps", "unique_frames", "content_steps",
                   "replay_steps", "model_epoch", "admitted_tiles",
                   "unique_tiles")
@@ -305,8 +344,9 @@ TRACK_FIELDS = ("cost", "n_match", "n_correct", "visit_hits", "gt_count",
 ENGINE_FIELDS = ("admitted_steps", "unique_frames", "content_steps",
                  "replay_steps", "model_epoch", "model_swaps",
                  "rescue_pairs", "admitted_tiles", "unique_tiles")
-#: worker processes for the CPU reruns of phases 11 and 13 (``cpu_job``)
-CPU_WORKERS = 2
+#: worker processes for the CPU reruns of phases 11, 12, 13 and 15
+#: (``cpu_job``)
+CPU_WORKERS = 3
 CPU_POOL = None
 RERUN_WAIT = 600            # seconds a phase waits for a rerun's result
 
@@ -422,6 +462,26 @@ def quickstart_rerun():
     finally:
         api.track = real_track
     return out.getvalue().splitlines(), results
+
+
+def suite_rerun(name: str):
+    """The CPU rerun of the benchmark entry ``name``
+    (``repro_torch.benchmarks.run.ALL``): its rows and records.  The
+    sweeps' wall gates (``transport_gates``, ``sublinear_gate``) judge the
+    card run's walls; here, on a one-thread host worker, the sublinear gate
+    gives its ratios unasserted and the transport gates are not applied.
+    Every count assert stays."""
+    from repro_torch.benchmarks import run, scenarios
+
+    gates = scenarios.transport_gates, scenarios.sublinear_gate
+    scenarios.transport_gates = lambda *a, **kw: None
+    scenarios.sublinear_gate = scenarios.sublinear_ratios
+    try:
+        scenarios.pop_bench_records(name)
+        rows = run.ALL[name](device="cpu")
+        return rows, scenarios.pop_bench_records(name)
+    finally:
+        scenarios.transport_gates, scenarios.sublinear_gate = gates
 
 
 # ---------------------------------------------------------------------------
@@ -782,12 +842,8 @@ def phase_tracker(np, qs_rerun, device=DEVICE):
     import io
 
     from repro_torch import api
+    from repro_torch.benchmarks import scenarios
     from repro_torch.core import tracker
-    from repro_torch.core.features import FeatureParams, make_features
-    from repro_torch.core.profiler import build_model
-    from repro_torch.core.simulate import (build_gallery, duke_like_network,
-                                           porto_like_network,
-                                           simulate_network)
     from repro_torch.examples import quickstart as qs
 
     t_phase = time.perf_counter()
@@ -879,18 +935,14 @@ def phase_tracker(np, qs_rerun, device=DEVICE):
 
     s5t2 = api.SearchPolicy(scheme="rexcam", s_thresh=.05, t_thresh=.02)
 
-    # (b) fig11's duke world
+    # (b) fig11's duke world (``scenarios.duke``, the tables' world)
     t0 = time.perf_counter()
-    n_ent, horizon, t_prof = TRACK_DUKE
-    n_queries, trace_steps = TRACK_QUERIES, TRACE_STEPS
-    net = duke_like_network()
-    vis = simulate_network(net, n_ent, horizon, seed=0)
-    gal, _ = build_gallery(vis, 24)
-    feats, _ = make_features(vis, n_ent, FeatureParams())
-    q, gt = api.make_queries(vis, n_queries, seed=1)
-    model = api.profile(vis, time_limit=t_prof, device=device)
+    trace_steps = TRACE_STEPS
+    sc = scenarios.duke()
+    net, vis, gal, feats = sc["net"], sc["vis"], sc["gal"], sc["feats"]
+    q, gt, model = sc["q_vids"], sc["gt_vids"], sc["model"].to(device)
     say(f"[11 track] duke world: {net.n_cams} cameras, {len(vis)} visits, "
-        f"horizon {horizon}, {len(q)} queries; built in "
+        f"horizon {vis.horizon}, {len(q)} queries; built in "
         f"{time.perf_counter() - t0:.1f} s")
     trace_rerun = cpu_job(tracker.trace_queries, model.to("cpu"), vis, gal,
                           feats, q, gt, s5t2, n_steps=trace_steps,
@@ -928,64 +980,62 @@ def phase_tracker(np, qs_rerun, device=DEVICE):
         model, vis, gal, feats, q, gt, s5t2, n_steps=200, device=device),
         "[11 track] duke S5-T2", 200)
 
-    # (c) fig12's 130-camera porto world
+    # (c) fig12's 130-camera porto world (``scenarios.porto``)
     t0 = time.perf_counter()
-    (h_ent, h_len), (l_ent, l_len) = TRACK_PORTO
-    net = porto_like_network(130)
-    hist = simulate_network(net, h_ent, h_len, seed=11)
-    model = build_model(hist.ent, hist.cam, hist.t_in, hist.t_out,
-                        net.n_cams, device=device)
-    vis = simulate_network(net, l_ent, l_len, seed=2)
-    gal, _ = build_gallery(vis, 16)
-    feats, _ = make_features(vis, l_ent, FeatureParams(n_clusters=400,
-                                                       seed=2))
-    q, gt = api.make_queries(vis, n_queries, seed=3)
+    sc = scenarios.porto(130)
+    net, vis, gal, feats = sc["net"], sc["vis"], sc["gal"], sc["feats"]
+    q, gt, model = sc["q_vids"], sc["gt_vids"], sc["model"].to(device)
     say(f"[11 track] porto world: {net.n_cams} cameras, {len(vis)} visits, "
-        f"horizon {l_len}, {len(q)} queries; built in "
+        f"horizon {vis.horizon}, {len(q)} queries; built in "
         f"{time.perf_counter() - t0:.1f} s")
     run_world("porto", model, vis, gal, feats, q, gt,
               [("S5-T2", s5t2, None)])
     say(f"[11 track] phase seconds {time.perf_counter() - t_phase:.1f}")
 
 
-def phase_detection(np, device=DEVICE):
-    """Phase 12 (see the module docstring)."""
-    from repro_torch import api
-    from repro_torch.core.detect import (DetectorParams, identity_detection,
-                                         make_detection_queries)
-    from repro_torch.core.features import FeatureParams, make_features
-    from repro_torch.core.simulate import duke_like_network, simulate_network
+def detection_rerun():
+    """Phase 12's CPU rerun: fig17's rows and its runs' full summaries."""
+    from repro_torch.benchmarks import tables
+
+    summaries = []
+    rows = tables.fig17_identity_detection(device="cpu", summaries=summaries)
+    return rows, summaries
+
+
+def phase_detection(rerun, device=DEVICE):
+    """Phase 12 (see the module docstring): ``tables.fig17_identity_detection``
+    on ``device`` against its CPU rerun (``rerun``, a ``detection_rerun``
+    handle): the rows, and each run's whole summary (cost, recall,
+    precision, found_rate, rounds) exactly."""
+    from repro_torch.benchmarks import tables
 
     t_phase = time.perf_counter()
-    n_ent, horizon, t_prof = TRACK_DUKE
-    n_queries, t_start = DETECT_QUERIES, DETECT_START
-    vis = simulate_network(duke_like_network(), n_ent, horizon, seed=0)
-    feats, _ = make_features(vis, n_ent, FeatureParams())
-    model = api.profile(vis, time_limit=t_prof, device=device)
-    q = make_detection_queries(vis, n_queries, search_start=t_start, seed=1)
-    say(f"[12 detect] duke world, {len(q)} lost identities from "
-        f"t={t_start}")
+    say(f"[12 detect] fig17 on the duke world, {tables.DETECT_QUERIES} lost "
+        f"identities from t={tables.DETECT_START}")
+    summaries = []
+    rows = tables.fig17_identity_detection(device=device,
+                                           summaries=summaries)
+    secs = time.perf_counter() - t_phase
+    (cpu_rows, cpu_summaries), cpu_secs = rerun.get(RERUN_WAIT)
+    for (name, us, derived), (c_name, _, c_derived) in zip(
+            rows, cpu_rows, strict=True):
+        if (name, derived) != (c_name, c_derived):
+            fail(f"[12 detect] {name}: cuda {derived} != cpu {c_derived}")
+        say(f"[12 detect] {name}: {us / 1e6:.4f} s a query on {device}; "
+            f"{derived}; equal to the cpu rerun")
     base = None
-    for theta in (None, 0.95, 0.85, 0.75):
-        p = DetectorParams(theta=theta or 0.95)
-        out = {}
-        for dev in (device, "cpu"):
-            t0 = time.perf_counter()
-            out[dev] = identity_detection(
-                model if dev == device else model.to("cpu"), vis, feats, q,
-                p, baseline=theta is None, t_refs=t_start, device=dev)
-            out[dev + "_s"] = time.perf_counter() - t0
-        r = out[device]
+    for (name, r), (c_name, c_r) in zip(summaries, cpu_summaries,
+                                        strict=True):
+        if (name, r) != (c_name, c_r):
+            fail(f"[12 detect] {name}: cuda {r} != cpu {c_r}")
         base = base or r["cost"]
-        name = "baseline" if theta is None else f"theta {theta}"
-        if r != out["cpu"]:
-            fail(f"[12 detect] {name}: cuda {r} != cpu {out['cpu']}")
-        say(f"[12 detect] {name}: {out[device + '_s']:.2f} s on {device} "
-            f"(cpu {out['cpu_s']:.2f} s), cost {r['cost']:.0f} "
+        say(f"[12 detect] {name} summary: cost {r['cost']:.0f} "
             f"({base / r['cost']:.3f}x), recall {r['recall']:.4f}, "
             f"precision {r['precision']:.4f}, found_rate "
             f"{r['found_rate']:.4f}, rounds {r['rounds']}; equal to the cpu "
             f"rerun")
+    say(f"[12 detect] fig17 {secs:.1f} s on {device}, the cpu rerun "
+        f"{cpu_secs:.1f} s")
     say(f"[12 detect] phase seconds {time.perf_counter() - t_phase:.1f}")
 
 
@@ -1252,6 +1302,21 @@ def phase_recalibration(np, torch, recorder, kernels, max_err, reruns):
     return launches
 
 
+def snapshot_at(step: int, trace: list, into: dict):
+    """A ``run_stream`` hook that keeps, in ``into``, the engine's
+    ``FLEET_COUNTERS``, its ``rescue_pairs`` and the trace's length as they
+    stand after ``step`` ticks (before that step's ingest): what a fleet
+    serving only the first ``step`` ticks must equal."""
+    import numpy as np
+
+    def hook(eng, i):
+        if i == step:
+            into.update({f: getattr(eng, f) for f in FLEET_COUNTERS},
+                        rescue_pairs=np.array(eng.rescue_pairs),
+                        records=len(trace))
+    return hook
+
+
 def fleet_trace_equal(label, got, want):
     """A fleet's card trace against the single engine's, record by record
     with no parting forgiven: masks, indices, bands' cameras and frames,
@@ -1287,9 +1352,12 @@ def phase_fleet(np, torch, serve_stream, singles, recorder, kernels,
     camera, tiles = kernels
     launches = {"camera": 0, "tiles": 0}
 
-    def run(label, entry, single, model_key, lose_at=None, **serve_kw):
-        """One fleet run, to the horizon, held to the single engine's card
-        run (``single``: its trace and engine)."""
+    def run(label, entry, single, model_key, lose_at=None, ticks=None,
+            **serve_kw):
+        """One fleet run, to the horizon or for its first ``ticks`` ticks,
+        held to the single engine's card run over the same ticks
+        (``single``: its trace, engine and, at ``FLEET_CUT_TICKS``, its
+        counters and trace length)."""
         rounds, kept = [], {}
         real, wrapped = recorder(entry, rounds, kept)
         setattr(ops, entry, wrapped)
@@ -1301,7 +1369,7 @@ def phase_fleet(np, torch, serve_stream, singles, recorder, kernels,
 
         reid_topk.LAUNCHES = reid_topk.TILE_LAUNCHES = 0
         try:
-            eng, tick_s = serve_stream(model_key, trace, None, on_step,
+            eng, tick_s = serve_stream(model_key, trace, ticks, on_step,
                                        **serve_kw)
         finally:
             setattr(ops, entry, real)
@@ -1314,16 +1382,23 @@ def phase_fleet(np, torch, serve_stream, singles, recorder, kernels,
                  f"worker_dispatches {eng.worker_dispatches}, non-empty "
                  f"worker rounds {nonempty}, the other kernel {other}")
         launches["camera" if entry == "reid_topk_segments" else "tiles"] += n
-        ref = single["eng"]
-        n_diff = fleet_trace_equal(label, trace, single["trace"])
+        if ticks is None or not single["at"]:
+            ref = single["eng"]
+            ref = dict({f: getattr(ref, f) for f in FLEET_COUNTERS},
+                       rescue_pairs=ref.rescue_pairs,
+                       records=len(single["trace"]))
+        else:
+            ref = single["at"]
+        n_diff = fleet_trace_equal(label, trace,
+                                   single["trace"][:ref["records"]])
         counters = list(FLEET_COUNTERS[:5])
         if eng.tile_grid:
             counters += ["admitted_tiles", "unique_tiles"]
         for f in counters:
-            if getattr(eng, f) != getattr(ref, f):
+            if getattr(eng, f) != ref[f]:
                 fail(f"[14 fleet] {label}: {f} {getattr(eng, f)}, the "
-                     f"single engine {getattr(ref, f)}")
-        if (eng.rescue_pairs != ref.rescue_pairs).any():
+                     f"single engine {ref[f]}")
+        if (eng.rescue_pairs != ref["rescue_pairs"]).any():
             fail(f"[14 fleet] {label}: rescue_pairs differ")
         rep = eng.shard_report()
         if sum(r["admitted_steps"] for r in rep) != eng.admitted_steps or \
@@ -1372,10 +1447,10 @@ def phase_fleet(np, torch, serve_stream, singles, recorder, kernels,
         f"{share['d2h']:.1f} device-to-host copies a tick "
         f"({p4['d2h']:.1f})")
 
-    # (b) the tile fleet
+    # (b) the tile fleet, its first FLEET_CUT_TICKS ticks
     eng, _ = run("tile fleet", "reid_topk_tiles", singles["tiles"], "tiles",
-                 lose_at=FLEET_LOSE_AT, shards=FLEET_SHARDS,
-                 gallery="sharded")
+                 lose_at=FLEET_LOSE_AT, ticks=FLEET_CUT_TICKS,
+                 shards=FLEET_SHARDS, gallery="sharded")
     if eng.rebalances != 1:
         fail("[14 fleet] tile fleet: no rebalance")
 
@@ -1386,7 +1461,7 @@ def phase_fleet(np, torch, serve_stream, singles, recorder, kernels,
         default=FaultProfile(latency=.002, jitter=.001), clock=clock,
         sleep=sleep)
     eng, rep = run("transport fleet", "reid_topk_segments",
-                   singles["camera"], "camera",
+                   singles["camera"], "camera", ticks=FLEET_CUT_TICKS,
                    shards=TRANSPORT_SHARDS, transport=transport,
                    prefetch=True)
     c = eng.gallery.counters()
@@ -1403,6 +1478,156 @@ def phase_fleet(np, torch, serve_stream, singles, recorder, kernels,
         f"{c['rehomed_blocks']} blocks moved), {clock():.3f} s of virtual "
         f"fetch time")
     say(f"[14 fleet] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
+def phase_suite(torch, recorder, kernels, max_err, reruns):
+    """Phase 15 (see the module docstring): the serving sweeps and two
+    tables on the card, called as functions, each against its CPU rerun
+    (``reruns``: ``suite_rerun`` handles by entry), with every drive's
+    kernel launches counted.  ``kernels`` are the camera and tile kernels'
+    dicts and ``max_err`` their largest errors so far.  Returns the camera
+    and tile kernels' launches by sweep."""
+    from repro_torch.benchmarks import scenarios, tables
+    from repro_torch.benchmarks.scenarios import (strip_clock_records,
+                                                  strip_clock_row)
+    from repro_torch.kernels import ops, ref, reid_topk
+
+    t_phase = time.perf_counter()
+    camera, tiles = kernels
+    masked = dict(camera, call=ops.reid_topk_masked,
+                  plain=ref.reid_topk_masked_ref)
+    by_entry = {"reid_topk_segments": camera, "reid_topk_masked": masked,
+                "reid_topk_tiles": tiles}
+    rounds = {e: [] for e in by_entry}       # (Q, G) of each worker round
+    kept = {e: {} for e in by_entry}         # first inputs of each shape
+    drives = []                              # each drive of the running sweep
+    real_serving, real_churn = scenarios._drive_serving, scenarios._drive_churn
+
+    def counted(real, eng_at, lat_at):
+        """A drive loop that also keeps its engine, tick latencies, kernel
+        launches and non-empty (worker) rounds by entry."""
+        def drive(*a, **kw):
+            n0 = {e: len(r) for e, r in rounds.items()}
+            c0, t0 = reid_topk.LAUNCHES, reid_topk.TILE_LAUNCHES
+            out = real(*a, **kw)
+            drives.append(dict(
+                eng=out[eng_at], tick_s=out[lat_at],
+                cam=reid_topk.LAUNCHES - c0, tile=reid_topk.TILE_LAUNCHES - t0,
+                rounds={e: sum(1 for q, g in r[n0[e]:] if q > 0 and g > 0)
+                        for e, r in rounds.items()},
+                consolidate=kw.get("consolidate", True),
+                tile_grid=kw.get("tile_grid", 0)))
+            return out
+        return drive
+
+    reals = {}
+    for e in by_entry:
+        reals[e], wrapped = recorder(e, rounds[e], kept[e])
+        setattr(ops, e, wrapped)
+    scenarios._drive_serving = counted(real_serving, 0, 3)
+    scenarios._drive_churn = counted(real_churn, 0, 2)
+    launches = {"camera": {}, "tiles": {}}
+    try:
+        for name in SUITE_SWEEPS + SUITE_TABLES:
+            sweep = name in SUITE_SWEEPS
+            fn = getattr(scenarios if sweep else tables, name)
+            drives.clear()
+            scenarios.pop_bench_records(name)
+            reid_topk.LAUNCHES = reid_topk.TILE_LAUNCHES = 0
+            t0 = time.perf_counter()
+            rows = fn(device=DEVICE)
+            secs = time.perf_counter() - t0
+            recs = scenarios.pop_bench_records(name)
+            cam_n, tile_n = reid_topk.LAUNCHES, reid_topk.TILE_LAUNCHES
+            for r in rows:
+                say(f"  | {r[0]}: {r[2]}")
+            for r in recs:
+                say("  | record " + " ".join(f"{k}={v}" for k, v in r.items()
+                                            if k != "scenario"))
+            # every drive: launches = its non-empty (worker) rounds, a
+            # fleet's also its worker_dispatches; one kernel a drive; the
+            # unconsolidated engine through reid_topk_masked
+            for i, d in enumerate(drives):
+                eng, n = d["eng"], d["cam"] + d["tile"]
+                fleet = hasattr(eng, "worker_dispatches")
+                ranked = sum(d["rounds"].values())
+                if n == 0 or n != ranked or \
+                        (fleet and n != eng.worker_dispatches) or \
+                        (d["tile"] if not d["tile_grid"] else d["cam"]):
+                    fail(f"[15 suite] {name} drive {i}: camera launches "
+                         f"{d['cam']}, tile launches {d['tile']}, non-empty "
+                         f"rounds {d['rounds']}"
+                         + (f", worker_dispatches {eng.worker_dispatches}"
+                            if fleet else ""))
+                masked_n = d["rounds"]["reid_topk_masked"]
+                if (masked_n != d["cam"]) if not d["consolidate"] \
+                        else masked_n:
+                    fail(f"[15 suite] {name} drive {i}: consolidate="
+                         f"{d['consolidate']} but {masked_n} frame-masked "
+                         f"rounds of {d['cam']} camera launches")
+            if cam_n != sum(d["cam"] for d in drives) or \
+                    tile_n != sum(d["tile"] for d in drives) or \
+                    (not sweep and (cam_n or tile_n)):
+                fail(f"[15 suite] {name}: launches {cam_n} + {tile_n} "
+                     f"outside the counted drives")
+            if sweep:
+                launches["camera"][name] = cam_n
+                if tile_n:
+                    launches["tiles"][name] = tile_n
+            line = ""
+            if drives:
+                big = max(drives, key=lambda d: (len(d["tick_s"]),
+                                                 len(d["eng"].queries)))
+                fleets = [d["eng"].worker_dispatches for d in drives
+                          if hasattr(d["eng"], "worker_dispatches")]
+                masked_n = sum(d["rounds"]["reid_topk_masked"]
+                               for d in drives)
+                line += (f"{len(drives)} drives, reid_topk launches "
+                         f"{cam_n}, reid_topk_tiles launches {tile_n} (= "
+                         f"non-empty rounds"
+                         + (f", of them {sum(fleets)} the fleets' "
+                            f"worker_dispatches" if fleets else "")
+                         + (f", {masked_n} frame-masked" if masked_n else "")
+                         + f"); largest run {len(big['tick_s'])} ticks x "
+                         f"{len(big['eng'].queries)} queries at "
+                         f"{len(big['tick_s']) / sum(big['tick_s']):.1f} "
+                         f"ticks/s")
+            else:
+                line += "the re-id kernels launched 0 times"
+            (cpu_rows, cpu_recs), cpu_secs = reruns[name].get(RERUN_WAIT)
+            if [strip_clock_row(r) for r in rows] != \
+                    [strip_clock_row(r) for r in cpu_rows]:
+                fail(f"[15 suite] {name}: rows differ from the cpu "
+                     f"rerun's:\n" + "\n".join(map(str, cpu_rows)))
+            if strip_clock_records(recs) != strip_clock_records(cpu_recs):
+                fail(f"[15 suite] {name}: records differ from the cpu "
+                     f"rerun's:\n" + "\n".join(map(str, cpu_recs)))
+            line = (f"[15 suite] {name} on {DEVICE}: {secs:.1f} s "
+                    f"(cpu rerun {cpu_secs:.1f} s); {len(rows)} rows and "
+                    f"{len(recs)} records equal to the cpu rerun's; "
+                    + line)
+            say(line)
+            if name == "query_churn_sweep" and not any(
+                    not d["consolidate"] and d["rounds"]["reid_topk_masked"]
+                    for d in drives):
+                fail("[15 suite] query_churn_sweep: the unconsolidated "
+                     "runs never launched reid_topk_masked")
+    finally:
+        for e, real in reals.items():
+            setattr(ops, e, real)
+        scenarios._drive_serving, scenarios._drive_churn = \
+            real_serving, real_churn
+    n_shapes = 0
+    for e, kern in by_entry.items():
+        for shape, (args, k) in kept[e].items():
+            err = check_against_plain(torch, kern, f"[15 suite] {e} "
+                                      f"{shape}", args, k, exact_idx=False)
+            max_err[kern["name"]] = max(max_err[kern["name"]], err)
+            n_shapes += 1
+    say(f"[15 suite] {n_shapes} round shapes held to the plain version "
+        f"({', '.join(f'{len(kept[e])} {e}' for e in by_entry)})")
+    say(f"[15 suite] phase seconds {time.perf_counter() - t_phase:.1f}")
     return launches
 
 
@@ -1581,6 +1806,9 @@ def main() -> int:
     qs_rerun = cpu_job(quickstart_rerun)
     recal_reruns = {which: cpu_job(recal_rerun, which) for which in (
         "drift_sweep", "tile drift", "soak_130", "sec6_drift")}
+    detect_rerun = cpu_job(detection_rerun)
+    suite_reruns = {name: cpu_job(suite_rerun, name)
+                    for name in SUITE_SWEEPS + SUITE_TABLES}
     t0 = time.perf_counter()
     sources = ("reid_topk", "reid_topk_tiles", "reid_topk_plain",
                "flash_attention", "decode_attention", "mamba_scan")
@@ -1776,19 +2004,21 @@ def main() -> int:
             return real(*a)
         return real, call
 
-    def serve(device, trace, ticks=horizon_ticks):
+    def serve(device, trace, ticks=horizon_ticks, on_step=None):
         eng = api.serve(model.to(device), lambda x: x, policy,
                         geo_adj=world.net.geo_adjacent, topk=3,
                         consolidate=True, device=device)
-        return eng, run_stream(eng, world, ticks, trace)
+        return eng, run_stream(eng, world, ticks, trace, on_step)
 
     rounds, kept = [], {}      # (Q, G) of every ranked round; inputs by shape
-    gpu_trace = []
+    gpu_trace, cam_at = [], {}
     real_call, ops.reid_topk_segments = recorder("reid_topk_segments",
                                                  rounds, kept)
     reid_topk.LAUNCHES = reid_topk.TILE_LAUNCHES = 0
     try:
-        eng, tick_s = serve(DEVICE, gpu_trace)
+        eng, tick_s = serve(DEVICE, gpu_trace,
+                            on_step=snapshot_at(FLEET_CUT_TICKS, gpu_trace,
+                                                cam_at))
     finally:
         launches, stray = reid_topk.LAUNCHES, reid_topk.TILE_LAUNCHES
         ops.reid_topk_segments = real_call
@@ -1830,7 +2060,7 @@ def main() -> int:
            f"; query {parted} parted at a near-threshold record, so the "
            f"cost counters are not compared"))
 
-    singles = {"camera": dict(trace=gpu_trace, eng=eng,
+    singles = {"camera": dict(trace=gpu_trace, eng=eng, at=cam_at,
                               share=device_share(torch, serve, "[4 main]"))}
 
     # -- phase 5: the camera path's round shapes --------------------------
@@ -1882,19 +2112,21 @@ def main() -> int:
         f"{int(tile_model.tile_admit.sum())} of "
         f"{tile_model.tile_admit.numel()} (src, dst, tile) cells admitted")
 
-    def serve_tiles(device, trace, ticks=horizon_ticks):
+    def serve_tiles(device, trace, ticks=horizon_ticks, on_step=None):
         eng = api.serve(tile_model.to(device), lambda x: x, policy,
                         geo_adj=world.net.geo_adjacent, topk=3,
                         tile_grid=TILE_GRID, device=device)
-        return eng, run_stream(eng, world, ticks, trace)
+        return eng, run_stream(eng, world, ticks, trace, on_step)
 
     t_rounds, t_kept = [], {}
-    gpu_trace = []
+    gpu_trace, tiles_at = [], {}
     real_call, ops.reid_topk_tiles = recorder("reid_topk_tiles", t_rounds,
                                               t_kept)
     reid_topk.LAUNCHES = reid_topk.TILE_LAUNCHES = 0
     try:
-        eng, tick_s = serve_tiles(DEVICE, gpu_trace)
+        eng, tick_s = serve_tiles(DEVICE, gpu_trace,
+                                  on_step=snapshot_at(FLEET_CUT_TICKS,
+                                                      gpu_trace, tiles_at))
     finally:
         t_launches, stray = reid_topk.TILE_LAUNCHES, reid_topk.LAUNCHES
         ops.reid_topk_tiles = real_call
@@ -1955,7 +2187,7 @@ def main() -> int:
           f"of {live[1]} ({100 * live_share:.2f} %)")
 
     device_share(torch, serve_tiles, "[6 tiles]", ticks=TICKS)
-    singles["tiles"] = dict(trace=gpu_trace, eng=eng)
+    singles["tiles"] = dict(trace=gpu_trace, eng=eng, at=tiles_at)
 
     # -- phase 7: the tile path's round shapes ----------------------------
     t_shapes = sorted(t_kept, key=lambda s: s[0] * s[1])
@@ -2377,7 +2609,7 @@ def main() -> int:
     phase_tracker(np, qs_rerun)
 
     # -- phase 12: identity detection ------------------------------------
-    phase_detection(np)
+    phase_detection(detect_rerun)
 
     # -- phase 13: recalibration ------------------------------------------
     recal_launches = phase_recalibration(np, torch, recorder,
@@ -2397,6 +2629,10 @@ def main() -> int:
 
     fleet = phase_fleet(np, torch, serve_stream, singles, recorder,
                         (camera, tiles), max_err)
+
+    # -- phase 15: the benchmark suite --------------------------------------
+    suite = phase_suite(torch, recorder, (camera, tiles), max_err,
+                            suite_reruns)
     camera_row["max_abs_err"] = max_err[CAMERA["name"]]
     tiles_row["max_abs_err"] = max_err[TILES["name"]]
 
@@ -2404,10 +2640,12 @@ def main() -> int:
     say(json.dumps({"kernels": [
         dict(CAMERA, **camera_row, recal_launches={
             k: recal_launches[k] for k in ("drift_sweep", "soak_130")},
-             fleet_launches=fleet["camera"]),
+             fleet_launches=fleet["camera"],
+             suite_launches=suite["camera"]),
         dict(TILES, **tiles_row,
              recal_launches={"tile drift": recal_launches["tile drift"]},
-             fleet_launches=fleet["tiles"])]
+             fleet_launches=fleet["tiles"],
+             suite_launches=suite["tiles"])]
         + [dict(BENCH[name], launches=bench_launches[name],
                 max_abs_err=errs[name], **bench[name], model=widths[name])
            for name in BENCH]}))

@@ -3,8 +3,11 @@ reference against the PyTorch port, both on the CPU.
 
 The duke deployment of ``benchmarks/scenarios.py::duke`` (8 cameras,
 2,700 entities, 5,100 steps, profiled on the first 3,000, K = 24, 100
-queries).  For each of fig11's policies (``benchmarks/tables.py``:
-all, geo, S5, S5-T1, S5-T2, S5-T10, S10-T10) it tracks the queries with
+queries), made by each package's own world function (the reference's
+``benchmarks.scenarios.duke`` and the port's
+``repro_torch.benchmarks.scenarios.duke``, whose arrays must be equal).
+For each of fig11's policies (``benchmarks/tables.py``: all, geo, S5,
+S5-T1, S5-T2, S5-T10, S10-T10) it tracks the queries with
 ``repro.core.tracker.track_queries`` and ``repro_torch.api.track(...,
 device="cpu")`` and prints cost, recall, precision, savings, mean delay
 and rescues for each; then sec3's analytic potentials
@@ -15,6 +18,7 @@ packages.  Exits non-zero if any count differs.
 """
 from __future__ import annotations
 
+import os
 import sys
 import time
 
@@ -38,25 +42,24 @@ def columns(r, base_cost):
 
 
 def main() -> int:
-    from repro.core import build_gallery, duke_like_network, simulate_network
-    from repro.core.features import FeatureParams, make_features
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    from benchmarks import scenarios as j_scen
     from repro.core.policy import SearchPolicy as JPolicy
-    from repro.core.profiler import build_model as j_build_model
     from repro.core.profiler import \
         transitions_from_visits as j_transitions
-    from repro.core.tracker import make_queries, track_queries
+    from repro.core.tracker import track_queries
     from repro_torch import api
+    from repro_torch.benchmarks import scenarios as t_scen
     from repro_torch.core.profiler import \
         transitions_from_visits as t_transitions
 
-    net = duke_like_network()
-    vis = simulate_network(net, 2700, 5100, seed=0)
-    gal, _ = build_gallery(vis, 24)
-    feats, _ = make_features(vis, 2700, FeatureParams())
-    q, gt = make_queries(vis, 100, seed=1)
-    jm = j_build_model(vis.ent, vis.cam, vis.t_in, vis.t_out, net.n_cams,
-                       time_limit=3000)
-    tm = api.profile(vis, time_limit=3000, device="cpu")
+    # each package's own world function for the tables' duke world
+    j_sc, t_sc = j_scen.duke(), t_scen.duke()
+    for k in ("gal", "feats", "q_vids", "gt_vids"):
+        assert np.array_equal(j_sc[k], t_sc[k]), k
+    net, vis, gal, feats = (t_sc[k] for k in ("net", "vis", "gal", "feats"))
+    q, gt = t_sc["q_vids"], t_sc["gt_vids"]
+    jm, tm = j_sc["model"], t_sc["model"]
     geo = net.geo_adjacent
     ok = True
     base = {}
@@ -67,8 +70,8 @@ def main() -> int:
         for side in ("jax", "port"):
             t0 = time.perf_counter()
             if side == "jax":
-                r = track_queries(jm, vis, gal, feats, q, gt, JPolicy(**pol),
-                                  geo_adj=geo)
+                r = track_queries(jm, j_sc["vis"], gal, feats, q, gt,
+                                  JPolicy(**pol), geo_adj=geo)
             else:
                 r = api.track(tm, vis, gal, feats, q, gt,
                               api.SearchPolicy(**pol), geo_adj=geo,

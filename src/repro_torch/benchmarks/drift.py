@@ -20,6 +20,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.benchmarks.tables import _row
 from repro_torch.core.features import FeatureParams, make_features
 from repro_torch.core.policy import SearchPolicy
 from repro_torch.core.profiler import build_model, drift_score
@@ -27,14 +28,6 @@ from repro_torch.core.simulate import (CameraNetwork, build_gallery,
                                        duke_like_network, simulate_network)
 from repro_torch.core.tracker import make_queries, track_queries
 from repro_torch.device import resolve_device
-
-
-def _row(name, wall_us, **derived):
-    """One CSV row: (name, us_per_call, "k=v;..." with floats to 4 digits),
-    as ``benchmarks/tables.py::_row`` formats it."""
-    d = ";".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
-                 for k, v in derived.items())
-    return (name, wall_us, d)
 
 
 def _rerouted(net: CameraNetwork) -> CameraNetwork:

@@ -16,11 +16,38 @@ import torch
 NEG_INF = -1e30
 
 
+#: elements of the (rows, G, D) products one host score pass holds
+_HOST_CHUNK = 1 << 24
+
+
+def masked_scores(queries, gallery):
+    """(Q, G) float32 inner products for the masked kernels' plain version.
+
+    On the card: ``queries @ gallery.T``.  On the host each score is its
+    own depth-ordered chain: ``cumsum`` sums the float32 products in depth
+    order in a float64 accumulator, and the last step is rounded to
+    float32.  So a score depends on its query and gallery rows alone, but
+    it is not the card kernel's float32 FMA chain and need not equal it
+    bit for bit.  The host's matrix product rounds a row by how many rows
+    share the call, which would part a fleet's worker blocks from the
+    single engine's round and the consolidated round from the per-frame
+    one."""
+    q, g = queries.to(torch.float32), gallery.to(torch.float32)
+    if q.device.type != "cpu":
+        return q @ g.T
+    (Q, D), G = q.shape, g.shape[0]
+    if Q == 0 or G == 0 or D == 0:
+        return q.new_zeros((Q, G))
+    rows = max(1, _HOST_CHUNK // (G * D))
+    return torch.cat([(q[a:a + rows, None, :] * g[None]).cumsum(-1)[..., -1]
+                      for a in range(0, Q, rows)])
+
+
 def _segment_masked_ref(queries, q_tag, admit, gallery, gal_cam, gal_tag,
                         k: int):
     Q, C = admit.shape
     G = gallery.shape[0]
-    s = queries.to(torch.float32) @ gallery.to(torch.float32).T
+    s = masked_scores(queries, gallery)
     # cam outside [0, C) (padded rows carry -1) is "no camera": ineligible
     cam_ok = (gal_cam >= 0) & (gal_cam < C)
     cams = torch.where(cam_ok, gal_cam, 0).to(torch.int64)

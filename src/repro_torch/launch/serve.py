@@ -1,11 +1,13 @@
 """Serving command line: ReXCam-filtered cross-camera analytics on live streams,
 on the PyTorch/CUDA port.
 
-Replays the duke world at the benchmark's scale (8 cameras, 2,700
-entities, 5,100 one-second steps — the DukeMTMC span — profiled on the
-first 3,000 steps) through ``repro_torch.api.serve``:
+Replays the world of the reference's command line (the 8-camera duke
+network, 1,500 entities over 3,000 one-second steps, profiled on the first
+2,000) through ``repro_torch.api.serve`` and prints its report, the
+reference's lines but for the device on the first and the host-clock
+tick rate on the ``wall:`` line:
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --queries 100 --steps 600
+  PYTHONPATH=src python -m repro_torch.launch.serve --queries 8 --steps 600
 
 ``--device cuda`` (the default) ranks through the hand-written CUDA kernel
 and raises without a card; ``--device cpu`` runs the plain PyTorch path.
@@ -70,12 +72,14 @@ def duke_world(n_queries: int = 100, n_entities: int = 2700,
 
 
 def run_stream(eng, world: World, ticks: int, trace: list | None = None,
-               on_step=None):
+               on_step=None, *, until_done: bool = True,
+               stats: list | None = None):
     """Submit every query at its anchor, then stream ``ticks`` wall steps
-    of detections into ``eng`` (stopping early once every query is done).
-    A tile-mode engine also gets each detection's tile on its
-    ``eng.tile_grid`` grid; ``on_step(eng, step)`` runs before each step's
-    ingest (a fleet may lose a worker there).  Returns the host-clock
+    of detections into ``eng`` (with ``until_done``, stopping early once
+    every query is done).  A tile-mode engine also gets each detection's
+    tile on its ``eng.tile_grid`` grid; ``on_step(eng, step)`` runs before
+    each step's ingest (a fleet may lose a worker there); pass a list as
+    ``stats`` to collect each tick's stats.  Returns the host-clock
     seconds of each tick; each tick ends with the round's outcome on the
     host, so the clock covers the device work."""
     vis, gal, feats = world.vis, world.gal, world.feats
@@ -99,16 +103,18 @@ def run_stream(eng, world: World, ticks: int, trace: list | None = None,
                     if vis_tiles is not None:
                         tiles[c] = vis_tiles[vids]
             eng.ingest(frames, tiles if vis_tiles is not None else None)
-        eng.tick(record_trace=trace)
+        st = eng.tick(record_trace=trace)
         tick_s.append(time.perf_counter() - t_start)
-        if all(q.done for q in eng.queries.values()):
+        if stats is not None:
+            stats.append(st)
+        if until_done and all(q.done for q in eng.queries.values()):
             break
     return tick_s
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--queries", type=int, default=100)
+    ap.add_argument("--queries", type=int, default=8)
     ap.add_argument("--steps", type=int, default=600)
     ap.add_argument("--s-thresh", type=float, default=0.05)
     ap.add_argument("--t-thresh", type=float, default=0.02)
@@ -161,12 +167,15 @@ def main():
     ap.add_argument("--recal-window", type=int, default=1200,
                     help="sliding re-profile window (recent steps)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     resolve_device(args.device)     # no card: fail before building the world
 
-    world = duke_world(args.queries)
-    model = rexcam.profile(world.vis, time_limit=3000,
-                           tile_grid=args.tile_grid, device=args.device)
+    # the reference command line's world: 25 minutes of the duke network,
+    # profiled on the first 2,000 steps
+    world = duke_world(args.queries, n_entities=1500, horizon=3000)
+    vis, net = world.vis, world.net
+    model = rexcam.profile(vis, time_limit=2000, tile_grid=args.tile_grid,
+                           device=args.device)
     policy = rexcam.SearchPolicy(scheme=args.scheme, s_thresh=args.s_thresh,
                                  t_thresh=args.t_thresh)
     recal = rexcam.RecalibrationPolicy(
@@ -182,26 +191,36 @@ def main():
     else:
         transport = None if args.transport == "none" else args.transport
     eng = rexcam.serve(model, embed_fn=lambda x: x, policy=policy,
-                       geo_adj=world.net.geo_adjacent, topk=args.topk,
+                       geo_adj=net.geo_adjacent, topk=args.topk,
                        shards=args.shards, gallery=args.gallery,
                        transport=transport, prefetch=args.prefetch,
                        topk_rerank=args.topk_rerank,
                        tile_grid=args.tile_grid, recalibrate=recal,
-                       visit_source=rexcam.visits_window_source(world.vis)
+                       visit_source=rexcam.visits_window_source(vis)
                        if args.recalibrate else None, device=args.device)
-    tick_s = run_stream(eng, world, args.steps)
+    # every step up to the horizon, as the reference streams them
+    t0 = int(vis.t_out[world.q_vids].min())
+    stats = []
+    tick_s = run_stream(eng, world, min(args.steps, vis.horizon - t0),
+                        until_done=False, stats=stats)
+    matches = sum(st["matches"] for st in stats)
     wall = sum(tick_s)
 
-    # all-camera search of the same query rounds
-    naive_steps = eng.content_steps * world.net.n_cams
-    p50, p99 = np.percentile(np.asarray(tick_s) * 1e3, [50, 99])
-    print(f"device={eng.device} ticks={len(tick_s)} "
-          f"queries={len(world.q_vids)} scheme={policy.scheme}")
-    print(f"admission: {eng.admitted_steps} camera-steps over "
-          f"{eng.content_steps} query rounds (all-camera: {naive_steps}; "
+    # two cost conventions (not to be mixed): admitted_steps is per-query
+    # camera-steps (comparable with the tracker / policy_sweep); the frame
+    # counts are the serving plane's deduplicated inference load
+    naive_steps = args.steps * net.n_cams * len(world.q_vids)
+    naive_frames = args.steps * net.n_cams
+    print(f"device={eng.device} steps={args.steps} queries={args.queries} "
+          f"scheme={policy.scheme}")
+    print(f"admission: {eng.admitted_steps} camera-steps "
+          f"(naive all-camera: {naive_steps}; "
           f"savings {naive_steps / max(eng.admitted_steps, 1):.1f}x)")
     print(f"inference plane: {eng.unique_frames} unique frames "
-          f"({eng.frames_processed} embedded + {eng.cache_hits} cache-hot)")
+          f"({eng.frames_processed} embedded + {eng.cache_hits} cache-hot; "
+          f"dedup {eng.admitted_steps / max(eng.unique_frames, 1):.1f}x; "
+          f"naive per-camera: {naive_frames}; "
+          f"savings {naive_frames / max(eng.frames_processed, 1):.1f}x)")
     if args.tile_grid > 0:
         TT = args.tile_grid * args.tile_grid
         base_tiles = TT * eng.admitted_steps
@@ -211,10 +230,11 @@ def main():
               f"{base_tiles / max(eng.admitted_tiles, 1):.1f}x; "
               f"{eng.unique_tiles} deduplicated of "
               f"{TT * eng.unique_frames})")
-    matches = sum(len(q.matches) for q in eng.queries.values())
-    rescues = sum(q.rescued for q in eng.queries.values())
-    print(f"matches: {matches} (replay rescues: {rescues}, replay misses "
-          f"past retention: {eng.replay_misses})")
+    print(f"matches flagged: {matches} "
+          f"(replay rescues: {sum(q.rescued for q in eng.queries.values())}, "
+          f"replay misses past retention: {eng.replay_misses})")
+    print(f"frame-store residency: {eng.store.memory_frames()} frames "
+          f"(retention {eng.cfg.retention}s — paper §5.3 'last few minutes')")
     g = eng.gallery_report()
     print(f"gallery plane [{g['kind']}]: {g['cached']} blocks resident "
           f"({g['bytes']} bytes), {g['hits']} hits / {g['misses']} misses, "
@@ -228,6 +248,21 @@ def main():
               f"{c['prefetch_wasted']} wasted speculations), "
               f"{c['retries']} retries, {c['timeouts']} timeouts, "
               f"{c.get('dead_peers', 0)} dead peers")
+    p50, p99 = np.percentile(np.asarray(tick_s) * 1e3, [50, 99]) \
+        if tick_s else (0.0, 0.0)
+    print(f"wall: {wall:.3f}s host clock ({len(tick_s) / max(wall, 1e-9):.1f} "
+          f"ticks/s; tick p50 {p50:.3f} ms, p99 {p99:.3f} ms)")
+    if args.recalibrate:
+        ev = eng.recal.events
+        print(f"recalibration [epoch {eng.model_epoch}]: {len(ev)} swaps, "
+              f"{len(eng.recal.polls)} polls "
+              f"(threshold {args.drift_threshold}, "
+              f"cooldown {args.recal_cooldown}, window {args.recal_window})")
+        for e in ev:
+            print(f"  t={e['t']}: epoch {e['epoch']} "
+                  f"(score {e['score']:.2f}, {e['rescues']} rescues, "
+                  f"re-profiled {e['visits']} visits in "
+                  f"[{e['window'][0]}, {e['window'][1]}))")
     if args.shards is not None:
         # per-worker demand is shard-local dedup; owned_frames is each
         # worker's slice of the fleet-global dedup (sums to the engine
@@ -246,20 +281,10 @@ def main():
                   f"unique_frames={row['unique_frames']} "
                   f"owned_frames={row['owned_frames']} "
                   f"query_rounds={row['query_rounds']}{gal}")
-    print(f"wall: {wall:.3f}s ({len(tick_s) / max(wall, 1e-9):.1f} ticks/s; "
-          f"tick p50 {p50:.3f} ms, p99 {p99:.3f} ms)")
-    if args.recalibrate:
-        ev = eng.recal.events
-        print(f"recalibration [epoch {eng.model_epoch}]: {len(ev)} swaps, "
-              f"{len(eng.recal.polls)} polls "
-              f"(threshold {args.drift_threshold}, "
-              f"cooldown {args.recal_cooldown}, window {args.recal_window})")
-        for e in ev:
-            print(f"  t={e['t']}: epoch {e['epoch']} "
-                  f"(score {e['score']:.2f}, {e['rescues']} rescues, "
-                  f"re-profiled {e['visits']} visits in "
-                  f"[{e['window'][0]}, {e['window'][1]}))")
-
+    for qid, q in eng.queries.items():
+        lag = max(eng.t - 1 - q.f_curr, 0)
+        state = "done" if q.done else f"tracking (phase {q.phase}, lag {lag}s)"
+        print(f"  query {qid}: {len(q.matches)} matches, {state}")
 
 if __name__ == "__main__":
     main()

@@ -38,9 +38,13 @@ worker: ``_layout`` (which batch row each query occupies), the
 bodies, advance), ``_make_gallery``, ``_account_round`` and
 ``_on_query_done``.  ``cfg.prefetch`` issues the next round's cached
 gallery reads at the end of each round (``runtime.transport.
-PrefetchPipeline``); the round consumes them first and falls back to the
-blocking read, so the trace cannot change.  ``cfg.transport`` needs the
-fleet's sharded gallery and raises on the single engine.
+PrefetchPipeline``).  The round waits for a block still in flight as late
+as it can: the block's gallery rows are left blank until the ranking
+needs them (``_resolve_late``), after the round's other reads and
+embeddings, and the fleet first ranks the worker blocks whose queries
+admit none of them.  A prefetch that fails falls back to the blocking
+read, so the trace cannot change.  ``cfg.transport`` needs the fleet's
+sharded gallery and raises on the single engine.
 """
 from __future__ import annotations
 
@@ -310,6 +314,11 @@ class RoundPlan:
 
 
 class ServingEngine:
+    #: whether the rank dispatch waits for the round's in-flight prefetched
+    #: blocks itself, before the first worker block that needs them (the
+    #: fleet); the single engine waits before it dispatches
+    _waits_per_block = False
+
     def __init__(self, model: SpatioTemporalModel, embed_fn: Callable,
                  cfg: EngineConfig, geo_adj=None, device="cuda"):
         if cfg.topk < 1:
@@ -365,6 +374,11 @@ class ServingEngine:
             collections.deque()
         self.recal = None            # attached RecalibrationController
         self._in_round = False       # swap_model atomicity guard
+        # the round's in-flight prefetched keys: the batch rows that admit
+        # one, and the call that waits for them and fills their gallery
+        # rows (``_round_body`` sets both, the rank dispatch reads them)
+        self._late_rows: np.ndarray | None = None
+        self._resolve_late: Callable[[], None] | None = None
         self._set_windows()
 
     def _set_windows(self) -> None:
@@ -729,12 +743,24 @@ class ServingEngine:
         batch_keys: list[tuple[int, int]] = []
         frames: dict[tuple[int, int], Any] = {}
         key_emb: dict[tuple[int, int], np.ndarray] = {}
+        late: list[tuple[int, int]] = []
         for key in plan.work:
             if self.cfg.embed_cache:
-                # a block the previous round prefetched first; any
-                # misspeculation falls back to the blocking read
+                # a block the previous round prefetched first: one still in
+                # flight gets blank rows of its frame's size, filled when
+                # the ranking needs it; any misspeculation falls back to
+                # the blocking read
                 emb = None
                 if self._prefetch is not None:
+                    if self._prefetch.pending(*key):
+                        late.append(key)
+                        key_emb[key] = np.zeros(
+                            (len(self.store.get(*key)), len(qs[0].feat)),
+                            np.float32)
+                        batch_keys.append(key)
+                        stats["cache_hits"] += 1
+                        self.cache_hits += 1
+                        continue
                     emb = self._prefetch.consume(*key)
                 if emb is None:
                     emb = self.store.get_emb(*key)
@@ -799,6 +825,11 @@ class ServingEngine:
             def dev_t(a):
                 return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+            gal_t = dev_t(gal)
+            self._late_rows = self._resolve_late = None
+            if late:
+                self._defer_late(qs, sl, plan, late, batch_keys, key_emb,
+                                 gal_t)
             if self.tile_grid > 0:
                 # one tile-masked call whatever cfg.consolidate says (the
                 # relabeling is injective, so it changes nothing)
@@ -808,19 +839,20 @@ class ServingEngine:
                                                 gal.shape[0])
                 out = self._dispatch_rank_advance_tiles(
                     ps, dev_t(q_feat), dev_t(plan.q_seg),
-                    dev_t(plan.mask_ct), dev_t(gal), dev_t(gal_ct),
+                    dev_t(plan.mask_ct), gal_t, dev_t(gal_ct),
                     dev_t(gal_cam), dev_t(gal_frame), dev_t(gal_seg))
             elif self.cfg.consolidate:
                 gal_seg = plan.gallery_segments(batch_keys, key_emb,
                                                 gal.shape[0])
                 out = self._dispatch_rank_advance_seg(
                     ps, dev_t(q_feat), dev_t(plan.q_seg), dev_t(mask),
-                    dev_t(gal), dev_t(gal_cam), dev_t(gal_frame),
+                    gal_t, dev_t(gal_cam), dev_t(gal_frame),
                     dev_t(gal_seg))
             else:
                 out = self._dispatch_rank_advance(
-                    ps, dev_t(q_feat), dev_t(mask), dev_t(gal),
+                    ps, dev_t(q_feat), dev_t(mask), gal_t,
                     dev_t(gal_cam), dev_t(gal_frame))
+            self._late_rows = self._resolve_late = None
             ps_next = out[0]
             (f_q, c_q, f_curr, phase, done, matched, match_cam, match_emb,
              topk_val, topk_idx, topk_cam, topk_frame) = _to_host(
@@ -859,6 +891,45 @@ class ServingEngine:
         # start its cached fetches now
         if self._prefetch is not None:
             self._issue_prefetch(all_qs)
+
+    def _defer_late(self, qs, slots, plan: RoundPlan, late: list,
+                    batch_keys: list, key_emb: dict, gal_t) -> None:
+        """Arm the wait for the round's in-flight prefetched keys ``late``:
+        ``_late_rows`` marks the batch rows whose query admits one, and
+        ``_resolve_late()`` waits for each (falling back to the blocking
+        read) and writes its rows into ``gal_t``, the round's gallery on
+        the device.  The single engine waits here, just before it ranks;
+        the fleet's rank dispatch waits before the first worker block that
+        needs them (``_waits_per_block``)."""
+        offset, row = {}, 0
+        for key in batch_keys:
+            offset[key] = row
+            row += len(key_emb[key])
+
+        def resolve():
+            for key in late:
+                emb = self._prefetch.consume(*key)
+                if emb is None:
+                    emb = self.store.get_emb(*key)
+                if emb is None or len(emb) != len(key_emb[key]):
+                    raise RuntimeError(
+                        f"cached block {key} vanished mid-round")
+                emb = np.asarray(emb, np.float32)
+                key_emb[key] = emb
+                a = offset[key]
+                gal_t[a:a + len(emb)] = torch.from_numpy(emb).to(
+                    gal_t.device)
+
+        if not self._waits_per_block:
+            resolve()
+            return
+        pending = set(late)
+        rows = np.zeros(plan.mask.shape[0], bool)
+        for i, q in enumerate(qs):
+            if any((int(c), q.f_curr) in pending for c in plan.cams_by_q[i]):
+                rows[slots[i]] = True
+        self._late_rows = rows
+        self._resolve_late = resolve
 
     def _issue_prefetch(self, qs: list[QueryState]) -> None:
         """Speculatively issue async fetches for the cohort's next round.

@@ -96,6 +96,8 @@ def _rows(x, a: int, b: int, device):
 class ShardedServingEngine(ServingEngine):
     """A serving fleet: one controller, ``n_shards`` workers, one trace."""
 
+    _waits_per_block = True
+
     def __init__(self, model, embed_fn, cfg: EngineConfig, geo_adj=None, *,
                  shards: int | None = None, devices: Iterable | None = None,
                  monitor: HeartbeatMonitor | None = None,
@@ -365,17 +367,32 @@ class ShardedServingEngine(ServingEngine):
         """Run ``body(replica, *rows, *shared)`` once per worker block: the
         block's rows of each row-aligned input and the shared (replicated)
         inputs, on the worker's device.  ``rank`` counts the launches in
-        ``worker_dispatches``."""
-        outs = []
+        ``worker_dispatches``; a rank also runs the blocks whose rows admit
+        no in-flight prefetched block first (``_late_rows``), waits for
+        those blocks (``_resolve_late``) and then runs the rest, so the
+        fetches stay in flight while the first blocks rank.  The outputs
+        are joined in row order whatever the order of the runs."""
+        blocks = self._row_blocks
+        order = list(range(len(blocks)))
+        late = self._late_rows if rank else None
+        if late is not None:
+            needs = [bool(late[a:b].any()) for _, a, b in blocks]
+            order.sort(key=lambda i: needs[i])
+        outs = [None] * len(blocks)
         moved: dict[tuple[int, torch.device], torch.Tensor] = {}
-        for w, a, b in self._row_blocks:
+        for i in order:
+            w, a, b = blocks[i]
+            if late is not None and needs[i]:
+                self._resolve_late()
+                late = None
+                moved.clear()      # a copy made before the wait is stale
             d = self._device_of[w]
             args = [_rows(x, a, b, d) for x in rows]
             for x in shared:
                 if (id(x), d) not in moved:
                     moved[(id(x), d)] = x.to(d)
                 args.append(moved[(id(x), d)])
-            outs.append(body(self._replicas[d], *args))
+            outs[i] = body(self._replicas[d], *args)
             if rank:
                 self.worker_dispatches += 1
         return self._join(outs)

@@ -388,6 +388,11 @@ class PrefetchPipeline:
                 n += 1
         return n
 
+    def pending(self, cam: int, t: int) -> bool:
+        """Whether a fetch for (cam, t) is in flight and its block still
+        cached: ``consume`` will wait for it.  No counters tick."""
+        return (cam, t) in self._inflight and self.store.emb_cached(cam, t)
+
     def consume(self, cam: int, t: int):
         """The prefetched block for (cam, t), or None (not speculated /
         evicted since issue / owner died mid-fetch) — the caller falls back

@@ -29,6 +29,37 @@ def test_fake_rpc_prefetch_fleet_matches_single_engine(shards):
         c["remote_fetches"]
 
 
+def test_fleet_ranks_blocks_before_waiting_for_prefetches(monkeypatch):
+    """A block still in flight is waited for only when the first worker
+    block whose queries admit it ranks: in some rounds other workers'
+    blocks rank while the fetches are in flight.  The trace stays the
+    reference's, and every such wait is served by the prefetch."""
+    from repro_torch.runtime.fleet import ShardedServingEngine
+
+    ranked_before_wait = []
+    defer = ShardedServingEngine._defer_late
+
+    def spy(self, *args):
+        start = self.worker_dispatches
+        defer(self, *args)
+        resolve = self._resolve_late
+
+        def counted():
+            ranked_before_wait.append(self.worker_dispatches - start)
+            resolve()
+        self._resolve_late = counted
+    monkeypatch.setattr(ShardedServingEngine, "_defer_late", spy)
+    w = world(seed=0, n_queries=5)
+    eng, trace, summary = drive_port(
+        w, shards=4, prefetch=True,
+        transport=fake_rpc(default=dict(latency=.01)))
+    assert_fleet_matches(eng, trace, summary, reference(seed=0, n_queries=5))
+    assert ranked_before_wait and max(ranked_before_wait) >= 1
+    c = eng.gallery.counters()
+    assert c["prefetch_wasted"] == 0
+    assert c["prefetch_hits"] >= len(ranked_before_wait)
+
+
 @pytest.mark.parametrize("prefetch", [True, False])
 def test_inproc_fleet_matches_single_engine(prefetch):
     """The named in-process transport, with and without prefetch."""

@@ -33,7 +33,8 @@ def test_every_port_module_imports_without_jax_or_repro():
                  "examples.quickstart", "examples.identity_detection",
                  "runtime.recal", "benchmarks.drift",
                  "benchmarks.scenarios", "runtime.fleet", "runtime.cluster",
-                 "runtime.transport", "runtime.gallery"):
+                 "runtime.transport", "runtime.gallery", "benchmarks.tables",
+                 "benchmarks.run", "examples.serve_streams"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
