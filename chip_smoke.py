@@ -204,6 +204,27 @@ Phases, one line or block each:
      card through phases 11-13's tracker, detection and drift runs on the
      same worlds; ``scripts/torch_bench_counts.py`` holds their counts to
      the JAX reference on the CPU.
+ 16. the dense backbone zoo's serving path (``repro_torch.models``) at
+     yi-6b's full width (configs/yi_6b.py: d_model 4,096, 32 query heads
+     over 4 kv heads, hd 128, d_ff 11,008, vocab 64,000), random weights
+     drawn on the card from a seeded ``torch.Generator``: (a) two layers
+     in float32, B = 2: ``forward`` over 132 tokens, ``prefill`` of 128
+     and 4 ``decode_step``s, held to a CPU rerun on the same weights
+     (logits and caches within 2e-4, the CPU tests' float32 tolerance),
+     and the card's decode logits to its forward logits; (b) all 32
+     layers in bfloat16 (12.1 GB of weights), B = 8: ``prefill`` of
+     1,024 tokens into 2,048 cache slots, then 32 greedy decode steps,
+     timed (prefill tokens/s and decode ms a step, beside an operations
+     bound and a byte bound); a warm-up run first holds the first and
+     last layer's attention, at the prefill and at the last step, to
+     ``ref.flash_attention_ref`` and ``ref.decode_attention_ref`` on the
+     card as phase 10 holds bfloat16.  The counts are reset before and
+     read after each driven run: flash once a layer a pass (4 in (a), 32
+     in (b)), decode once a layer a step (8 and 1,024).  No logit may be
+     NaN or infinite.  A prefill and 4 more steps under ``torch.profiler``
+     give the device's busy share; both kernels are timed at the model's
+     shapes beside their plain versions, bounds and library calls (the
+     ``zoo`` entries of the kernels line).
 
 The CPU reruns of phases 11, 12, 13 and 15 run in three worker processes
 of one thread each (``cpu_job``) while the card runs go on: the
@@ -344,6 +365,19 @@ TRACK_FIELDS = ("cost", "n_match", "n_correct", "visit_hits", "gt_count",
 ENGINE_FIELDS = ("admitted_steps", "unique_frames", "content_steps",
                  "replay_steps", "model_epoch", "model_swaps",
                  "rescue_pairs", "admitted_tiles", "unique_tiles")
+#: phase 16's model, the dense zoo's yi-6b (configs/yi_6b.py) at full
+#: width: (a) two layers in float32, held to a CPU rerun, forward over
+#: S + steps tokens, prefill of S, then ``steps`` decode steps; (b) all 32
+#: layers in bfloat16, prefill of S tokens into ``max_len`` slots, then
+#: ``steps`` greedy decode steps
+ZOO_ARCH = "yi_6b"
+ZOO_CHECK = dict(layers=2, B=2, S=128, steps=4)
+ZOO_SERVE = dict(B=8, S=1024, max_len=2048, steps=32)
+#: the CPU tests' float32 tolerance (tests/test_torch_models.py), the
+#: reference's own decode-against-forward bound
+ZOO_TOL = 2e-4
+#: decode steps of phase 16's profiled window
+ZOO_PROFILED = 4
 #: worker processes for the CPU reruns of phases 11, 12, 13 and 15
 #: (``cpu_job``)
 CPU_WORKERS = 3
@@ -1742,6 +1776,327 @@ def hold_output(torch, name, label, args, kwargs, out, tol):
     return close_enough(torch, label, out, plain(name)(*args, **kwargs), tol)
 
 
+def tree_to(tree, device):
+    """A parameter tree (dicts and lists of tensors) copied to
+    ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def phase_zoo(torch, np, errs):
+    """Phase 16, the dense zoo's serving path (see the module docstring).
+    ``errs`` takes the attention holds' errors; returns the flash and
+    decode kernels' ``zoo`` entries for the kernels line."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.benchmarks import kernels_bench
+    from repro_torch.benchmarks.kernels_bench import device_ms
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, flash_attention, ref
+    from repro_torch.models import attention
+
+    t_phase = time.perf_counter()
+    full = get_config(ZOO_ARCH)
+    rng = np.random.default_rng(16)
+
+    def reset():
+        flash_attention.LAUNCHES = decode_attention.LAUNCHES = 0
+
+    def launches():
+        return flash_attention.LAUNCHES, decode_attention.LAUNCHES
+
+    # (a) two layers at full width in float32, the card against the CPU
+    a = ZOO_CHECK
+    cfg = dataclasses.replace(full, num_layers=a["layers"], dtype="float32")
+    S, steps = a["S"], a["steps"]
+    tokens = rng.integers(0, cfg.vocab_size, (a["B"], S + steps))
+
+    def check_run(params, device):
+        toks = torch.as_tensor(tokens, device=device)
+        whole = models.forward(params, {"tokens": toks}, cfg,
+                               device=device)[0]
+        lg, st = models.prefill(params, {"tokens": toks[:, :S]}, cfg,
+                                max_len=S + steps, device=device)
+        out = [lg]
+        for i in range(steps):
+            lg, st = models.decode_step(params, st, toks[:, S + i], cfg,
+                                        device=device)
+            out.append(lg)
+        return dict(forward=whole, steps=torch.stack(out, 1),
+                    k=st["kv"]["k"], v=st["kv"]["v"])
+
+    params = models.init_params(cfg, seed=16, device=DEVICE)
+    reset()
+    card = check_run(params, DEVICE)
+    got = launches()
+    if got != (a["layers"] * 2, a["layers"] * steps):
+        fail(f"[16 zoo] (a): launches flash {got[0]}, decode {got[1]}; "
+             f"want {a['layers'] * 2} (layers x 2 passes) and "
+             f"{a['layers'] * steps} (layers x steps)")
+    t0 = time.perf_counter()
+    host = check_run(tree_to(params, "cpu"), "cpu")
+    host_s = time.perf_counter() - t0
+    diffs = {}
+    for name, want in host.items():
+        g = card[name].cpu()
+        diffs[name] = float((g - want).abs().max())
+        if g.shape != want.shape or not torch.allclose(
+                g, want, rtol=ZOO_TOL, atol=ZOO_TOL):
+            fail(f"[16 zoo] (a) {name}: card differs from the CPU rerun "
+                 f"(max abs {diffs[name]:.3g}, tolerance {ZOO_TOL})")
+    along = card["forward"][:, S - 1:S + steps]
+    own = float((card["steps"] - along).abs().max())
+    if not torch.allclose(card["steps"], along, rtol=ZOO_TOL, atol=ZOO_TOL):
+        fail(f"[16 zoo] (a): card decode differs from card forward (max "
+             f"abs {own:.3g}, tolerance {ZOO_TOL})")
+    say(f"[16 zoo] (a) {full.name} at full width, {a['layers']} layers, "
+        f"float32, B {a['B']}: forward over {S + steps} tokens, prefill of "
+        f"{S}, {steps} decode steps; card against the CPU rerun (max abs "
+        f"err: forward {diffs['forward']:.3g}, prefill and decode logits "
+        f"{diffs['steps']:.3g}, caches {max(diffs['k'], diffs['v']):.3g}; "
+        f"tolerance {ZOO_TOL}); card decode against card forward "
+        f"{own:.3g}; launches flash {got[0]}, decode {got[1]}; CPU rerun "
+        f"{host_s:.1f} s")
+    del params, card, host
+    torch.cuda.empty_cache()
+
+    # (b) all 32 layers in bfloat16: prefill, then greedy decode
+    b = ZOO_SERVE
+    cfg, L = full, full.num_layers
+    S, steps = b["S"], b["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = models.init_params(cfg, seed=17, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    item = leaves[0].element_size()
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b["B"], S)),
+                             device=DEVICE)
+
+    def serve(timed: bool):
+        """Prefill and ``steps`` greedy decode steps; (prefill seconds,
+        per-step ms, logits (B, 1 + steps, V), the last logits and
+        state)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, st = models.prefill(params, {"tokens": prompt}, cfg,
+                                max_len=b["max_len"], device=DEVICE)
+        if timed:
+            torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out, step_ms = [lg], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            lg, st = models.decode_step(params, st, lg.argmax(-1), cfg,
+                                        device=DEVICE)
+            if timed:
+                torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(lg)
+        return prefill_s, step_ms, torch.stack(out, 1), lg, st
+
+    # the warm-up run holds the first and last layer's attention, at the
+    # prefill and at the last decode step, to the plain versions
+    holds, kept, calls = [], {}, {"flash": 0, "decode": 0}
+    flash_at = {0: "first", L - 1: "last"}
+    decode_at = {(steps - 1) * L: "first", steps * L - 1: "last"}
+    base_flash = attention.blockwise_attention
+    base_decode = attention.decode_attention
+
+    def flash_hook(q, k, v, cfg_, *, causal=True):
+        out = base_flash(q, k, v, cfg_, causal=causal)
+        n, calls["flash"] = calls["flash"], calls["flash"] + 1
+        if n in flash_at:
+            label = (f"[16 zoo] flash_attention, prefill, {flash_at[n]} "
+                     f"layer")
+            holds.append((label, close_enough(
+                torch, label, out, ref.flash_attention_ref(
+                    q, k, v, causal=causal), ATTN_TOL["bfloat16"]),
+                BF16_SHARES[-1][1]))
+            kept.setdefault("flash_attention", ((q, k, v),
+                                                dict(causal=causal)))
+        return out
+
+    def decode_hook(q, k_cache, v_cache, length, cfg_):
+        out = base_decode(q, k_cache, v_cache, length, cfg_)
+        n, calls["decode"] = calls["decode"], calls["decode"] + 1
+        if n in decode_at:
+            label = (f"[16 zoo] decode_attention, decode step {steps}, "
+                     f"{decode_at[n]} layer")
+            holds.append((label, close_enough(
+                torch, label, out, ref.decode_attention_ref(
+                    q, k_cache, v_cache, length), ATTN_TOL["bfloat16"]),
+                BF16_SHARES[-1][1]))
+            kept.setdefault("decode_attention", (
+                (q, k_cache.clone(), v_cache.clone(), length), {}))
+        return out
+
+    attention.blockwise_attention = flash_hook
+    attention.decode_attention = decode_hook
+    try:
+        serve(timed=False)
+    finally:
+        attention.blockwise_attention = base_flash
+        attention.decode_attention = base_decode
+    if len(holds) != 4:
+        fail(f"[16 zoo] (b): {len(holds)} attention holds, want 4")
+
+    reset()
+    prefill_s, step_ms, logits, lg, st = serve(timed=True)
+    got = launches()
+    if got != (L, L * steps):
+        fail(f"[16 zoo] (b): launches flash {got[0]}, decode {got[1]}; "
+             f"want {L} (layers x 1 pass) and {L * steps} (layers x "
+             f"steps)")
+    if not bool(torch.isfinite(logits).all()):
+        fail("[16 zoo] (b): a logit is not finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+
+    # yardsticks: prefill's operations (the layers' matmuls, causal
+    # attention, the last position's unembedding) at the bfloat16 peak;
+    # a decode step's bytes (every weight but the embedding table once, B
+    # embedding rows, the live cache at the last step) over HBM's rate
+    tok = params["embed"]["tok"]
+    layer_elems = sum(t.numel() for t in tree_leaves(params["layers"]))
+    pairs = S * (S + 1) / 2
+    prefill_flops = (2.0 * layer_elems * b["B"] * S
+                     + 4.0 * L * b["B"] * cfg.num_heads * pairs
+                     * cfg.head_dim
+                     + 2.0 * cfg.d_model * cfg.vocab_size * b["B"])
+    prefill_bound = prefill_flops / kernels_bench.BF16_FLOPS * 1e3
+    cache_live = (2.0 * L * b["B"] * cfg.num_kv_heads * (S + steps)
+                  * cfg.head_dim * item)
+    step_bytes = (weight_bytes - tok.numel() * item
+                  + b["B"] * cfg.d_model * item + cache_live)
+    step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    ms = sorted(step_ms)
+    zoo_line = dict(
+        config=f"{cfg.name} {L} layers bfloat16 B {b['B']} prefill "
+               f"{S} max_len {b['max_len']} steps {steps}",
+        weights_gb=weight_bytes / 1e9, init_s=init_s, prefill_s=prefill_s,
+        prefill_tokens_per_s=b["B"] * S / prefill_s,
+        prefill_bound_ms=prefill_bound,
+        decode_ms_mean=sum(step_ms) / steps, decode_ms_p50=ms[steps // 2],
+        decode_ms_min=ms[0], decode_ms_max=ms[-1],
+        decode_bound_ms=step_bound, peak_gb=peak_gb)
+    say(f"[16 zoo] (b) {cfg.name}, {L} layers, bfloat16, weights "
+        f"{weight_bytes / 1e9:.2f} GB made in {init_s:.1f} s; prefill B "
+        f"{b['B']} x S {S} into max_len {b['max_len']}: "
+        f"{prefill_s * 1e3:.1f} ms, {b['B'] * S / prefill_s:.0f} tokens/s "
+        f"(operations bound {prefill_bound:.1f} ms: "
+        f"{prefill_flops / 1e12:.2f} TFLOP at 989 TFLOP/s); {steps} greedy "
+        f"decode steps: mean {zoo_line['decode_ms_mean']:.3f} ms/step, p50 "
+        f"{ms[steps // 2]:.3f}, min {ms[0]:.3f}, max {ms[-1]:.3f} (byte "
+        f"bound {step_bound:.3f} ms: {step_bytes / 1e9:.2f} GB, the live "
+        f"cache {cache_live / 1e9:.3f} GB of it, over 3.35 TB/s); "
+        f"launches flash {got[0]} (= {L} layers x 1 pass), decode {got[1]} "
+        f"(= {L} layers x {steps} steps); every logit finite; peak memory "
+        f"{peak_gb:.2f} GB")
+    for label, err, share in holds:
+        say(f"{label}: agrees with the plain version (max abs err "
+            f"{err:.3g}, bfloat16 bit-equal {share:.4f})")
+
+    # where the time goes: a prefill and ZOO_PROFILED further decode steps
+    # under torch.profiler (device activity only), after the counted run
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def profiled(label, fn, n):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        attn_ms = sum(e.self_device_time_total for e in events
+                      if "flash" in e.key or "decode_" in e.key) / 1e3
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
+        say(f"[16 zoo] {label} profiled: device busy {busy / n:.3f} ms of "
+            f"{wall / n:.3f} ms host clock a pass ({100 * busy / wall:.1f} "
+            f"% busy), the attention kernels {attn_ms / n:.3f} ms of it; "
+            f"{sum(e.count for e in events) / n:.0f} device operations a "
+            f"pass; most device time: " + "; ".join(
+                f"{e.key[:50]} {e.self_device_time_total / 1e3 / n:.3f} ms "
+                f"x{e.count / n:g}" for e in top))
+        return dict(busy_share=busy / wall, device_ms=busy / n,
+                    attention_ms=attn_ms / n,
+                    ops=sum(e.count for e in events) / n)
+
+    state = {"lg": lg, "st": st}
+
+    def more_steps():
+        for _ in range(ZOO_PROFILED):
+            state["lg"], state["st"] = models.decode_step(
+                params, state["st"], state["lg"].argmax(-1), cfg,
+                device=DEVICE)
+
+    prefill_profile = profiled("prefill", lambda: models.prefill(
+        params, {"tokens": prompt}, cfg, max_len=b["max_len"],
+        device=DEVICE), 1)
+    decode_profile = profiled(f"{ZOO_PROFILED} decode steps", more_steps,
+                              ZOO_PROFILED)
+    del state, lg, st
+    zoo_line.update(prefill_profile=prefill_profile,
+                    decode_profile=decode_profile)
+
+    # the two kernels at the model's shapes, the warm-up run's inputs
+    zoo = {}
+    for name, (args, kwargs) in kept.items():
+        op = getattr(flash_attention if name == "flash_attention"
+                     else decode_attention, name)
+        base = kernels_bench.plain(name)
+        b_ms, b_by = kernels_bench.bound_ms(
+            *kernels_bench.cost(name, args, kwargs),
+            kernels_bench.peak_flops(name, args))
+        lib = library_yardstick(torch, name, args, kwargs)
+        err = max(e for label, e, _ in holds if name in label)
+        errs[name] = max(errs[name], err)
+        zoo[name] = dict(
+            launches=got[0] if name == "flash_attention" else got[1],
+            shape=dict(B=args[0].shape[0], H=args[0].shape[1],
+                       KV=args[1].shape[1], T=args[1].shape[2],
+                       hd=args[0].shape[-1], dtype="bfloat16",
+                       **({"S": args[0].shape[2], "causal": True}
+                          if name == "flash_attention" else
+                          {"length": int(args[3].max())})),
+            ms=device_ms(lambda: op(*args, **kwargs)),
+            plain_ms=device_ms(lambda: base(*args, **kwargs), calls=1,
+                               replays=3),
+            library_ms=device_ms(lib), bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=err)
+        plan = flash_attention.flash_plan(args[0].shape[-1], args[0].dtype) \
+            if name == "flash_attention" else decode_attention.decode_plan(
+                *args[0].shape[:2], *args[1].shape[1:3], args[0].shape[-1],
+                args[0].dtype, torch.cuda.get_device_properties(
+                    0).multi_processor_count)
+        zoo[name]["shape"]["plan"] = str(plan)
+        t = zoo[name]
+        say(f"[16 zoo] {name} at {cfg.name}'s {t['shape']}: kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+            f"{t['library_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    zoo["flash_attention"]["serving"] = zoo_line
+    say(f"[16 zoo] phase {time.perf_counter() - t_phase:.1f} s")
+    return zoo
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One ``kernel<template args>: R registers, S/L bytes spilled`` item
     per entry function of an ``nvcc -Xptxas -v`` log."""
@@ -2633,6 +2988,8 @@ def main() -> int:
     # -- phase 15: the benchmark suite --------------------------------------
     suite = phase_suite(torch, recorder, (camera, tiles), max_err,
                             suite_reruns)
+    # -- phase 16: the dense zoo's serving path ------------------------------
+    zoo = phase_zoo(torch, np, errs)
     camera_row["max_abs_err"] = max_err[CAMERA["name"]]
     tiles_row["max_abs_err"] = max_err[TILES["name"]]
 
@@ -2647,7 +3004,8 @@ def main() -> int:
              fleet_launches=fleet["tiles"],
              suite_launches=suite["tiles"])]
         + [dict(BENCH[name], launches=bench_launches[name],
-                max_abs_err=errs[name], **bench[name], model=widths[name])
+                max_abs_err=errs[name], **bench[name], model=widths[name],
+                **({"zoo": zoo[name]} if name in zoo else {}))
            for name in BENCH]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

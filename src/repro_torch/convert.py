@@ -2,7 +2,10 @@
 
 The JAX package's model fields, read out as numpy arrays, become the
 port's ``SpatioTemporalModel`` here, so both engines can be handed the
-same M; the profiler builds its model through the same function."""
+same M; the profiler builds its model through the same function.  The
+backbone zoo's parameters and decode state cross the same way
+(``params_from_numpy``, ``decode_state_from_numpy``,
+``decode_state_to_numpy``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -10,6 +13,10 @@ import torch
 
 from repro_torch.core.correlation import FIELDS, SpatioTemporalModel
 from repro_torch.core.policy import PhaseState
+from repro_torch.device import resolve_device
+from repro_torch.models.attention import head_mask
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import check_family
 
 _MODEL_DTYPES = dict(S=np.float32, exit_frac=np.float32, cdf=np.float32,
                      f0=np.int32, entry=np.float32, counts=np.float32)
@@ -51,3 +58,67 @@ def phase_state_from_numpy(fields: dict, device="cpu") -> PhaseState:
         f: torch.from_numpy(np.ascontiguousarray(
             np.asarray(fields[f]).astype(dt))).to(device)
         for f, dt in _STATE_DTYPES.items()})
+
+
+def _tensor(a, dtype, dev) -> torch.Tensor:
+    """A copy of a numpy array (float32, or bfloat16 as the JAX package
+    reads one out) as a tensor of ``dtype`` on ``dev``, through float32,
+    which holds both exactly."""
+    return torch.tensor(np.asarray(a, dtype=np.float32)).to(device=dev,
+                                                            dtype=dtype)
+
+
+def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
+    """The reference's parameter tree (``repro.models.init_params`` read
+    out as numpy: layers stacked on axis 0, query heads padded to
+    ``cfg.num_padded_heads``) as the port's parameters on ``device``: one
+    dict a layer; the pad heads' columns of ``wq`` and ``bq`` and rows of
+    ``wo`` dropped, so the port runs ``cfg.num_heads`` heads (the pads are
+    zero and masked in the reference, so the output is unchanged); the
+    norms in ``cfg.param_dtype`` and every other tensor cast once to
+    ``cfg.dtype``, the casts the reference makes at each use."""
+    check_family(cfg)
+    dev = resolve_device(device)
+    dt, pdt = getattr(torch, cfg.dtype), getattr(torch, cfg.param_dtype)
+    mask = head_mask(cfg)
+    real = slice(None) if mask is None else np.repeat(mask > 0, cfg.head_dim)
+
+    def leaf(group: str, name: str, a):
+        if group == "attn" and name in ("wq", "bq"):
+            a = a[..., real]
+        elif group == "attn" and name == "wo":
+            a = a[real]
+        return _tensor(a, pdt if group in ("ln1", "ln2", "final_norm")
+                       else dt, dev)
+
+    stacked = tree["layers"]
+    return {
+        "embed": {n: leaf("embed", n, a) for n, a in tree["embed"].items()},
+        "final_norm": {n: leaf("final_norm", n, a)
+                       for n, a in tree["final_norm"].items()},
+        "layers": [{group: {n: leaf(group, n, np.asarray(a)[layer])
+                            for n, a in sub.items()}
+                    for group, sub in stacked.items()}
+                   for layer in range(cfg.num_layers)]}
+
+
+def decode_state_from_numpy(cfg: ModelConfig, state: dict,
+                            device="cuda") -> dict:
+    """The reference's decode state (``pos`` and caches (L,B,T,KV,hd),
+    read out as numpy) as the port's: ``pos`` an int and caches
+    (L,B,KV,T,hd) in ``cfg.dtype`` on ``device``."""
+    check_family(cfg)
+    dev = resolve_device(device)
+    dt = getattr(torch, cfg.dtype)
+    return {"pos": int(state["pos"]), "kv": {
+        n: _tensor(state["kv"][n], dt, dev).permute(0, 1, 3, 2, 4)
+        .contiguous() for n in ("k", "v")}}
+
+
+def decode_state_to_numpy(state: dict) -> dict:
+    """The port's decode state in the reference's layout: ``pos`` an
+    int32 scalar and caches (L,B,T,KV,hd) as float32 arrays (numpy has no
+    bfloat16; float32 holds a bfloat16 cache's values exactly)."""
+    return {"pos": np.int32(state["pos"]), "kv": {
+        n: state["kv"][n].permute(0, 1, 3, 2, 4).float().cpu().numpy()
+        for n in ("k", "v")}}

@@ -1,0 +1,237 @@
+"""Model assembly: init / forward / prefill / decode, the counterpart of
+``repro.models.model`` for the dense family (llama-style GQA + SwiGLU:
+deepseek, yi, phi3, and command-r's parallel block with LayerNorm).
+
+Parameters are a dict as in the reference, with one dict a layer in
+``params["layers"]`` where the reference stacks the layers on axis 0 for
+``lax.scan``; the weights are held in ``cfg.dtype`` (see ``layers``).
+The decode state is ``{"pos": int, "kv": {"k", "v"}}``, the caches
+(L, B, KV, T, hd) in ``cfg.dtype``: the kernels' head-major layout, so a
+decode step writes its token's K/V in place at ``pos`` and hands each
+layer's cache to the decode kernel as it lies.
+
+Every entry point takes ``device=`` (default ``"cuda"``, which raises
+without a card; ``"cpu"`` runs the kernels' plain versions) and expects
+the parameters, and a given state, on that device.  On the card, each
+prefill or forward launches the flash kernel once a layer, and each
+decode step the decode kernel once a layer.
+
+Only the dense family is ported.  The other families raise
+``NotImplementedError`` naming the slice of ``ROADMAP.md`` (Queue 1, item
+2) that will port them.  The reference's remat, ``scan_layers``, mesh
+constraints, logical axes, ``abstract_params``, sequence-sharded caches
+and ``lm_loss`` (training) have no counterpart here.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (Params, _dtype, apply_mlp, apply_norm,
+                                       embed_tokens, init_embed, init_mlp,
+                                       init_norm, unembed)
+
+#: the slice of ROADMAP.md's Queue 1 item 2 that ports each other family
+PENDING_SLICES = {
+    "ssm": "the Mamba1 slice (falcon-mamba-7b, the scan kernel)",
+    "hybrid": "the hybrid slice (zamba2: Mamba2 SSD and the shared "
+              "attention block)",
+    "moe": "the MoE slice (phi3.5-moe, qwen3-moe)",
+    "vlm": "the VLM slice (qwen2-vl, M-RoPE, the vision stub)",
+    "audio": "the audio slice (whisper: encoder and cross attention)",
+}
+
+
+def check_family(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` unless ``cfg`` is of the dense
+    family, the one this package ports."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet; "
+            f"ROADMAP.md Queue 1 item 2(a) queues it as "
+            f"{PENDING_SLICES[cfg.family]}")
+
+
+def _check_on(params: Params, dev: torch.device) -> None:
+    where = params["embed"]["tok"].device
+    if where.type != dev.type:
+        raise ValueError(f"the parameters are on {where}, device={dev}")
+
+
+def _tokens(tokens, dev: torch.device) -> torch.Tensor:
+    t = torch.as_tensor(tokens, device=dev)
+    if t.dtype.is_floating_point or t.dtype == torch.bool:
+        raise TypeError(f"tokens must be integers, got {t.dtype}")
+    return t.long()
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _init_dense_layer(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    p: Params = {"ln1": init_norm(cfg, gen.device),
+                 "attn": attn.init_attention(gen, cfg)}
+    if not cfg.parallel_block:
+        p["ln2"] = init_norm(cfg, gen.device)
+    p["mlp"] = init_mlp(gen, cfg)
+    return p
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Params:
+    """Random parameters drawn on ``device`` from a ``torch.Generator``
+    seeded with ``seed``, with the reference's distributions (truncated
+    normal at fan-in scale, embeddings normal x 0.02, norms ones and
+    zeros)."""
+    check_family(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {"embed": init_embed(gen, cfg),
+            "final_norm": init_norm(cfg, dev),
+            "layers": [_init_dense_layer(gen, cfg)
+                       for _ in range(cfg.num_layers)]}
+
+
+# ---------------------------------------------------------------------------
+# layer application (forward / prefill / decode share one code path)
+# ---------------------------------------------------------------------------
+
+def _dense_layer_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig,
+                       positions, *, cache=None, pos: int = 0, length=None):
+    """One dense block over x (B,S,D).  Without ``cache``, causal
+    attention over x's own tokens (the flash kernel).  With ``cache``, a
+    layer's (k, v) caches (B,KV,T,hd), x is one token at ``pos``: its K/V
+    are written into the caches in place and it attends over the first
+    ``length`` (B,) keys (the decode kernel).  Returns (x_out, k, v), k
+    and v (B,KV,S,hd) of x's tokens.  The parallel block (command-r) sums
+    attention and MLP as the reference's default ``PerfFlags`` do
+    (``parallel_fused_ar`` off)."""
+    h = apply_norm(lp["ln1"], x, cfg)
+    q, k, v = attn.qkv_project(lp["attn"], h, cfg, positions)
+    if cache is None:
+        o = attn.blockwise_attention(q, k, v, cfg)
+    else:
+        ck, cv = cache
+        ck[:, :, pos] = k[:, :, 0]
+        cv[:, :, pos] = v[:, :, 0]
+        o = attn.decode_attention(q[:, :, 0], ck, cv, length, cfg)[:, :, None]
+    a_out = attn.attn_output(lp["attn"], o, cfg)
+    if cfg.parallel_block:
+        return x + a_out + apply_mlp(lp["mlp"], h, cfg), k, v
+    x = x + a_out
+    h2 = apply_norm(lp["ln2"], x, cfg)
+    return x + apply_mlp(lp["mlp"], h2, cfg), k, v
+
+
+def _positions(B: int, S: int, dev: torch.device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S)
+
+
+# ---------------------------------------------------------------------------
+# trunk forward (full teacher-forced sequence -> final hidden)
+# ---------------------------------------------------------------------------
+
+def forward_hidden(params: Params, batch: dict, cfg: ModelConfig, *,
+                   device="cuda"):
+    """Returns (hidden (B,S,D) after the final norm, aux losses dict; the
+    dense family's are zero)."""
+    check_family(cfg)
+    dev = resolve_device(device)
+    _check_on(params, dev)
+    tokens = _tokens(batch["tokens"], dev)
+    x = embed_tokens(params["embed"], tokens, cfg)
+    positions = _positions(*tokens.shape, dev)
+    for lp in params["layers"]:
+        x, _, _ = _dense_layer_apply(lp, x, cfg, positions)
+    x = apply_norm(params["final_norm"], x, cfg)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return x, {"moe_aux": zero, "moe_z": zero}
+
+
+def forward(params: Params, batch: dict, cfg: ModelConfig, *, device="cuda"):
+    """Full logits (B,S,V) in ``cfg.dtype`` and the aux dict."""
+    h, aux = forward_hidden(params, batch, cfg, device=device)
+    return unembed(params["embed"], h, cfg), aux
+
+
+# ---------------------------------------------------------------------------
+# decode: state init / prefill / single-token step
+# ---------------------------------------------------------------------------
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
+                      device="cuda") -> dict:
+    """An empty decode state: ``pos`` 0 and zeroed caches
+    (L, batch, KV, max_len, hd) in ``cfg.dtype``."""
+    check_family(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    return {"pos": 0, "kv": {
+        "k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+        "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev)}}
+
+
+def _fill_state(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                state: dict) -> torch.Tensor:
+    """One pass over the trunk that writes each layer's K/V of
+    ``tokens`` (B,S) into the first S slots of ``state``'s caches (each
+    layer's q/k/v computed once, where the reference computes them twice
+    with the same numbers); returns the hidden state before the final
+    norm."""
+    B, S = tokens.shape
+    x = embed_tokens(params["embed"], tokens, cfg)
+    positions = _positions(B, S, tokens.device)
+    ck, cv = state["kv"]["k"], state["kv"]["v"]
+    for layer, lp in enumerate(params["layers"]):
+        x, k, v = _dense_layer_apply(lp, x, cfg, positions)
+        ck[layer, :, :, :S] = k
+        cv[layer, :, :, :S] = v
+    return x
+
+
+def prefill(params: Params, batch: dict, cfg: ModelConfig,
+            max_len: int | None = None, *, device="cuda"):
+    """Prefill: one trunk pass that emits (last-position logits (B,V), a
+    decode state whose caches of ``max_len or S`` slots hold the prompt's
+    K/V, ``pos`` = S)."""
+    check_family(cfg)
+    dev = resolve_device(device)
+    _check_on(params, dev)
+    tokens = _tokens(batch["tokens"], dev)
+    B, S = tokens.shape
+    max_len = max_len or S
+    if max_len < S:
+        raise ValueError(f"max_len={max_len} is shorter than the prompt's "
+                         f"{S} tokens")
+    state = init_decode_state(cfg, B, max_len, device=dev)
+    x = _fill_state(params, tokens, cfg, state)
+    state["pos"] = S
+    h = apply_norm(params["final_norm"], x[:, -1:], cfg)
+    return unembed(params["embed"], h, cfg)[:, 0], state
+
+
+def decode_step(params: Params, state: dict, token, cfg: ModelConfig, *,
+                device="cuda"):
+    """token: (B,) integers.  Returns (logits (B,V), new state).  The new
+    state shares the given state's caches, into which this step writes
+    its token's K/V at ``pos``: the given state is consumed."""
+    check_family(cfg)
+    dev = resolve_device(device)
+    _check_on(params, dev)
+    pos = int(state["pos"])
+    ck, cv = state["kv"]["k"], state["kv"]["v"]
+    if pos >= ck.shape[3]:
+        raise ValueError(f"the cache's {ck.shape[3]} slots are full "
+                         f"(pos {pos})")
+    token = _tokens(token, dev)
+    B = token.shape[0]
+    x = embed_tokens(params["embed"], token[:, None], cfg)          # (B,1,D)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=dev)
+    length = torch.full((B,), pos + 1, dtype=torch.int32, device=dev)
+    for layer, lp in enumerate(params["layers"]):
+        x, _, _ = _dense_layer_apply(lp, x, cfg, positions,
+                                     cache=(ck[layer], cv[layer]), pos=pos,
+                                     length=length)
+    x = apply_norm(params["final_norm"], x, cfg)
+    return unembed(params["embed"], x, cfg)[:, 0], dict(state, pos=pos + 1)

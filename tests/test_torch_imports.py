@@ -34,7 +34,10 @@ def test_every_port_module_imports_without_jax_or_repro():
                  "runtime.recal", "benchmarks.drift",
                  "benchmarks.scenarios", "runtime.fleet", "runtime.cluster",
                  "runtime.transport", "runtime.gallery", "benchmarks.tables",
-                 "benchmarks.run", "examples.serve_streams"):
+                 "benchmarks.run", "examples.serve_streams",
+                 "models", "models.config", "models.layers",
+                 "models.attention", "models.model", "configs",
+                 "configs.yi_6b", "configs.command_r_plus_104b"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
