@@ -67,7 +67,8 @@ Phases, one line or block each:
      the scan at state sizes 1, 3, 4, 8, 16, 17, 64 and 300 (tiled), L of
      1, one below, at and one past the plan's chunk and 4,097 at D of 1,
      63 and 65, B = 65,536 at L = D = N = 1, A = 0 over 4,096 steps (the
-     state only accumulates) and dt = 0 (y must be 0).  Top-k scores
+     state only accumulates) and dt = 0 (y must be 0), and under 8 forced
+     plans with the end state h_L as well.  Top-k scores
      within 1e-5 (indices as in phase 3), attention within 2e-5 in float32
      and 2e-2 in bfloat16, where besides at least 99 % of the outputs must
      equal the plain version's bit for bit (p stays float32, as in the
@@ -95,7 +96,12 @@ Phases, one line or block each:
      partial and combine
      times; the scan at falcon-mamba-7b's D = 8,192, N = 16 over 4,096
      steps, with its plan.  Attention (float32) and scan within 1e-4,
-     bfloat16 attention held as in phase 8;
+     bfloat16 attention held as in phase 8.  Then the scan's end state
+     (``final_state=True``, one launch writing y and h_L) held, y and h_L
+     within 1e-4, at four shapes (``END_STATE_SHAPES``: the bench shape,
+     three passes; falcon-mamba-7b's width, one pass; N = 320, two tiles;
+     L = 1,001), its y equal bit for bit to the call without the end
+     state;
  11. the batched tracker (``repro_torch.api.track``) on the card: (a) the
      quickstart world through ``repro_torch.examples.quickstart.main``
      (1,200 entities, 2,400 steps, profiled to 1,600, K = 24, 25 queries,
@@ -225,6 +231,27 @@ Phases, one line or block each:
      give the device's busy share; both kernels are timed at the model's
      shapes beside their plain versions, bounds and library calls (the
      ``zoo`` entries of the kernels line).
+ 17. the Mamba1 zoo's serving path at falcon-mamba-7b's full width
+     (configs/falcon_mamba_7b.py: d_model 4,096, d_inner 8,192, N 16,
+     dt_rank 256, conv 4, vocab 65,024, tied embeddings), random weights
+     drawn on the card from a seeded ``torch.Generator``, phase 16's
+     freed first: (a) two layers in float32, B = 2: ``forward`` over 132
+     tokens, ``prefill`` of 128 and 4 ``decode_step``s, held to a CPU
+     rerun on the same weights (logits, the prefill's h and conv and the
+     last step's, within 2e-4), and the card's decode logits to its
+     forward logits; scan launches 2 a forward, 2 a prefill, none in the
+     steps; (b) all 64 layers in bfloat16 (14.0 GB of weights), B = 8:
+     ``prefill`` of 1,024 tokens, then 32 greedy decode steps, timed
+     (prefill tokens/s against the matmuls' operations at the bfloat16
+     peak plus the scan's at the fp32 peak; decode ms a step against the
+     bytes of every weight and of the state read and written); a warm-up
+     run first holds the first and last layer's scan, y and h_L, to the
+     plain version on the card within 1e-4; scan launches 64 a prefill
+     and none a step; no logit NaN or infinite; a profiled prefill and 4
+     steps; the scan timed at the model's activations (B 8, L 1,024, D
+     8,192, N 16) with and without the end state, beside its plain
+     version and its byte bound (the scan's ``zoo`` entry of the kernels
+     line, with phase 10's end-state holds).
 
 The CPU reruns of phases 11, 12, 13 and 15 run in three worker processes
 of one thread each (``cpu_job``) while the card runs go on: the
@@ -261,6 +288,7 @@ last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -339,6 +367,15 @@ MODEL_SHAPES = [
     # ResNet-50 re-id embedding's 2,048 features
     ("reid_topk", "stress", dict(Q=256, G=8192, D=2048, k=16), "float32"),
 ]
+#: phase 10's holds of the scan's end state h_L: the bench shape (three
+#: passes), falcon-mamba-7b's width (one pass), a state axis of two tiles
+#: and a ragged L
+END_STATE_SHAPES = [
+    ("bench", dict(B=1, L=1024, D=256, N=16)),
+    ("falcon-mamba-7b", dict(B=1, L=4096, D=8192, N=16)),
+    ("two tiles", dict(B=2, L=300, D=65, N=320)),
+    ("ragged", dict(B=2, L=1001, D=192, N=16)),
+]
 TILE = 64                   # the split kernels' (query, gallery) tile,
                             # reid_topk.SPLIT_QB = SPLIT_GB
 HOLD_ROWS = 8               # decode rows the plain version holds at once
@@ -378,6 +415,14 @@ ZOO_SERVE = dict(B=8, S=1024, max_len=2048, steps=32)
 ZOO_TOL = 2e-4
 #: decode steps of phase 16's profiled window
 ZOO_PROFILED = 4
+#: phase 17's model, the Mamba1 zoo's falcon-mamba-7b
+#: (configs/falcon_mamba_7b.py) at full width: (a) 2 layers in float32
+#: beside a CPU rerun, (b) all 64 layers in bfloat16, served
+SSM_ARCH = "falcon_mamba_7b"
+SSM_CHECK = dict(layers=2, B=2, S=128, steps=4)
+SSM_SERVE = dict(B=8, S=1024, steps=32)
+#: decode steps of phase 17's profiled window
+SSM_PROFILED = 4
 #: worker processes for the CPU reruns of phases 11, 12, 13 and 15
 #: (``cpu_job``)
 CPU_WORKERS = 3
@@ -1776,6 +1821,38 @@ def hold_output(torch, name, label, args, kwargs, out, tol):
     return close_enough(torch, label, out, plain(name)(*args, **kwargs), tol)
 
 
+def profile_passes(torch, label, fn, n, kernels, what):
+    """Run ``fn`` (``n`` passes) under ``torch.profiler``, device activity
+    only, and print the device's busy time against the host clock, the
+    share of it in the kernels whose names hold one of ``kernels`` (the
+    ``what`` kernels), the device operations and the four longest; returns
+    them a pass."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    mine = sum(e.self_device_time_total for e in events
+               if any(k in e.key for k in kernels)) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
+    say(f"{label} profiled: device busy {busy / n:.3f} ms of "
+        f"{wall / n:.3f} ms host clock a pass ({100 * busy / wall:.1f} "
+        f"% busy), the {what} kernels {mine / n:.3f} ms of it; "
+        f"{sum(e.count for e in events) / n:.0f} device operations a "
+        f"pass; most device time: " + "; ".join(
+            f"{e.key[:50]} {e.self_device_time_total / 1e3 / n:.3f} ms "
+            f"x{e.count / n:g}" for e in top))
+    return {"busy_share": busy / wall, "device_ms": busy / n,
+            f"{what}_ms": mine / n, "ops": sum(e.count for e in events) / n}
+
+
 def tree_to(tree, device):
     """A parameter tree (dicts and lists of tensors) copied to
     ``device``."""
@@ -2013,32 +2090,9 @@ def phase_zoo(torch, np, errs):
 
     # where the time goes: a prefill and ZOO_PROFILED further decode steps
     # under torch.profiler (device activity only), after the counted run
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     def profiled(label, fn, n):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in events) / 1e3
-        attn_ms = sum(e.self_device_time_total for e in events
-                      if "flash" in e.key or "decode_" in e.key) / 1e3
-        top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
-        say(f"[16 zoo] {label} profiled: device busy {busy / n:.3f} ms of "
-            f"{wall / n:.3f} ms host clock a pass ({100 * busy / wall:.1f} "
-            f"% busy), the attention kernels {attn_ms / n:.3f} ms of it; "
-            f"{sum(e.count for e in events) / n:.0f} device operations a "
-            f"pass; most device time: " + "; ".join(
-                f"{e.key[:50]} {e.self_device_time_total / 1e3 / n:.3f} ms "
-                f"x{e.count / n:g}" for e in top))
-        return dict(busy_share=busy / wall, device_ms=busy / n,
-                    attention_ms=attn_ms / n,
-                    ops=sum(e.count for e in events) / n)
+        return profile_passes(torch, f"[16 zoo] {label}", fn, n,
+                              ("flash", "decode_"), "attention")
 
     state = {"lg": lg, "st": st}
 
@@ -2095,6 +2149,309 @@ def phase_zoo(torch, np, errs):
     zoo["flash_attention"]["serving"] = zoo_line
     say(f"[16 zoo] phase {time.perf_counter() - t_phase:.1f} s")
     return zoo
+
+
+def phase_ssm_zoo(torch, np, errs):
+    """Phase 17, the Mamba1 zoo's serving path (see the module docstring).
+    ``errs`` takes the scan holds' errors; returns the scan's ``zoo``
+    entry for the kernels line."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.benchmarks import kernels_bench
+    from repro_torch.benchmarks.kernels_bench import device_ms
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mamba_scan, ref
+
+    t_phase = time.perf_counter()
+    gc.collect()                    # phase 16's weights go first
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    full = get_config(SSM_ARCH)
+    rng = np.random.default_rng(17)
+
+    # (a) two layers at full width in float32, the card against the CPU
+    a = SSM_CHECK
+    cfg = dataclasses.replace(full, num_layers=a["layers"], dtype="float32")
+    S, steps = a["S"], a["steps"]
+    tokens = rng.integers(0, cfg.vocab_size, (a["B"], S + steps))
+
+    def check_run(params, device):
+        """Forward, prefill and decode steps; with each pass's scan
+        launches on the card."""
+        toks = torch.as_tensor(tokens, device=device)
+        counts = []
+        mamba_scan.LAUNCHES = 0
+        whole = models.forward(params, {"tokens": toks}, cfg,
+                               device=device)[0]
+        counts.append(mamba_scan.LAUNCHES)
+        lg, st = models.prefill(params, {"tokens": toks[:, :S]}, cfg,
+                                device=device)
+        counts.append(mamba_scan.LAUNCHES - sum(counts))
+        out = dict(forward=whole, prefill_h=st["ssm"]["h"].clone(),
+                   prefill_conv=st["ssm"]["conv"].clone())
+        logits = [lg]
+        for i in range(steps):
+            lg, st = models.decode_step(params, st, toks[:, S + i], cfg,
+                                        device=device)
+            logits.append(lg)
+        counts.append(mamba_scan.LAUNCHES - sum(counts))
+        out.update(steps=torch.stack(logits, 1), h=st["ssm"]["h"],
+                   conv=st["ssm"]["conv"])
+        return out, counts
+
+    params = models.init_params(cfg, seed=18, device=DEVICE)
+    card, got = check_run(params, DEVICE)
+    want = [a["layers"], a["layers"], 0]
+    if got != want:
+        fail(f"[17 ssm] (a): scan launches forward {got[0]}, prefill "
+             f"{got[1]}, decode {got[2]}; want {want} (a launch a layer a "
+             f"pass, none a step)")
+    t0 = time.perf_counter()
+    host, _ = check_run(tree_to(params, "cpu"), "cpu")
+    host_s = time.perf_counter() - t0
+    diffs = {}
+    for name, want_t in host.items():
+        g = card[name].cpu()
+        diffs[name] = float((g - want_t).abs().max())
+        if g.shape != want_t.shape or not torch.allclose(
+                g, want_t, rtol=ZOO_TOL, atol=ZOO_TOL):
+            fail(f"[17 ssm] (a) {name}: card differs from the CPU rerun "
+                 f"(max abs {diffs[name]:.3g}, tolerance {ZOO_TOL})")
+    along = card["forward"][:, S - 1:S + steps]
+    own = float((card["steps"] - along).abs().max())
+    if not torch.allclose(card["steps"], along, rtol=ZOO_TOL, atol=ZOO_TOL):
+        fail(f"[17 ssm] (a): card decode differs from card forward (max "
+             f"abs {own:.3g}, tolerance {ZOO_TOL})")
+    say(f"[17 ssm] (a) {full.name} at full width, {a['layers']} layers, "
+        f"float32, B {a['B']}: forward over {S + steps} tokens, prefill of "
+        f"{S}, {steps} decode steps; card against the CPU rerun (max abs "
+        f"err: forward {diffs['forward']:.3g}, prefill and decode logits "
+        f"{diffs['steps']:.3g}, prefill h {diffs['prefill_h']:.3g} and "
+        f"conv {diffs['prefill_conv']:.3g}, final h {diffs['h']:.3g} and "
+        f"conv {diffs['conv']:.3g}; tolerance {ZOO_TOL}); card decode "
+        f"against card forward {own:.3g}; scan launches forward {got[0]}, "
+        f"prefill {got[1]}, decode {got[2]}; CPU rerun {host_s:.1f} s")
+    del params, card, host
+    torch.cuda.empty_cache()
+
+    # (b) all 64 layers in bfloat16: prefill, then greedy decode
+    b = SSM_SERVE
+    cfg, L = full, full.num_layers
+    S, steps = b["S"], b["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = models.init_params(cfg, seed=19, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b["B"], S)),
+                             device=DEVICE)
+
+    def serve(timed: bool):
+        """Prefill and ``steps`` greedy decode steps; (prefill seconds,
+        per-step ms, logits (B, 1 + steps, V), the last logits and
+        state)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, st = models.prefill(params, {"tokens": prompt}, cfg,
+                                device=DEVICE)
+        if timed:
+            torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out, step_ms = [lg], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            lg, st = models.decode_step(params, st, lg.argmax(-1), cfg,
+                                        device=DEVICE)
+            if timed:
+                torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(lg)
+        return prefill_s, step_ms, torch.stack(out, 1), lg, st
+
+    # the warm-up run holds the first and last layer's scan, y and h_L at
+    # the prefill, to the plain version on the card
+    holds, kept, calls = [], {}, [0]
+    base_scan = mamba_scan.mamba_scan
+
+    def scan_hook(*args, final_state=False):
+        out = base_scan(*args, final_state=final_state)
+        n, calls[0] = calls[0], calls[0] + 1
+        if n in (0, L - 1):
+            label = (f"[17 ssm] mamba_scan, prefill, "
+                     f"{'first' if n == 0 else 'last'} layer")
+            u = args[0]
+            want_y, want_h = ref.mamba_scan_ref(*args, torch.zeros(
+                (u.shape[0], u.shape[2], args[2].shape[2]), device=DEVICE))
+            holds.append((label,
+                          close_enough(torch, label, out[0], want_y,
+                                       SCAN_TOL),
+                          close_enough(torch, f"{label} h_L", out[1],
+                                       want_h, SCAN_TOL)))
+            kept.setdefault("args", args)
+        return out
+
+    mamba_scan.mamba_scan = scan_hook
+    try:
+        serve(timed=False)
+    finally:
+        mamba_scan.mamba_scan = base_scan
+    if len(holds) != 2 or calls[0] != L:
+        fail(f"[17 ssm] (b): {len(holds)} scan holds over {calls[0]} scan "
+             f"calls, want 2 over {L}")
+
+    mamba_scan.LAUNCHES = 0
+    prefill_s, step_ms, logits, lg, st = serve(timed=True)
+    launched = mamba_scan.LAUNCHES
+    if launched != L:
+        fail(f"[17 ssm] (b): scan launches {launched}, want {L} (layers x "
+             f"1 prefill, none in {steps} decode steps)")
+    if not bool(torch.isfinite(logits).all()):
+        fail("[17 ssm] (b): a logit is not finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # yardsticks: prefill's operations (the four projections' matmuls at
+    # the bfloat16 peak, the scan's at the fp32 CUDA cores', the last
+    # position's unembedding); a decode step's bytes (every weight, the
+    # tied embedding table read whole by the unembedding, and each layer's
+    # h and conv read and written) over HBM's rate
+    di, N, W = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    proj_elems = sum(lp["mamba"][n].numel() for lp in params["layers"]
+                     for n in ("in_proj", "x_proj", "dt_proj", "out_proj"))
+    mm_flops = (2.0 * proj_elems * b["B"] * S
+                + 2.0 * cfg.d_model * cfg.vocab_size * b["B"])
+    scan_flops = L * b["B"] * S * di * (7.0 * N + 1)
+    prefill_bound = (mm_flops / kernels_bench.BF16_FLOPS
+                     + scan_flops / kernels_bench.FP32_FLOPS) * 1e3
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in st["ssm"].values())
+    step_bytes = (weight_bytes + b["B"] * cfg.d_model * 2
+                  + 2.0 * state_bytes)
+    step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    ms = sorted(step_ms)
+    ssm_line = dict(
+        config=f"{cfg.name} {L} layers bfloat16 B {b['B']} prefill {S} "
+               f"steps {steps}",
+        weights_gb=weight_bytes / 1e9, init_s=init_s, prefill_s=prefill_s,
+        prefill_tokens_per_s=b["B"] * S / prefill_s,
+        prefill_bound_ms=prefill_bound,
+        decode_ms_mean=sum(step_ms) / steps, decode_ms_p50=ms[steps // 2],
+        decode_ms_min=ms[0], decode_ms_max=ms[-1],
+        decode_bound_ms=step_bound, state_gb=state_bytes / 1e9,
+        peak_gb=peak_gb)
+    say(f"[17 ssm] (b) {cfg.name}, {L} layers, bfloat16, weights "
+        f"{weight_bytes / 1e9:.2f} GB made in {init_s:.1f} s ({held_gb:.2f} "
+        f"GB held before); prefill B {b['B']} x S {S}: "
+        f"{prefill_s * 1e3:.1f} ms, {b['B'] * S / prefill_s:.0f} tokens/s "
+        f"(operations bound {prefill_bound:.1f} ms: {mm_flops / 1e12:.2f} "
+        f"TFLOP of matmuls at 989 TFLOP/s and {scan_flops / 1e12:.3f} of "
+        f"the scan at 67); {steps} greedy decode steps: mean "
+        f"{ssm_line['decode_ms_mean']:.3f} ms/step, p50 {ms[steps // 2]:.3f}"
+        f", min {ms[0]:.3f}, max {ms[-1]:.3f} (byte bound "
+        f"{step_bound:.3f} ms: {step_bytes / 1e9:.2f} GB, the state "
+        f"{state_bytes / 1e9:.3f} GB read and written, over 3.35 TB/s); "
+        f"scan launches {launched} (= {L} layers x 1 prefill, 0 a step); "
+        f"every logit finite; peak memory {peak_gb:.2f} GB")
+    for label, err_y, err_h in holds:
+        say(f"{label}: y and h_L agree with the plain version (max abs err "
+            f"{err_y:.3g} and {err_h:.3g})")
+
+    state = {"lg": lg, "st": st}
+
+    def more_steps():
+        for _ in range(SSM_PROFILED):
+            state["lg"], state["st"] = models.decode_step(
+                params, state["st"], state["lg"].argmax(-1), cfg,
+                device=DEVICE)
+
+    prefill_profile = profile_passes(
+        torch, "[17 ssm] prefill", lambda: models.prefill(
+            params, {"tokens": prompt}, cfg, device=DEVICE), 1,
+        ("scan_kernel",), "scan")
+    decode_profile = profile_passes(
+        torch, f"[17 ssm] {SSM_PROFILED} decode steps", more_steps,
+        SSM_PROFILED, ("scan_kernel",), "scan")
+    del state, lg, st, logits
+    ssm_line.update(prefill_profile=prefill_profile,
+                    decode_profile=decode_profile)
+
+    # the scan at the model's shape, the warm-up run's first layer
+    args = kept["args"]
+    u = args[0]
+    B_, L_, D_ = u.shape
+    N_ = args[2].shape[2]
+    plan = mamba_scan.scan_plan(
+        B_, L_, D_, N_, torch.cuda.get_device_properties(
+            0).multi_processor_count)
+    h0 = torch.zeros((B_, D_, N_), device=DEVICE)
+    b_ms, b_by = kernels_bench.bound_ms(*kernels_bench.cost(
+        "mamba_scan", args, {"final_state": True}))
+    err_y = max(e for _, e, _ in holds)
+    err_h = max(e for _, _, e in holds)
+    errs["mamba_scan"] = max(errs["mamba_scan"], err_y, err_h)
+    zoo = dict(
+        launches=launched,
+        shape=dict(B=B_, L=L_, D=D_, N=N_, final_state=True, plan=str(plan)),
+        ms=device_ms(lambda: mamba_scan.mamba_scan(*args, final_state=True)),
+        ms_without_state=device_ms(lambda: mamba_scan.mamba_scan(*args)),
+        plain_ms=device_ms(lambda: ref.mamba_scan_ref(*args, h0), calls=1,
+                           replays=3),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=max(err_y, err_h), max_abs_err_y=err_y,
+        max_abs_err_h=err_h, serving=ssm_line)
+    say(f"[17 ssm] mamba_scan at {cfg.name}'s {zoo['shape']}: kernel "
+        f"{zoo['ms']:.4f} ms ({zoo['ms_without_state']:.4f} without the end "
+        f"state), plain {zoo['plain_ms']:.4f} ms, library none, bound "
+        f"{b_ms:.6f} ms ({b_by})")
+    del params, kept, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[17 ssm] phase {time.perf_counter() - t_phase:.1f} s")
+    return zoo
+
+
+def scan_end_state(torch, errs):
+    """The scan's end state (``mamba_scan(..., final_state=True)``) held to
+    the plain version's h at ``END_STATE_SHAPES``, with y: one launch a
+    call, and y equal bit for bit to the call without the end state.
+    Returns {label: (plan, max abs err of y, of h_L)}."""
+    from repro_torch.benchmarks import kernels_bench
+    from repro_torch.kernels import mamba_scan, ref
+
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for label, shape in END_STATE_SHAPES:
+        B, L, D, N = shape["B"], shape["L"], shape["D"], shape["N"]
+        args, _ = kernels_bench.make_inputs("mamba_scan", shape, DEVICE,
+                                            seed=L + N)
+        plan = mamba_scan.scan_plan(B, L, D, N, n_sms)
+        before = mamba_scan.LAUNCHES
+        y, h = mamba_scan.mamba_scan(*args, final_state=True)
+        if mamba_scan.LAUNCHES != before + 1:
+            fail(f"[10 model] mamba_scan end state {label}: "
+                 f"{mamba_scan.LAUNCHES - before} launches counted")
+        if not torch.equal(mamba_scan.mamba_scan(*args), y):
+            fail(f"[10 model] mamba_scan end state {label}: y differs from "
+                 f"the call without the end state")
+        want_y, want_h = ref.mamba_scan_ref(
+            *args, torch.zeros((B, D, N), device=DEVICE))
+        tag = f"[10 model] mamba_scan end state {label} {shape}"
+        err_y = close_enough(torch, tag, y, want_y, SCAN_TOL)
+        err_h = close_enough(torch, f"{tag} h_L", h, want_h, SCAN_TOL)
+        errs["mamba_scan"] = max(errs["mamba_scan"], err_y, err_h)
+        out[label] = dict(shape, plan=str(plan), max_abs_err_y=err_y,
+                          max_abs_err_h=err_h)
+        say(f"{tag}: plan {plan}; y and h_L agree with the plain version "
+            f"(max abs err {err_y:.3g} and {err_h:.3g}); y equal bit for "
+            f"bit to the call without the end state")
+        del args, y, h, want_y, want_h
+    if {o["plan"].split()[-3] for o in out.values()} != {"1-pass", "3-pass"}:
+        fail("[10 model] the end-state holds must reach both the one-pass "
+             "and the three-pass plan")
+    torch.cuda.empty_cache()
+    return out
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -2789,7 +3146,8 @@ def main() -> int:
     # segments, a tiled state axis (``launch``, which counts nothing)
     args, _ = kernels_bench.make_inputs(
         "mamba_scan", dict(B=2, L=333, D=45, N=17), DEVICE, seed=17)
-    want = kernels_bench.plain("mamba_scan")(*args)
+    want, want_h = ref.mamba_scan_ref(
+        *args, torch.zeros((2, 45, 17), device=DEVICE))
     forced = ((1, 1, 1, 8, 1), (4, 8, 4, 64, 1), (4, 8, 4, 16, 3),
               (2, 4, 8, 8, 1), (8, 1, 2, 24, 5), (32, 1, 8, 8, 1),
               (16, 4, 1, 64, 2), (1, 8, 1, 32, 1))
@@ -2798,13 +3156,17 @@ def main() -> int:
                                     warps=warps, chunk=chunk,
                                     segments=segments)
         got = torch.empty_like(args[0])
-        mamba_scan.launch(*args, got, plan)
-        errs["mamba_scan"] = max(errs["mamba_scan"], close_enough(
-            torch, f"mamba_scan B=2 L=333 D=45 N=17 plan {plan}", got, want,
-            SCAN_TOL))
+        got_h = torch.empty_like(want_h)
+        mamba_scan.launch(*args, got, plan, h=got_h)
+        label = f"mamba_scan B=2 L=333 D=45 N=17 plan {plan}"
+        errs["mamba_scan"] = max(
+            errs["mamba_scan"],
+            close_enough(torch, label, got, want, SCAN_TOL),
+            close_enough(torch, f"{label} h_L", got_h, want_h, SCAN_TOL))
     say(f"[8 edge] mamba_scan: {len(forced)} forced plans (1 to 32 lanes a "
         f"channel, 1, 4 or 8 entries a lane, 1 to 17 tiles, 1 to 5 "
-        f"segments) agree with the plain version at B=2 L=333 D=45 N=17")
+        f"segments) agree with the plain version at B=2 L=333 D=45 N=17, "
+        f"y and the end state h_L")
     if not n_seg or not n_tiled or 1 not in lanes:
         fail("the scan's edge cases must reach a segmented plan, a tiled "
              "state axis and a plan of one lane a channel")
@@ -2959,6 +3321,7 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
         del args, kwargs, lib
         torch.cuda.empty_cache()
+    end_state = scan_end_state(torch, errs)
 
     # -- phase 11: the batched tracker ----------------------------------
     phase_tracker(np, qs_rerun)
@@ -2990,6 +3353,9 @@ def main() -> int:
                             suite_reruns)
     # -- phase 16: the dense zoo's serving path ------------------------------
     zoo = phase_zoo(torch, np, errs)
+    # -- phase 17: the Mamba1 zoo's serving path ---------------------------
+    zoo["mamba_scan"] = dict(phase_ssm_zoo(torch, np, errs),
+                             end_state=end_state)
     camera_row["max_abs_err"] = max_err[CAMERA["name"]]
     tiles_row["max_abs_err"] = max_err[TILES["name"]]
 

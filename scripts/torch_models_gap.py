@@ -1,16 +1,17 @@
-"""How far the PyTorch port's dense zoo lies from the JAX reference's,
-both on the CPU: the measure behind the tolerances of
-``tests/test_torch_models.py``.
+"""How far the PyTorch port's zoo lies from the JAX reference's, both on
+the CPU: the measure behind the tolerances of
+``tests/test_torch_models.py`` and ``tests/test_torch_models_ssm.py``.
 
 For each dense smoke config (yi-6b, deepseek-7b, phi3-medium-14b,
-command-r-plus-104b) and each of six seeds, the reference's parameters
-(``repro.models.init_params``) cross to the port through
-``params_from_numpy``; both run ``forward`` over 2 x 16 tokens,
-``prefill`` of 12 into 16 slots and 4 ``decode_step``s (the port's from
-the reference's prefill state), and the port also decodes from its own
-prefill.  Prints, per config, the largest ``|port - ref| / (1 + |ref|)``
-over the seeds of the forward logits, prefill logits, prefill cache and
-decode logits, and of the port's decode against its own forward.
+command-r-plus-104b), falcon-mamba-7b's (Mamba1) and each of six seeds,
+the reference's parameters (``repro.models.init_params``) cross to the
+port through ``params_from_numpy``; both run ``forward`` over 2 x 16
+tokens, ``prefill`` of 16 and of 12 into 16 slots, and 4
+``decode_step``s (the port's from the reference's prefill state), and
+the port also decodes from its own prefill.  Prints, per config, the largest ``|port - ref| / (1 + |ref|)``
+over the seeds of the forward logits, prefill logits, prefill state (the
+caches, or Mamba1's h and conv) and decode logits, and of the port's
+decode against its own forward.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/torch_models_gap.py --dtype bfloat16
 """
@@ -28,7 +29,8 @@ from repro_torch import models as P
 from repro_torch.convert import (decode_state_from_numpy,
                                  decode_state_to_numpy, params_from_numpy)
 
-ARCHS = ("yi_6b", "deepseek_7b", "phi3_medium_14b", "command_r_plus_104b")
+ARCHS = ("yi_6b", "deepseek_7b", "phi3_medium_14b", "command_r_plus_104b",
+         "falcon_mamba_7b")
 B, S, STEPS = 2, 16, 4
 SEEDS = 6
 
@@ -44,6 +46,12 @@ def gap(got, want) -> float:
     return float((np.abs(got - want) / (1 + np.abs(want))).max())
 
 
+def state_leaves(state: dict) -> dict:
+    """The tensors of a decode state in the reference's layout: the
+    caches k and v, or Mamba1's h and conv."""
+    return state["ssm"] if "ssm" in state else state["kv"]
+
+
 def one(cfg, seed, fns) -> dict:
     init, forward, prefill, decode = fns
     params = init(cfg, jax.random.PRNGKey(seed))
@@ -53,13 +61,17 @@ def one(cfg, seed, fns) -> dict:
         0, cfg.vocab_size, (B, S)).astype(np.int32)
     prompt = S - STEPS
     whole = P.forward(port, {"tokens": tokens}, cfg, device="cpu")[0]
-    out = {"forward": gap(whole, forward(params, {"tokens": tokens}, cfg)[0])}
-    want, ref_state = prefill(params, {"tokens": tokens[:, :prompt]}, cfg, S)
-    got, own = P.prefill(port, {"tokens": tokens[:, :prompt]}, cfg,
-                         max_len=S, device="cpu")
-    out["prefill"] = gap(got, want)
-    mine = decode_state_to_numpy(own)["kv"]
-    out["cache"] = max(gap(mine[n], ref_state["kv"][n]) for n in ("k", "v"))
+    out = {"forward": gap(whole, forward(params, {"tokens": tokens}, cfg)[0]),
+           "prefill": 0.0, "state": 0.0}
+    for n_tok in (S, prompt):              # the prompt's state stays
+        want, ref_state = prefill(params, {"tokens": tokens[:, :n_tok]}, cfg,
+                                  S)
+        got, own = P.prefill(port, {"tokens": tokens[:, :n_tok]}, cfg,
+                             max_len=S, device="cpu")
+        out["prefill"] = max(out["prefill"], gap(got, want))
+        mine = state_leaves(decode_state_to_numpy(own))
+        out["state"] = max(out["state"], *(
+            gap(t, state_leaves(ref_state)[n]) for n, t in mine.items()))
     state = decode_state_from_numpy(
         cfg, jax.tree.map(np.asarray, ref_state), device="cpu")
     out["decode"] = out["decode_vs_forward"] = 0.0

@@ -130,9 +130,11 @@ def cost(name: str, args, kwargs) -> tuple[float, float]:
         B, L, D = u.shape
         N = Bm.shape[2]
         # per (b, t, d, n): dt*A, exp, two products and a sum into h, one
-        # FMA into y; per (b, t, d): dt*u
+        # FMA into y; per (b, t, d): dt*u; with ``final_state`` h_L written
+        # too
         return (B * L * D * (7.0 * N + 1),
-                4.0 * (3 * u.numel() + 2 * Bm.numel() + A.numel()))
+                4.0 * (3 * u.numel() + 2 * Bm.numel() + A.numel()
+                       + (B * D * N if kwargs.get("final_state") else 0)))
     raise KeyError(name)
 
 

@@ -17,6 +17,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import head_mask
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import check_family
+from repro_torch.models.ssm import PARAM_DTYPE_LEAVES
 
 _MODEL_DTYPES = dict(S=np.float32, exit_frac=np.float32, cdf=np.float32,
                      f0=np.int32, entry=np.float32, counts=np.float32)
@@ -75,7 +76,8 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
     dict a layer; the pad heads' columns of ``wq`` and ``bq`` and rows of
     ``wo`` dropped, so the port runs ``cfg.num_heads`` heads (the pads are
     zero and masked in the reference, so the output is unchanged); the
-    norms in ``cfg.param_dtype`` and every other tensor cast once to
+    norms, and Mamba1's ``conv_w``, ``conv_b``, ``A_log``, ``dt_bias`` and
+    ``D``, in ``cfg.param_dtype`` and every other tensor cast once to
     ``cfg.dtype``, the casts the reference makes at each use."""
     check_family(cfg)
     dev = resolve_device(device)
@@ -88,8 +90,9 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
             a = a[..., real]
         elif group == "attn" and name == "wo":
             a = a[real]
-        return _tensor(a, pdt if group in ("ln1", "ln2", "final_norm")
-                       else dt, dev)
+        held = group in ("ln1", "ln2", "final_norm") or (
+            group == "mamba" and name in PARAM_DTYPE_LEAVES)
+        return _tensor(a, pdt if held else dt, dev)
 
     stacked = tree["layers"]
     return {
@@ -106,10 +109,16 @@ def decode_state_from_numpy(cfg: ModelConfig, state: dict,
                             device="cuda") -> dict:
     """The reference's decode state (``pos`` and caches (L,B,T,KV,hd),
     read out as numpy) as the port's: ``pos`` an int and caches
-    (L,B,KV,T,hd) in ``cfg.dtype`` on ``device``."""
+    (L,B,KV,T,hd) in ``cfg.dtype`` on ``device``; Mamba1's ``ssm`` states
+    in their own layout, h (L,B,di,N) float32 and conv (L,B,W-1,di) in
+    ``cfg.dtype``."""
     check_family(cfg)
     dev = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
+    if cfg.family == "ssm":
+        return {"pos": int(state["pos"]), "ssm": {
+            "h": _tensor(state["ssm"]["h"], torch.float32, dev),
+            "conv": _tensor(state["ssm"]["conv"], dt, dev)}}
     return {"pos": int(state["pos"]), "kv": {
         n: _tensor(state["kv"][n], dt, dev).permute(0, 1, 3, 2, 4)
         .contiguous() for n in ("k", "v")}}
@@ -117,8 +126,12 @@ def decode_state_from_numpy(cfg: ModelConfig, state: dict,
 
 def decode_state_to_numpy(state: dict) -> dict:
     """The port's decode state in the reference's layout: ``pos`` an
-    int32 scalar and caches (L,B,T,KV,hd) as float32 arrays (numpy has no
-    bfloat16; float32 holds a bfloat16 cache's values exactly)."""
+    int32 scalar and caches (L,B,T,KV,hd), or Mamba1's h and conv, as
+    float32 arrays (numpy has no bfloat16; float32 holds a bfloat16
+    tensor's values exactly)."""
+    if "ssm" in state:
+        return {"pos": np.int32(state["pos"]), "ssm": {
+            n: t.float().cpu().numpy() for n, t in state["ssm"].items()}}
     return {"pos": np.int32(state["pos"]), "kv": {
         n: state["kv"][n].permute(0, 1, 3, 2, 4).float().cpu().numpy()
         for n in ("k", "v")}}

@@ -7,7 +7,11 @@
 // Replaces the TPU kernel `_scan_kernel` launched by `mamba_scan` in
 // src/repro/kernels/mamba_scan.py.  Same function: from h_0 = 0,
 //   h_t = exp(dt_t * A) * h_{t-1} + (dt_t * u_t) * B_t,  y_t = h_t . C_t,
-// in float32, y (B, L, D) float32.  Any B, L, D and any N.
+// in float32, y (B, L, D) float32.  Any B, L, D and any N.  Where the
+// caller asks for it (a model's prefill keeps each layer's state), the
+// pass that writes y also writes the end state h_L (B, D, N): from each
+// lane's registers after its last step, in the last segment's blocks,
+// each tile from its own stage; no second launch, no extra read.
 //
 // What bounds it on an H100.  Bytes: u, dt and y (3 * B * L * D floats)
 // plus B, C and A; 403 MB at falcon-mamba-7b's width (L = 4,096,
@@ -144,14 +148,16 @@ __device__ __forceinline__ void load_run(const float* p, float (&v)[EG]) {
 // one stage each).  TOTALS: write each (channel, n)'s state at the
 // segment's end, from zero, to ws_h and the segment's decay to ws_p, and
 // no y.  Otherwise: start from zero (segment 0) or ws_h (its carry-in) and
-// write y.  ws_h also carries the state between chunks when N takes
+// write y, and, with hL, the last segment's end state to hL (B, D, N).
+// ws_h also carries the state between chunks when N takes
 // several tiles.
 template <int EG, bool TOTALS>
 __global__ void __launch_bounds__(32 * MAX_WARPS)
 scan_kernel(const float* __restrict__ u, const float* __restrict__ dt,
             const float* __restrict__ Bm, const float* __restrict__ Cm,
             const float* __restrict__ A, float* __restrict__ y,
-            float* __restrict__ ws_h, float* __restrict__ ws_p, Shape s) {
+            float* __restrict__ hL, float* __restrict__ ws_h,
+            float* __restrict__ ws_p, Shape s) {
   constexpr int GS = group_steps<EG>();
   extern __shared__ float4 smem4[];
   const int NL = s.nl, DB = s.warps * (32 / NL), NP = NL * EG, T = s.chunk;
@@ -288,6 +294,11 @@ scan_kernel(const float* __restrict__ u, const float* __restrict__ dt,
           }
         }
       }
+      if (!TOTALS && last && hL != nullptr && seg == s.segs - 1 && live) {
+#pragma unroll
+        for (int g = 0; g < EG; ++g)
+          if (n0 + g < s.N) hL[(b * D + d) * N + n0 + g] = h[g];
+      }
       if (tiles > 1 || (TOTALS && last)) {
 #pragma unroll
         for (int g = 0; g < EG; ++g) {
@@ -332,7 +343,7 @@ __global__ void carry_kernel(float* __restrict__ ws_h,
 
 template <int EG, bool TOTALS>
 cudaError_t launch_scan(const float* u, const float* dt, const float* Bm,
-                        const float* Cm, const float* A, float* y,
+                        const float* Cm, const float* A, float* y, float* hL,
                         float* ws_h, float* ws_p, const Shape& s,
                         unsigned blocks, cudaStream_t stream) {
   const size_t smem = smem_words<EG>(s) * sizeof(float);
@@ -343,20 +354,20 @@ cudaError_t launch_scan(const float* u, const float* dt, const float* Bm,
     if (e != cudaSuccess) return e;
   }
   scan_kernel<EG, TOTALS><<<blocks, 32 * s.warps, smem, stream>>>(
-      u, dt, Bm, Cm, A, y, ws_h, ws_p, s);
+      u, dt, Bm, Cm, A, y, hL, ws_h, ws_p, s);
   return cudaGetLastError();
 }
 
 template <int EG>
 cudaError_t run(const float* u, const float* dt, const float* Bm,
-                const float* Cm, const float* A, float* y, float* ws_h,
-                float* ws_p, const Shape& s, unsigned blocks,
+                const float* Cm, const float* A, float* y, float* hL,
+                float* ws_h, float* ws_p, const Shape& s, unsigned blocks,
                 cudaStream_t stream) {
   if (smem_words<EG>(s) * sizeof(float) > MAX_SMEM)
     return cudaErrorInvalidValue;
   if (s.segs > 1) {
-    cudaError_t e = launch_scan<EG, true>(u, dt, Bm, Cm, A, y, ws_h, ws_p,
-                                          s, blocks, stream);
+    cudaError_t e = launch_scan<EG, true>(u, dt, Bm, Cm, A, y, nullptr,
+                                          ws_h, ws_p, s, blocks, stream);
     if (e != cudaSuccess) return e;
     const size_t nd = (size_t)s.N * s.D, count = (size_t)s.B * nd;
     if (count > 0) {
@@ -366,14 +377,15 @@ cudaError_t run(const float* u, const float* dt, const float* Bm,
       if (e != cudaSuccess) return e;
     }
   }
-  return launch_scan<EG, false>(u, dt, Bm, Cm, A, y, ws_h, ws_p, s, blocks,
-                                stream);
+  return launch_scan<EG, false>(u, dt, Bm, Cm, A, y, hL, ws_h, ws_p, s,
+                                blocks, stream);
 }
 
 }  // namespace
 
 // All pointers are device pointers to contiguous float32 arrays on card
-// `device`: u, dt and y (B, L, D), Bm and Cm (B, L, N), A (D, N); ws_h a
+// `device`: u, dt and y (B, L, D), Bm and Cm (B, L, N), A (D, N); hL
+// (B, D, N), which takes the end state, or null for none; ws_h a
 // (B, segs, N, D) workspace where segs > 1 or N > nl eg (else null), ws_p
 // the same where segs > 1.  The plan (nl, eg, warps, chunk, segs,
 // seg_len) is `mamba_scan.scan_plan`'s.  Every launch goes on `stream`
@@ -382,8 +394,8 @@ cudaError_t run(const float* u, const float* dt, const float* Bm,
 // kernel does not take.
 extern "C" int mamba_scan(const float* u, const float* dt, const float* Bm,
                           const float* Cm, const float* A, float* y,
-                          float* ws_h, float* ws_p, int B, int L, int D,
-                          int N, int nl, int eg, int warps, int chunk,
+                          float* hL, float* ws_h, float* ws_p, int B, int L,
+                          int D, int N, int nl, int eg, int warps, int chunk,
                           int segs, int seg_len, int device, void* stream) {
   const auto aligned = [](const float* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
@@ -411,8 +423,11 @@ extern "C" int mamba_scan(const float* u, const float* dt, const float* Bm,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned nb = (unsigned)blocks;
   switch (eg) {
-    case 1: return (int)run<1>(u, dt, Bm, Cm, A, y, ws_h, ws_p, s, nb, st);
-    case 4: return (int)run<4>(u, dt, Bm, Cm, A, y, ws_h, ws_p, s, nb, st);
-    default: return (int)run<8>(u, dt, Bm, Cm, A, y, ws_h, ws_p, s, nb, st);
+    case 1:
+      return (int)run<1>(u, dt, Bm, Cm, A, y, hL, ws_h, ws_p, s, nb, st);
+    case 4:
+      return (int)run<4>(u, dt, Bm, Cm, A, y, hL, ws_h, ws_p, s, nb, st);
+    default:
+      return (int)run<8>(u, dt, Bm, Cm, A, y, hL, ws_h, ws_p, s, nb, st);
   }
 }

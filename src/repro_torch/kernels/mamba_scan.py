@@ -3,7 +3,9 @@
 
 u, dt (B, L, D); Bm, Cm (B, L, N); A (D, N), any float dtype (scanned in
 float32).  From h_0 = 0: ``h_t = exp(dt_t * A) * h_{t-1} + (dt_t * u_t) *
-B_t`` and ``y_t = h_t . C_t``.  Returns y (B, L, D) float32.
+B_t`` and ``y_t = h_t . C_t``.  Returns y (B, L, D) float32, and with
+``final_state=True`` also the end state h_L (B, D, N) float32, which the
+kernel writes in the pass that writes y (a model's prefill keeps it).
 
 Dispatch is by the tensors' device: on the CPU the plain version
 ``ref.mamba_scan_ref`` runs; on a CUDA tensor the kernel launches, for any
@@ -129,8 +131,9 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def mamba_scan(u, dt, Bm, Cm, A):
-    """The selective scan from a zero state (see the module docstring)."""
+def mamba_scan(u, dt, Bm, Cm, A, *, final_state: bool = False):
+    """The selective scan from a zero state (see the module docstring):
+    y, or (y, h_L) with ``final_state``."""
     global LAUNCHES
     for name, t in (("u", u), ("dt", dt), ("Bm", Bm), ("Cm", Cm), ("A", A)):
         if not isinstance(t, torch.Tensor) or not t.is_floating_point():
@@ -148,7 +151,8 @@ def mamba_scan(u, dt, Bm, Cm, A):
     N = Bm.shape[2]
     if u.device.type == "cpu":
         h0 = torch.zeros((B, D, N), dtype=torch.float32)
-        return ref.mamba_scan_ref(u, dt, Bm, Cm, A, h0)[0]
+        y, h = ref.mamba_scan_ref(u, dt, Bm, Cm, A, h0)
+        return (y, h) if final_state else y
     if u.device.type != "cuda":
         raise ValueError(f"no kernel for device {u.device}")
     if max(B, L, D, N) > INT_MAX:
@@ -157,18 +161,24 @@ def mamba_scan(u, dt, Bm, Cm, A):
     u, dt, Bm, Cm, A = (t.to(torch.float32).contiguous()
                         for t in (u, dt, Bm, Cm, A))
     y = torch.empty((B, L, D), dtype=torch.float32, device=u.device)
+    h = None
+    if final_state:
+        h = torch.empty((B, D, N), dtype=torch.float32, device=u.device)
     if y.numel() == 0:
-        return y
+        # no step: the state stays zero
+        return (y, h.zero_()) if final_state else y
     index = u.device.index
     if index is None:
         index = torch.cuda.current_device()
-    launch(u, dt, Bm, Cm, A, y, scan_plan(B, L, D, N, _sm_count(index)))
+    launch(u, dt, Bm, Cm, A, y, scan_plan(B, L, D, N, _sm_count(index)),
+           h=h)
     LAUNCHES += 1
-    return y
+    return (y, h) if final_state else y
 
 
-def launch(u, dt, Bm, Cm, A, y, plan: ScanPlan) -> None:
-    """Run ``plan`` on contiguous float32 CUDA tensors into ``y``: the
+def launch(u, dt, Bm, Cm, A, y, plan: ScanPlan, *, h=None) -> None:
+    """Run ``plan`` on contiguous float32 CUDA tensors into ``y`` and,
+    where ``h`` (B, D, N) is given, the end state into ``h``: the
     workspace where the plan needs one, every launch on the current
     stream.  Counts nothing (``mamba_scan`` does)."""
     from repro_torch.kernels import build
@@ -181,11 +191,16 @@ def launch(u, dt, Bm, Cm, A, y, plan: ScanPlan) -> None:
                            device=u.device)
     if plan.segments > 1:
         ws_p = torch.empty_like(ws_h)
+    if h is not None and (h.shape != (B, D, N) or h.dtype != torch.float32
+                          or not h.is_contiguous() or h.device != u.device):
+        raise ValueError(f"h must be a contiguous float32 ({B}, {D}, {N}) "
+                         f"tensor on {u.device}")
     fn = build.launcher("mamba_scan", "mamba_scan",
-                        (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 11
+                        (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 11
                         + (ctypes.c_void_p,))
     build.check(fn(u.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                    A.data_ptr(), y.data_ptr(),
+                   None if h is None else h.data_ptr(),
                    None if ws_h is None else ws_h.data_ptr(),
                    None if ws_p is None else ws_p.data_ptr(), B, L, D, N,
                    plan.nl, plan.eg, plan.warps, plan.chunk,

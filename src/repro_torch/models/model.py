@@ -1,26 +1,32 @@
 """Model assembly: init / forward / prefill / decode, the counterpart of
 ``repro.models.model`` for the dense family (llama-style GQA + SwiGLU:
-deepseek, yi, phi3, and command-r's parallel block with LayerNorm).
+deepseek, yi, phi3, and command-r's parallel block with LayerNorm) and the
+ssm family's Mamba1 (falcon-mamba: a norm and a Mamba1 block a layer).
 
 Parameters are a dict as in the reference, with one dict a layer in
 ``params["layers"]`` where the reference stacks the layers on axis 0 for
 ``lax.scan``; the weights are held in ``cfg.dtype`` (see ``layers``).
-The decode state is ``{"pos": int, "kv": {"k", "v"}}``, the caches
+The dense decode state is ``{"pos": int, "kv": {"k", "v"}}``, the caches
 (L, B, KV, T, hd) in ``cfg.dtype``: the kernels' head-major layout, so a
 decode step writes its token's K/V in place at ``pos`` and hands each
-layer's cache to the decode kernel as it lies.
+layer's cache to the decode kernel as it lies.  The Mamba1 decode state
+is ``{"pos": int, "ssm": {"h", "conv"}}``, h (L, B, di, N) float32 and
+conv (L, B, W-1, di) in ``cfg.dtype``, the reference's layout; a step
+overwrites each layer's entries in place.
 
 Every entry point takes ``device=`` (default ``"cuda"``, which raises
 without a card; ``"cpu"`` runs the kernels' plain versions) and expects
 the parameters, and a given state, on that device.  On the card, each
 prefill or forward launches the flash kernel once a layer, and each
-decode step the decode kernel once a layer.
+decode step the decode kernel once a layer; on a Mamba1 model each
+prefill or forward launches the scan kernel once a layer (a prefill's
+launch also writes the layer's end state), and a decode step none.
 
-Only the dense family is ported.  The other families raise
-``NotImplementedError`` naming the slice of ``ROADMAP.md`` (Queue 1, item
-2) that will port them.  The reference's remat, ``scan_layers``, mesh
-constraints, logical axes, ``abstract_params``, sequence-sharded caches
-and ``lm_loss`` (training) have no counterpart here.
+The dense family and Mamba1 are ported.  The other families, and Mamba2,
+raise ``NotImplementedError`` naming the slice of ``ROADMAP.md`` (Queue
+1, item 2) that will port them.  The reference's remat, ``scan_layers``,
+mesh constraints, logical axes, ``abstract_params``, sequence-sharded
+caches and ``lm_loss`` (training) have no counterpart here.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Params, _dtype, apply_mlp, apply_norm,
                                        embed_tokens, init_embed, init_mlp,
@@ -35,9 +42,7 @@ from repro_torch.models.layers import (Params, _dtype, apply_mlp, apply_norm,
 
 #: the slice of ROADMAP.md's Queue 1 item 2 that ports each other family
 PENDING_SLICES = {
-    "ssm": "the Mamba1 slice (falcon-mamba-7b, the scan kernel)",
-    "hybrid": "the hybrid slice (zamba2: Mamba2 SSD and the shared "
-              "attention block)",
+    "hybrid": ssm.MAMBA2_SLICE,
     "moe": "the MoE slice (phi3.5-moe, qwen3-moe)",
     "vlm": "the VLM slice (qwen2-vl, M-RoPE, the vision stub)",
     "audio": "the audio slice (whisper: encoder and cross attention)",
@@ -45,9 +50,11 @@ PENDING_SLICES = {
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is of the dense
-    family, the one this package ports."""
-    if cfg.family != "dense":
+    """Raise ``NotImplementedError`` unless ``cfg`` is of a family this
+    package ports: dense, or ssm with Mamba1."""
+    if cfg.family == "ssm":
+        ssm.check_version(cfg)
+    elif cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet; "
             f"ROADMAP.md Queue 1 item 2(a) queues it as "
@@ -80,18 +87,23 @@ def _init_dense_layer(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
+def _init_ssm_layer(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    return {"ln1": init_norm(cfg, gen.device),
+            "mamba": ssm.init_mamba1(gen, cfg)}
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Params:
     """Random parameters drawn on ``device`` from a ``torch.Generator``
     seeded with ``seed``, with the reference's distributions (truncated
     normal at fan-in scale, embeddings normal x 0.02, norms ones and
-    zeros)."""
+    zeros; Mamba1's as ``ssm.init_mamba1`` says)."""
     check_family(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    init_layer = _init_ssm_layer if cfg.family == "ssm" else _init_dense_layer
     return {"embed": init_embed(gen, cfg),
             "final_norm": init_norm(cfg, dev),
-            "layers": [_init_dense_layer(gen, cfg)
-                       for _ in range(cfg.num_layers)]}
+            "layers": [init_layer(gen, cfg) for _ in range(cfg.num_layers)]}
 
 
 # ---------------------------------------------------------------------------
@@ -125,6 +137,16 @@ def _dense_layer_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig,
     return x + apply_mlp(lp["mlp"], h2, cfg), k, v
 
 
+def _ssm_layer_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig,
+                     state=None, capture: bool = False):
+    """One Mamba1 layer, x + mamba(norm(x)): over x's tokens (one scan
+    launch; with ``capture`` also the layer's end state), or one step from
+    ``state``.  Returns (x_out, the layer's new state or None)."""
+    o, st = ssm.mamba1_block(lp["mamba"], apply_norm(lp["ln1"], x, cfg),
+                             cfg, state, return_final_state=capture)
+    return x + o, st
+
+
 def _positions(B: int, S: int, dev: torch.device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S)
 
@@ -136,15 +158,19 @@ def _positions(B: int, S: int, dev: torch.device) -> torch.Tensor:
 def forward_hidden(params: Params, batch: dict, cfg: ModelConfig, *,
                    device="cuda"):
     """Returns (hidden (B,S,D) after the final norm, aux losses dict; the
-    dense family's are zero)."""
+    dense and Mamba1 families' are zero)."""
     check_family(cfg)
     dev = resolve_device(device)
     _check_on(params, dev)
     tokens = _tokens(batch["tokens"], dev)
     x = embed_tokens(params["embed"], tokens, cfg)
-    positions = _positions(*tokens.shape, dev)
-    for lp in params["layers"]:
-        x, _, _ = _dense_layer_apply(lp, x, cfg, positions)
+    if cfg.family == "ssm":
+        for lp in params["layers"]:
+            x, _ = _ssm_layer_apply(lp, x, cfg)
+    else:
+        positions = _positions(*tokens.shape, dev)
+        for lp in params["layers"]:
+            x, _, _ = _dense_layer_apply(lp, x, cfg, positions)
     x = apply_norm(params["final_norm"], x, cfg)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     return x, {"moe_aux": zero, "moe_z": zero}
@@ -163,9 +189,16 @@ def forward(params: Params, batch: dict, cfg: ModelConfig, *, device="cuda"):
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                       device="cuda") -> dict:
     """An empty decode state: ``pos`` 0 and zeroed caches
-    (L, batch, KV, max_len, hd) in ``cfg.dtype``."""
+    (L, batch, KV, max_len, hd) in ``cfg.dtype``; for Mamba1 zeroed
+    states h (L, batch, di, N) float32 and conv (L, batch, W-1, di) in
+    ``cfg.dtype`` (``max_len`` is not read, as in the reference)."""
     check_family(cfg)
     dev = resolve_device(device)
+    if cfg.family == "ssm":
+        one = ssm.mamba1_state_init(cfg, batch, dev)
+        return {"pos": 0, "ssm": {
+            n: t[None].repeat((cfg.num_layers,) + (1,) * t.ndim)
+            for n, t in one.items()}}
     shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
     return {"pos": 0, "kv": {
         "k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
@@ -177,10 +210,18 @@ def _fill_state(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     """One pass over the trunk that writes each layer's K/V of
     ``tokens`` (B,S) into the first S slots of ``state``'s caches (each
     layer's q/k/v computed once, where the reference computes them twice
-    with the same numbers); returns the hidden state before the final
-    norm."""
+    with the same numbers), or for Mamba1 each layer's end state (h from
+    the scan's launch, conv the last W-1 inputs of its convolution) into
+    ``state["ssm"]``; returns the hidden state before the final norm."""
     B, S = tokens.shape
     x = embed_tokens(params["embed"], tokens, cfg)
+    if cfg.family == "ssm":
+        hs, cs = state["ssm"]["h"], state["ssm"]["conv"]
+        for layer, lp in enumerate(params["layers"]):
+            x, st = _ssm_layer_apply(lp, x, cfg, capture=True)
+            hs[layer] = st["h"]
+            cs[layer] = st["conv"]
+        return x
     positions = _positions(B, S, tokens.device)
     ck, cv = state["kv"]["k"], state["kv"]["v"]
     for layer, lp in enumerate(params["layers"]):
@@ -194,14 +235,18 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig,
             max_len: int | None = None, *, device="cuda"):
     """Prefill: one trunk pass that emits (last-position logits (B,V), a
     decode state whose caches of ``max_len or S`` slots hold the prompt's
-    K/V, ``pos`` = S)."""
+    K/V, ``pos`` = S).  For Mamba1 the state holds each layer's end state
+    and ``max_len`` is not read; a prompt shorter than ``ssm_conv - 1``
+    raises ``ValueError`` (``ssm.mamba1_block``: its conv state would be
+    short, and the reference's decode refuses it); any longer one runs, a
+    multiple of ``ssm_chunk`` or not."""
     check_family(cfg)
     dev = resolve_device(device)
     _check_on(params, dev)
     tokens = _tokens(batch["tokens"], dev)
     B, S = tokens.shape
     max_len = max_len or S
-    if max_len < S:
+    if cfg.family == "dense" and max_len < S:
         raise ValueError(f"max_len={max_len} is shorter than the prompt's "
                          f"{S} tokens")
     state = init_decode_state(cfg, B, max_len, device=dev)
@@ -214,24 +259,33 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig,
 def decode_step(params: Params, state: dict, token, cfg: ModelConfig, *,
                 device="cuda"):
     """token: (B,) integers.  Returns (logits (B,V), new state).  The new
-    state shares the given state's caches, into which this step writes
-    its token's K/V at ``pos``: the given state is consumed."""
+    state shares the given state's tensors, into which this step writes
+    in place (the dense caches its token's K/V at ``pos``; Mamba1 each
+    layer's h and conv): the given state is consumed."""
     check_family(cfg)
     dev = resolve_device(device)
     _check_on(params, dev)
     pos = int(state["pos"])
-    ck, cv = state["kv"]["k"], state["kv"]["v"]
-    if pos >= ck.shape[3]:
-        raise ValueError(f"the cache's {ck.shape[3]} slots are full "
-                         f"(pos {pos})")
     token = _tokens(token, dev)
     B = token.shape[0]
     x = embed_tokens(params["embed"], token[:, None], cfg)          # (B,1,D)
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=dev)
-    length = torch.full((B,), pos + 1, dtype=torch.int32, device=dev)
-    for layer, lp in enumerate(params["layers"]):
-        x, _, _ = _dense_layer_apply(lp, x, cfg, positions,
-                                     cache=(ck[layer], cv[layer]), pos=pos,
-                                     length=length)
+    if cfg.family == "ssm":
+        hs, cs = state["ssm"]["h"], state["ssm"]["conv"]
+        for layer, lp in enumerate(params["layers"]):
+            x, st = _ssm_layer_apply(lp, x, cfg, state={
+                "h": hs[layer], "conv": cs[layer]})
+            hs[layer] = st["h"]
+            cs[layer] = st["conv"]
+    else:
+        ck, cv = state["kv"]["k"], state["kv"]["v"]
+        if pos >= ck.shape[3]:
+            raise ValueError(f"the cache's {ck.shape[3]} slots are full "
+                             f"(pos {pos})")
+        positions = torch.full((B, 1), pos, dtype=torch.int32, device=dev)
+        length = torch.full((B,), pos + 1, dtype=torch.int32, device=dev)
+        for layer, lp in enumerate(params["layers"]):
+            x, _, _ = _dense_layer_apply(lp, x, cfg, positions,
+                                         cache=(ck[layer], cv[layer]),
+                                         pos=pos, length=length)
     x = apply_norm(params["final_norm"], x, cfg)
     return unembed(params["embed"], x, cfg)[:, 0], dict(state, pos=pos + 1)

@@ -7,6 +7,8 @@ on a machine with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -592,6 +594,91 @@ def test_cuda_mamba_scan_plans_match_plain(card, nl, eg, warps, chunk,
     want, _ = ref.mamba_scan_ref(*arrays, torch.zeros((B, D, N),
                                                       device=card))
     torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,D,N", [
+    (1, 1024, 256, 16),          # the bench shape: three passes
+    (2, 64, 8192, 16),           # falcon-mamba-7b's width: one pass
+    (1, 129, 64, 320),           # two tiles of the state axis
+    (2, 333, 45, 17), (3, 5, 7, 3), (65536, 1, 1, 1)])
+def test_cuda_mamba_scan_final_state_matches_plain(card, B, L, D, N):
+    """``final_state=True``: one launch writes y and h_L; y equals the
+    call without the end state bit for bit."""
+    arrays = [torch.from_numpy(a).to(card)
+              for a in scan_inputs(L + N, B, L, D, N)]
+    before = mamba_scan.LAUNCHES
+    y, h = ops.mamba_scan(*arrays, final_state=True)
+    torch.cuda.synchronize()
+    assert mamba_scan.LAUNCHES == before + 1
+    want_y, want_h = ref.mamba_scan_ref(*arrays, torch.zeros((B, D, N),
+                                                             device=card))
+    torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-4)
+    assert torch.equal(ops.mamba_scan(*arrays), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nl,eg,warps,chunk,segments", [
+    (1, 1, 1, 8, 1), (4, 8, 4, 16, 3), (8, 1, 2, 24, 5), (16, 4, 1, 64, 2)])
+def test_cuda_mamba_scan_plans_write_the_end_state(card, nl, eg, warps,
+                                                   chunk, segments):
+    """The end state from every path: one tile or several, one segment or
+    several (the last segment's blocks write it)."""
+    B, L, D, N = 2, 333, 45, 17
+    arrays = [torch.from_numpy(a).to(card)
+              for a in scan_inputs(nl + eg, B, L, D, N)]
+    plan = mamba_scan.make_plan(B, L, D, N, nl=nl, eg=eg, warps=warps,
+                                chunk=chunk, segments=segments)
+    y = torch.empty((B, L, D), device=card)
+    h = torch.empty((B, D, N), device=card)
+    mamba_scan.launch(*arrays, y, plan, h=h)
+    torch.cuda.synchronize()
+    want_y, want_h = ref.mamba_scan_ref(*arrays, torch.zeros((B, D, N),
+                                                             device=card))
+    torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba1_model_matches_cpu(card):
+    """falcon-mamba's smoke config in float32: forward, prefill (logits
+    and state) and decode steps on the card against the CPU, a scan
+    launch a layer a pass and none a step."""
+    from repro_torch import models
+    from repro_torch.configs import get_smoke_config
+
+    cfg = dataclasses.replace(get_smoke_config("falcon_mamba_7b"),
+                              dtype="float32")
+    host = models.init_params(cfg, seed=1, device="cpu")
+    params = _tree_to(host, card)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 24)))
+    out = {}
+    for dev, p in (("cpu", host), ("cuda", params)):
+        before = mamba_scan.LAUNCHES
+        t = tokens.to(dev)
+        whole = models.forward(p, {"tokens": t}, cfg, device=dev)[0]
+        lg, st = models.prefill(p, {"tokens": t[:, :20]}, cfg, device=dev)
+        steps = [lg]
+        for i in range(20, 24):
+            lg, st = models.decode_step(p, st, t[:, i], cfg, device=dev)
+            steps.append(lg)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert mamba_scan.LAUNCHES == before + 2 * cfg.num_layers
+        out[dev] = [whole, torch.stack(steps, 1), st["ssm"]["h"],
+                    st["ssm"]["conv"]]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 @pytest.mark.cuda

@@ -1,8 +1,9 @@
 """The zoo's pieces around the differential of ``test_torch_models.py``:
 the copied configs, the parameter and state converters (the reference's
-pad heads dropped without changing its logits), the building blocks
-against the reference's, the port's own init, where attention goes, the
-head widths the CUDA kernels take, and the families not ported yet."""
+pad heads dropped without changing its logits; Mamba1's tree and state),
+the building blocks against the reference's, the port's own init, where
+attention goes, the head widths the CUDA kernels take, and the families
+not ported yet."""
 import dataclasses
 
 import jax
@@ -25,8 +26,9 @@ from repro_torch.models import attention as PA
 from repro_torch.models import layers as PL
 
 DENSE = ("yi_6b", "deepseek_7b", "phi3_medium_14b", "command_r_plus_104b")
-OTHERS = ("falcon_mamba_7b", "zamba2_2p7b", "qwen2_vl_72b",
-          "phi3p5_moe_42b", "qwen3_moe_30b", "whisper_tiny")
+#: the families not ported yet, and the ssm family under Mamba2
+OTHERS = ("zamba2_2p7b", "qwen2_vl_72b", "phi3p5_moe_42b", "qwen3_moe_30b",
+          "whisper_tiny", "falcon_mamba_7b/mamba2")
 TOL = 2e-4                      # float32, as in test_torch_models.py
 
 _init = jax.jit(R.init_params, static_argnums=0)
@@ -337,7 +339,10 @@ def test_dense_head_widths_fit_the_cuda_kernels():
 
 @pytest.mark.parametrize("arch", OTHERS)
 def test_other_families_are_not_ported(arch):
-    cfg = PC.get_smoke_config(arch)
+    name, _, version = arch.partition("/mamba")
+    cfg = PC.get_smoke_config(name)
+    if version:
+        cfg = dataclasses.replace(cfg, ssm_version=int(version))
     calls = [lambda: P.init_params(cfg, device="cpu"),
              lambda: P.forward({}, {}, cfg, device="cpu"),
              lambda: P.prefill({}, {}, cfg, device="cpu"),
@@ -348,6 +353,61 @@ def test_other_families_are_not_ported(arch):
     for call in calls:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_params_from_numpy_holds_the_mamba1_tree(dtype):
+    """The four projections and the embedding cast once to ``cfg.dtype``;
+    the norms and the leaves the reference reads in float32 at each use
+    (``conv_w``, ``conv_b``, ``A_log``, ``dt_bias``, ``D``) held in
+    ``cfg.param_dtype``, their values exact."""
+    cfg = dataclasses.replace(RC.get_smoke_config("falcon_mamba_7b"),
+                              dtype=dtype)
+    tree = _np(_init(cfg, jax.random.PRNGKey(11)))
+    params = params_from_numpy(cfg, tree, device="cpu")
+    dt = getattr(torch, dtype)
+    held = {"conv_w", "conv_b", "A_log", "dt_bias", "D"}
+    assert len(params["layers"]) == cfg.num_layers
+    assert params["embed"]["tok"].dtype == dt
+    assert params["final_norm"]["scale"].dtype == torch.float32
+    for layer, lp in enumerate(params["layers"]):
+        assert lp.keys() == {"ln1", "mamba"}
+        assert lp["ln1"]["scale"].dtype == torch.float32
+        assert lp["mamba"].keys() == tree["layers"]["mamba"].keys()
+        for n, t in lp["mamba"].items():
+            assert t.dtype == (torch.float32 if n in held else dt), n
+            want = torch.tensor(tree["layers"]["mamba"][n][layer])
+            assert torch.equal(t, want.to(t.dtype)), n
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_mamba1_decode_state_round_trip(dtype):
+    """The reference's prefill state crosses in its own layout (h
+    (L,B,di,N) float32, conv (L,B,W-1,di) in ``cfg.dtype``) and back."""
+    cfg = dataclasses.replace(RC.get_smoke_config("falcon_mamba_7b"),
+                              dtype=dtype)
+    params = _init(cfg, jax.random.PRNGKey(12))
+    _, state = jax.jit(R.prefill, static_argnums=(2, 3))(
+        params, {"tokens": _tokens(cfg, 12, S=10)}, cfg, 12)
+    state = _np(state)
+    port = decode_state_from_numpy(cfg, state, device="cpu")
+    L, B, di, N = state["ssm"]["h"].shape
+    assert port["pos"] == 10 and port.keys() == {"pos", "ssm"}
+    assert port["ssm"]["h"].shape == (L, B, di, N)
+    assert port["ssm"]["h"].dtype == torch.float32
+    assert port["ssm"]["conv"].shape == (L, B, cfg.ssm_conv - 1, di)
+    assert port["ssm"]["conv"].dtype == getattr(torch, dtype)
+    back = decode_state_to_numpy(port)
+    assert back["pos"] == np.int32(10)
+    for n in ("h", "conv"):
+        assert port["ssm"][n].is_contiguous()
+        np.testing.assert_array_equal(
+            back["ssm"][n], np.asarray(state["ssm"][n], np.float32))
+    fresh = P.init_decode_state(cfg, B, 99, device="cpu")
+    assert fresh["pos"] == 0
+    for n, t in fresh["ssm"].items():
+        assert t.shape == port["ssm"][n].shape and not t.any()
+        assert t.dtype == port["ssm"][n].dtype
 
 
 def test_entry_points_need_a_card_unless_told_cpu():
