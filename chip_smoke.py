@@ -148,7 +148,10 @@ Phases, one line or block each:
      targeted recall within 5 % of exhaustive and 2 % of full, fewer rows
      than C a swap), and the targeted configuration on one engine again
      under ``torch.profiler`` for the device's busy share; (d)
-     ``sec6_drift``'s three tracker rows.  Each kernel's count is reset
+     ``sec6_drift``'s two tracker rows that see the drift (stale profile,
+     with its hot pair, and re-profiled; the no-drift reference row, one
+     more tracker run on an unchanged duke world as phase 11 runs, is
+     left out: ``drift.run(reference=False)``).  Each kernel's count is reset
      before and read after (a) to (c), must equal the rounds that ranked
      a non-empty gallery (a fleet's round once a worker holding a row; the
      other kernel's 0), each fleet's launches must equal its
@@ -161,13 +164,13 @@ Phases, one line or block each:
      the swap ticks and each swap's profile and swap milliseconds;
  14. the serving fleet (``repro_torch.api.serve(shards=...)``) on the
      duke world of phase 4 with phase 4's engine settings: (a) 4 workers
-     on the card, the sharded gallery, w1 lost at tick 1,000, to the
-     horizon; (b) the same at ``tile_grid=8``; (c) 8 workers behind a
+     on the card, the sharded gallery, w1 lost at tick 1,000; (b) the
+     same at ``tile_grid=8``; (c) 8 workers behind a
      ``FakeRpcTransport`` on a virtual clock (latency 2 ms, jitter 1 ms;
      w3 drops every attempt, so its first fetch exhausts the retry
      budget, re-homes the gallery mid-round and the fleet scales down at
-     the end of that tick) with prefetch; (b) and (c) serve the first
-     2,000 ticks.  Each trace must equal phase 4's (phase 6's for (b))
+     the end of that tick) with prefetch; each serves the first 2,000
+     ticks (the single engines of phases 4 and 6 serve to the horizon).  Each trace must equal phase 4's (phase 6's for (b))
      card trace over the same ticks record for record — masks, indices,
      counters and epochs exact, scores within 1e-5, with the count of
      scores that differ at all printed — and the cost counters and
@@ -252,6 +255,34 @@ Phases, one line or block each:
      8,192, N 16) with and without the end state, beside its plain
      version and its byte bound (the scan's ``zoo`` entry of the kernels
      line, with phase 10's end-state holds).
+ 18. the hybrid zoo's serving path at zamba2-2.7b's full width
+     (configs/zamba2_2p7b.py: d_model 2,560, 54 Mamba2 layers of d_inner
+     5,120 in 80 heads of 64, N 64, chunk 256, conv 4; every 6 layers the
+     one shared dense block, 32 heads over 32 kv heads of hd 80, d_ff
+     10,240; vocab 32,000, untied), random weights drawn on the card from
+     a seeded ``torch.Generator``, phase 17's freed first: (a) 12 layers
+     (two super-blocks, so the shared block's weights serve two caches) in
+     float32, B = 2: ``forward`` over 132 tokens, ``prefill`` of 128 and 4
+     ``decode_step``s, held to a CPU rerun on the same weights (logits,
+     every layer's h and conv and both super-blocks' K/V after the prefill
+     and after the steps, within 2e-4), and the card's decode logits to its
+     forward logits; flash launches 2 a forward and 2 a prefill, decode 2
+     a step, scan none; (b) all 54 layers in bfloat16, B = 8: ``prefill``
+     of 1,024 tokens into 2,048 slots, then 32 greedy decode steps, timed
+     (prefill tokens/s against the matmuls' and attention's operations at
+     the bfloat16 peak plus the SSD's matmuls at the fp32 peak; decode ms
+     a step against the bytes of every weight, the shared block's once a
+     super-block, of the live caches and of the state read and written); a
+     warm-up run first holds the first and last super-block's attention,
+     at the prefill and at the last step, to the plain versions on the
+     card as phase 16 does; launches flash 9 a prefill, decode 9 a step,
+     scan none; no logit NaN or infinite; one more step under
+     ``torch.cuda.set_sync_debug_mode("error")`` (no host sync inside a
+     step); a profiled prefill, its SSD timed with CUDA events around each
+     ``ssm.ssd_chunked`` call (its share of the prefill's device time),
+     and 4 profiled steps; both kernels timed at the model's activations
+     beside their plain versions, bounds and library calls (the
+     ``zoo_hybrid`` entries of the kernels line).
 
 The CPU reruns of phases 11, 12, 13 and 15 run in three worker processes
 of one thread each (``cpu_job``) while the card runs go on: the
@@ -382,8 +413,8 @@ HOLD_ROWS = 8               # decode rows the plain version holds at once
 #: steps of phase 11's duke trace
 TRACE_STEPS = 600
 #: phase 14's fleets: workers of the camera and tile fleets, the tick w1
-#: is lost at, workers of the transport fleet, and the ticks the tile and
-#: transport fleets serve (the camera fleet serves to the horizon)
+#: is lost at, workers of the transport fleet, and the ticks each fleet
+#: serves
 FLEET_SHARDS, FLEET_LOSE_AT, TRANSPORT_SHARDS = 4, 1000, 8
 FLEET_CUT_TICKS = 2000
 #: phase 15's entries on the card, each beside a CPU rerun: the serving
@@ -423,6 +454,15 @@ SSM_CHECK = dict(layers=2, B=2, S=128, steps=4)
 SSM_SERVE = dict(B=8, S=1024, steps=32)
 #: decode steps of phase 17's profiled window
 SSM_PROFILED = 4
+#: phase 18's model, the hybrid zoo's zamba2-2.7b
+#: (configs/zamba2_2p7b.py) at full width: (a) 12 of 54 layers (two
+#: super-blocks, the shared block over two caches) in float32 beside a
+#: CPU rerun, (b) all 54 layers in bfloat16, served
+HYBRID_ARCH = "zamba2_2p7b"
+HYBRID_CHECK = dict(layers=12, B=2, S=128, steps=4)
+HYBRID_SERVE = dict(B=8, S=1024, max_len=2048, steps=32)
+#: decode steps of phase 18's profiled window
+HYBRID_PROFILED = 4
 #: worker processes for the CPU reruns of phases 11, 12, 13 and 15
 #: (``cpu_job``)
 CPU_WORKERS = 3
@@ -498,7 +538,7 @@ def recal_rerun(which: str):
     from repro_torch.core.profiler import build_model
 
     if which == "sec6_drift":
-        return drift.run(device="cpu")
+        return drift.run(device="cpu", reference=False)
     runs = {}
     if which == "drift_sweep":
         scenarios.drift_sweep(device="cpu", runs=runs)
@@ -1364,9 +1404,9 @@ def phase_recalibration(np, torch, recorder, kernels, max_err, reruns):
     device_share(torch, soak_targeted,
                  "[13 recal] soak_130 targeted (one engine)")
 
-    # (4) sec6_drift through the tracker
+    # (4) sec6_drift through the tracker: the two rows that see the drift
     t0 = time.perf_counter()
-    out = {DEVICE: drift.run(device=DEVICE)}
+    out = {DEVICE: drift.run(device=DEVICE, reference=False)}
     say(f"[13 recal] sec6_drift on {DEVICE}: "
         f"{time.perf_counter() - t0:.1f} s")
     out["cpu"], secs = reruns["sec6_drift"].get(RERUN_WAIT)
@@ -1376,7 +1416,8 @@ def phase_recalibration(np, torch, recorder, kernels, max_err, reruns):
     if out[DEVICE] != out["cpu"]:
         fail(f"[13 recal] sec6_drift rows differ from the cpu rerun's: "
              f"{out['cpu']}")
-    say("[13 recal] sec6_drift: the three rows equal the cpu rerun's")
+    say("[13 recal] sec6_drift: the stale-profile and re-profiled rows "
+        "equal the cpu rerun's")
     say(f"[13 recal] phase seconds {time.perf_counter() - t_phase:.1f}")
     return launches
 
@@ -1431,12 +1472,11 @@ def phase_fleet(np, torch, serve_stream, singles, recorder, kernels,
     camera, tiles = kernels
     launches = {"camera": 0, "tiles": 0}
 
-    def run(label, entry, single, model_key, lose_at=None, ticks=None,
-            **serve_kw):
-        """One fleet run, to the horizon or for its first ``ticks`` ticks,
-        held to the single engine's card run over the same ticks
-        (``single``: its trace, engine and, at ``FLEET_CUT_TICKS``, its
-        counters and trace length)."""
+    def run(label, entry, single, model_key, lose_at=None, **serve_kw):
+        """One fleet run, its first ``FLEET_CUT_TICKS`` ticks, held to the
+        single engine's card run over the same ticks (``single``: its
+        trace, engine and, at ``FLEET_CUT_TICKS``, its counters and trace
+        length, unless it ended before)."""
         rounds, kept = [], {}
         real, wrapped = recorder(entry, rounds, kept)
         setattr(ops, entry, wrapped)
@@ -1448,8 +1488,8 @@ def phase_fleet(np, torch, serve_stream, singles, recorder, kernels,
 
         reid_topk.LAUNCHES = reid_topk.TILE_LAUNCHES = 0
         try:
-            eng, tick_s = serve_stream(model_key, trace, ticks, on_step,
-                                       **serve_kw)
+            eng, tick_s = serve_stream(model_key, trace, FLEET_CUT_TICKS,
+                                       on_step, **serve_kw)
         finally:
             setattr(ops, entry, real)
             cam_n, tile_n = reid_topk.LAUNCHES, reid_topk.TILE_LAUNCHES
@@ -1461,7 +1501,7 @@ def phase_fleet(np, torch, serve_stream, singles, recorder, kernels,
                  f"worker_dispatches {eng.worker_dispatches}, non-empty "
                  f"worker rounds {nonempty}, the other kernel {other}")
         launches["camera" if entry == "reid_topk_segments" else "tiles"] += n
-        if ticks is None or not single["at"]:
+        if not single["at"]:
             ref = single["eng"]
             ref = dict({f: getattr(ref, f) for f in FLEET_COUNTERS},
                        rescue_pairs=ref.rescue_pairs,
@@ -1507,7 +1547,8 @@ def phase_fleet(np, torch, serve_stream, singles, recorder, kernels,
                            if k not in ("worker", "alive")))
         return eng, rep
 
-    # (a) the camera fleet: 4 workers, w1 lost at tick 1,000
+    # (a) the camera fleet: 4 workers, w1 lost at tick 1,000, its first
+    # FLEET_CUT_TICKS ticks
     eng, rep = run("camera fleet", "reid_topk_segments", singles["camera"],
                    "camera", lose_at=FLEET_LOSE_AT, shards=FLEET_SHARDS,
                    gallery="sharded")
@@ -1528,8 +1569,8 @@ def phase_fleet(np, torch, serve_stream, singles, recorder, kernels,
 
     # (b) the tile fleet, its first FLEET_CUT_TICKS ticks
     eng, _ = run("tile fleet", "reid_topk_tiles", singles["tiles"], "tiles",
-                 lose_at=FLEET_LOSE_AT, ticks=FLEET_CUT_TICKS,
-                 shards=FLEET_SHARDS, gallery="sharded")
+                 lose_at=FLEET_LOSE_AT, shards=FLEET_SHARDS,
+                 gallery="sharded")
     if eng.rebalances != 1:
         fail("[14 fleet] tile fleet: no rebalance")
 
@@ -1540,9 +1581,8 @@ def phase_fleet(np, torch, serve_stream, singles, recorder, kernels,
         default=FaultProfile(latency=.002, jitter=.001), clock=clock,
         sleep=sleep)
     eng, rep = run("transport fleet", "reid_topk_segments",
-                   singles["camera"], "camera", ticks=FLEET_CUT_TICKS,
-                   shards=TRANSPORT_SHARDS, transport=transport,
-                   prefetch=True)
+                   singles["camera"], "camera", shards=TRANSPORT_SHARDS,
+                   transport=transport, prefetch=True)
     c = eng.gallery.counters()
     if c["dead_peers"] != 1 or "w3" in eng._workers or \
             eng.rebalances != 1 or c["remote_fetches"] == 0 or \
@@ -1871,6 +1911,162 @@ def tree_leaves(tree):
     return [tree]
 
 
+def hold_to_cpu(torch, tag, card, host):
+    """Fail unless each tensor of the card run ``card`` equals the CPU
+    rerun's of the same name in ``host`` in shape and within rtol = atol
+    = ``ZOO_TOL``; returns the max absolute differences by name."""
+    diffs = {}
+    for name, want in host.items():
+        g = card[name].cpu()
+        if g.shape != want.shape:
+            fail(f"{tag} {name}: card {tuple(g.shape)}, CPU rerun "
+                 f"{tuple(want.shape)}")
+        diffs[name] = float((g - want).abs().max())
+        if not torch.allclose(g, want, rtol=ZOO_TOL, atol=ZOO_TOL):
+            fail(f"{tag} {name}: card differs from the CPU rerun (max abs "
+                 f"{diffs[name]:.3g}, tolerance {ZOO_TOL})")
+    return diffs
+
+
+def decode_against_forward(torch, tag, card, S, steps):
+    """Fail unless the card's prefill and decode logits (``steps``)
+    equal its forward logits at the same positions within ``ZOO_TOL``;
+    returns the max absolute difference."""
+    along = card["forward"][:, S - 1:S + steps]
+    own = float((card["steps"] - along).abs().max())
+    if not torch.allclose(card["steps"], along, rtol=ZOO_TOL, atol=ZOO_TOL):
+        fail(f"{tag}: card decode differs from card forward (max abs "
+             f"{own:.3g}, tolerance {ZOO_TOL})")
+    return own
+
+
+def serve_greedy(torch, models, params, cfg, prompt, steps, timed,
+                 **prefill_kw):
+    """Prefill ``prompt`` on the card, then ``steps`` greedy decode steps;
+    with ``timed`` each is synchronised before its clock reading.  Returns
+    (prefill seconds, per-step ms, logits (B, 1 + steps, V), the last
+    logits and state)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, st = models.prefill(params, {"tokens": prompt}, cfg, device=DEVICE,
+                            **prefill_kw)
+    if timed:
+        torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    out, step_ms = [lg], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        lg, st = models.decode_step(params, st, lg.argmax(-1), cfg,
+                                    device=DEVICE)
+        if timed:
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(lg)
+    return prefill_s, step_ms, torch.stack(out, 1), lg, st
+
+
+def attention_holds(torch, tag, run, flash_at, decode_at, steps):
+    """Run ``run()`` with ``models.attention``'s two kernel calls hooked:
+    the flash calls numbered in ``flash_at`` and the decode calls in
+    ``decode_at`` ({call: "first layer", ...}) are held to
+    ``ref.flash_attention_ref`` and ``ref.decode_attention_ref`` on the
+    card as phase 10 holds bfloat16.  Returns (the holds, [(label, max abs
+    err, bit-equal share)], and the first held call's inputs of each
+    kernel, {name: (args, kwargs)})."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention
+
+    holds, kept, calls = [], {}, {"flash": 0, "decode": 0}
+    base_flash = attention.blockwise_attention
+    base_decode = attention.decode_attention
+
+    def flash_hook(q, k, v, cfg_, *, causal=True):
+        out = base_flash(q, k, v, cfg_, causal=causal)
+        n, calls["flash"] = calls["flash"], calls["flash"] + 1
+        if n in flash_at:
+            label = f"{tag} flash_attention, prefill, {flash_at[n]}"
+            holds.append((label, close_enough(
+                torch, label, out, ref.flash_attention_ref(
+                    q, k, v, causal=causal), ATTN_TOL["bfloat16"]),
+                BF16_SHARES[-1][1]))
+            kept.setdefault("flash_attention", ((q, k, v),
+                                                dict(causal=causal)))
+        return out
+
+    def decode_hook(q, k_cache, v_cache, length, cfg_):
+        out = base_decode(q, k_cache, v_cache, length, cfg_)
+        n, calls["decode"] = calls["decode"], calls["decode"] + 1
+        if n in decode_at:
+            label = (f"{tag} decode_attention, decode step {steps}, "
+                     f"{decode_at[n]}")
+            holds.append((label, close_enough(
+                torch, label, out, ref.decode_attention_ref(
+                    q, k_cache, v_cache, length), ATTN_TOL["bfloat16"]),
+                BF16_SHARES[-1][1]))
+            kept.setdefault("decode_attention", (
+                (q, k_cache.clone(), v_cache.clone(), length), {}))
+        return out
+
+    attention.blockwise_attention = flash_hook
+    attention.decode_attention = decode_hook
+    try:
+        run()
+    finally:
+        attention.blockwise_attention = base_flash
+        attention.decode_attention = base_decode
+    want = len(flash_at) + len(decode_at)
+    if len(holds) != want:
+        fail(f"{tag}: {len(holds)} attention holds, want {want}")
+    return holds, kept
+
+
+def attention_zoo(torch, tag, model_name, kept, holds, launches, errs):
+    """The flash and decode kernels timed at a model's shapes, the held
+    calls' inputs ``kept``, beside their plain versions, bounds and
+    library calls: each kernel's ``zoo`` entry of the kernels line, with
+    ``launches`` ({name: count}) and the holds' largest error, which
+    ``errs`` also takes."""
+    from repro_torch.benchmarks import kernels_bench
+    from repro_torch.benchmarks.kernels_bench import device_ms
+    from repro_torch.kernels import decode_attention, flash_attention
+
+    zoo = {}
+    for name, (args, kwargs) in kept.items():
+        op = getattr(flash_attention if name == "flash_attention"
+                     else decode_attention, name)
+        base = kernels_bench.plain(name)
+        b_ms, b_by = kernels_bench.bound_ms(
+            *kernels_bench.cost(name, args, kwargs),
+            kernels_bench.peak_flops(name, args))
+        lib = library_yardstick(torch, name, args, kwargs)
+        err = max(e for label, e, _ in holds if name in label)
+        errs[name] = max(errs[name], err)
+        zoo[name] = dict(
+            launches=launches[name],
+            shape=dict(B=args[0].shape[0], H=args[0].shape[1],
+                       KV=args[1].shape[1], T=args[1].shape[2],
+                       hd=args[0].shape[-1], dtype="bfloat16",
+                       **({"S": args[0].shape[2], "causal": True}
+                          if name == "flash_attention" else
+                          {"length": int(args[3].max())})),
+            ms=device_ms(lambda: op(*args, **kwargs)),
+            plain_ms=device_ms(lambda: base(*args, **kwargs), calls=1,
+                               replays=3),
+            library_ms=device_ms(lib), bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=err)
+        plan = flash_attention.flash_plan(args[0].shape[-1], args[0].dtype) \
+            if name == "flash_attention" else decode_attention.decode_plan(
+                *args[0].shape[:2], *args[1].shape[1:3], args[0].shape[-1],
+                args[0].dtype, torch.cuda.get_device_properties(
+                    0).multi_processor_count)
+        zoo[name]["shape"]["plan"] = str(plan)
+        t = zoo[name]
+        say(f"{tag} {name} at {model_name}'s {t['shape']}: kernel "
+            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+            f"{t['library_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return zoo
+
+
 def phase_zoo(torch, np, errs):
     """Phase 16, the dense zoo's serving path (see the module docstring).
     ``errs`` takes the attention holds' errors; returns the flash and
@@ -1879,10 +2075,8 @@ def phase_zoo(torch, np, errs):
 
     from repro_torch import models
     from repro_torch.benchmarks import kernels_bench
-    from repro_torch.benchmarks.kernels_bench import device_ms
     from repro_torch.configs import get_config
-    from repro_torch.kernels import decode_attention, flash_attention, ref
-    from repro_torch.models import attention
+    from repro_torch.kernels import decode_attention, flash_attention
 
     t_phase = time.perf_counter()
     full = get_config(ZOO_ARCH)
@@ -1925,19 +2119,8 @@ def phase_zoo(torch, np, errs):
     t0 = time.perf_counter()
     host = check_run(tree_to(params, "cpu"), "cpu")
     host_s = time.perf_counter() - t0
-    diffs = {}
-    for name, want in host.items():
-        g = card[name].cpu()
-        diffs[name] = float((g - want).abs().max())
-        if g.shape != want.shape or not torch.allclose(
-                g, want, rtol=ZOO_TOL, atol=ZOO_TOL):
-            fail(f"[16 zoo] (a) {name}: card differs from the CPU rerun "
-                 f"(max abs {diffs[name]:.3g}, tolerance {ZOO_TOL})")
-    along = card["forward"][:, S - 1:S + steps]
-    own = float((card["steps"] - along).abs().max())
-    if not torch.allclose(card["steps"], along, rtol=ZOO_TOL, atol=ZOO_TOL):
-        fail(f"[16 zoo] (a): card decode differs from card forward (max "
-             f"abs {own:.3g}, tolerance {ZOO_TOL})")
+    diffs = hold_to_cpu(torch, "[16 zoo] (a)", card, host)
+    own = decode_against_forward(torch, "[16 zoo] (a)", card, S, steps)
     say(f"[16 zoo] (a) {full.name} at full width, {a['layers']} layers, "
         f"float32, B {a['B']}: forward over {S + steps} tokens, prefill of "
         f"{S}, {steps} decode steps; card against the CPU rerun (max abs "
@@ -1965,72 +2148,15 @@ def phase_zoo(torch, np, errs):
                              device=DEVICE)
 
     def serve(timed: bool):
-        """Prefill and ``steps`` greedy decode steps; (prefill seconds,
-        per-step ms, logits (B, 1 + steps, V), the last logits and
-        state)."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        lg, st = models.prefill(params, {"tokens": prompt}, cfg,
-                                max_len=b["max_len"], device=DEVICE)
-        if timed:
-            torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        out, step_ms = [lg], []
-        for _ in range(steps):
-            t0 = time.perf_counter()
-            lg, st = models.decode_step(params, st, lg.argmax(-1), cfg,
-                                        device=DEVICE)
-            if timed:
-                torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            out.append(lg)
-        return prefill_s, step_ms, torch.stack(out, 1), lg, st
+        return serve_greedy(torch, models, params, cfg, prompt, steps, timed,
+                            max_len=b["max_len"])
 
     # the warm-up run holds the first and last layer's attention, at the
     # prefill and at the last decode step, to the plain versions
-    holds, kept, calls = [], {}, {"flash": 0, "decode": 0}
-    flash_at = {0: "first", L - 1: "last"}
-    decode_at = {(steps - 1) * L: "first", steps * L - 1: "last"}
-    base_flash = attention.blockwise_attention
-    base_decode = attention.decode_attention
-
-    def flash_hook(q, k, v, cfg_, *, causal=True):
-        out = base_flash(q, k, v, cfg_, causal=causal)
-        n, calls["flash"] = calls["flash"], calls["flash"] + 1
-        if n in flash_at:
-            label = (f"[16 zoo] flash_attention, prefill, {flash_at[n]} "
-                     f"layer")
-            holds.append((label, close_enough(
-                torch, label, out, ref.flash_attention_ref(
-                    q, k, v, causal=causal), ATTN_TOL["bfloat16"]),
-                BF16_SHARES[-1][1]))
-            kept.setdefault("flash_attention", ((q, k, v),
-                                                dict(causal=causal)))
-        return out
-
-    def decode_hook(q, k_cache, v_cache, length, cfg_):
-        out = base_decode(q, k_cache, v_cache, length, cfg_)
-        n, calls["decode"] = calls["decode"], calls["decode"] + 1
-        if n in decode_at:
-            label = (f"[16 zoo] decode_attention, decode step {steps}, "
-                     f"{decode_at[n]} layer")
-            holds.append((label, close_enough(
-                torch, label, out, ref.decode_attention_ref(
-                    q, k_cache, v_cache, length), ATTN_TOL["bfloat16"]),
-                BF16_SHARES[-1][1]))
-            kept.setdefault("decode_attention", (
-                (q, k_cache.clone(), v_cache.clone(), length), {}))
-        return out
-
-    attention.blockwise_attention = flash_hook
-    attention.decode_attention = decode_hook
-    try:
-        serve(timed=False)
-    finally:
-        attention.blockwise_attention = base_flash
-        attention.decode_attention = base_decode
-    if len(holds) != 4:
-        fail(f"[16 zoo] (b): {len(holds)} attention holds, want 4")
+    holds, kept = attention_holds(
+        torch, "[16 zoo]", lambda: serve(timed=False),
+        {0: "first layer", L - 1: "last layer"},
+        {(steps - 1) * L: "first layer", steps * L - 1: "last layer"}, steps)
 
     reset()
     prefill_s, step_ms, logits, lg, st = serve(timed=True)
@@ -2042,7 +2168,6 @@ def phase_zoo(torch, np, errs):
     if not bool(torch.isfinite(logits).all()):
         fail("[16 zoo] (b): a logit is not finite")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
 
     # yardsticks: prefill's operations (the layers' matmuls, causal
     # attention, the last position's unembedding) at the bfloat16 peak;
@@ -2112,40 +2237,9 @@ def phase_zoo(torch, np, errs):
                     decode_profile=decode_profile)
 
     # the two kernels at the model's shapes, the warm-up run's inputs
-    zoo = {}
-    for name, (args, kwargs) in kept.items():
-        op = getattr(flash_attention if name == "flash_attention"
-                     else decode_attention, name)
-        base = kernels_bench.plain(name)
-        b_ms, b_by = kernels_bench.bound_ms(
-            *kernels_bench.cost(name, args, kwargs),
-            kernels_bench.peak_flops(name, args))
-        lib = library_yardstick(torch, name, args, kwargs)
-        err = max(e for label, e, _ in holds if name in label)
-        errs[name] = max(errs[name], err)
-        zoo[name] = dict(
-            launches=got[0] if name == "flash_attention" else got[1],
-            shape=dict(B=args[0].shape[0], H=args[0].shape[1],
-                       KV=args[1].shape[1], T=args[1].shape[2],
-                       hd=args[0].shape[-1], dtype="bfloat16",
-                       **({"S": args[0].shape[2], "causal": True}
-                          if name == "flash_attention" else
-                          {"length": int(args[3].max())})),
-            ms=device_ms(lambda: op(*args, **kwargs)),
-            plain_ms=device_ms(lambda: base(*args, **kwargs), calls=1,
-                               replays=3),
-            library_ms=device_ms(lib), bound_ms=b_ms, bound_by=b_by,
-            max_abs_err=err)
-        plan = flash_attention.flash_plan(args[0].shape[-1], args[0].dtype) \
-            if name == "flash_attention" else decode_attention.decode_plan(
-                *args[0].shape[:2], *args[1].shape[1:3], args[0].shape[-1],
-                args[0].dtype, torch.cuda.get_device_properties(
-                    0).multi_processor_count)
-        zoo[name]["shape"]["plan"] = str(plan)
-        t = zoo[name]
-        say(f"[16 zoo] {name} at {cfg.name}'s {t['shape']}: kernel "
-            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
-            f"{t['library_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    zoo = attention_zoo(torch, "[16 zoo]", cfg.name, kept, holds,
+                        {"flash_attention": got[0],
+                         "decode_attention": got[1]}, errs)
     zoo["flash_attention"]["serving"] = zoo_line
     say(f"[16 zoo] phase {time.perf_counter() - t_phase:.1f} s")
     return zoo
@@ -2210,19 +2304,8 @@ def phase_ssm_zoo(torch, np, errs):
     t0 = time.perf_counter()
     host, _ = check_run(tree_to(params, "cpu"), "cpu")
     host_s = time.perf_counter() - t0
-    diffs = {}
-    for name, want_t in host.items():
-        g = card[name].cpu()
-        diffs[name] = float((g - want_t).abs().max())
-        if g.shape != want_t.shape or not torch.allclose(
-                g, want_t, rtol=ZOO_TOL, atol=ZOO_TOL):
-            fail(f"[17 ssm] (a) {name}: card differs from the CPU rerun "
-                 f"(max abs {diffs[name]:.3g}, tolerance {ZOO_TOL})")
-    along = card["forward"][:, S - 1:S + steps]
-    own = float((card["steps"] - along).abs().max())
-    if not torch.allclose(card["steps"], along, rtol=ZOO_TOL, atol=ZOO_TOL):
-        fail(f"[17 ssm] (a): card decode differs from card forward (max "
-             f"abs {own:.3g}, tolerance {ZOO_TOL})")
+    diffs = hold_to_cpu(torch, "[17 ssm] (a)", card, host)
+    own = decode_against_forward(torch, "[17 ssm] (a)", card, S, steps)
     say(f"[17 ssm] (a) {full.name} at full width, {a['layers']} layers, "
         f"float32, B {a['B']}: forward over {S + steps} tokens, prefill of "
         f"{S}, {steps} decode steps; card against the CPU rerun (max abs "
@@ -2250,26 +2333,7 @@ def phase_ssm_zoo(torch, np, errs):
                              device=DEVICE)
 
     def serve(timed: bool):
-        """Prefill and ``steps`` greedy decode steps; (prefill seconds,
-        per-step ms, logits (B, 1 + steps, V), the last logits and
-        state)."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        lg, st = models.prefill(params, {"tokens": prompt}, cfg,
-                                device=DEVICE)
-        if timed:
-            torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        out, step_ms = [lg], []
-        for _ in range(steps):
-            t0 = time.perf_counter()
-            lg, st = models.decode_step(params, st, lg.argmax(-1), cfg,
-                                        device=DEVICE)
-            if timed:
-                torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            out.append(lg)
-        return prefill_s, step_ms, torch.stack(out, 1), lg, st
+        return serve_greedy(torch, models, params, cfg, prompt, steps, timed)
 
     # the warm-up run holds the first and last layer's scan, y and h_L at
     # the prefill, to the plain version on the card
@@ -2409,6 +2473,287 @@ def phase_ssm_zoo(torch, np, errs):
     gc.collect()
     torch.cuda.empty_cache()
     say(f"[17 ssm] phase {time.perf_counter() - t_phase:.1f} s")
+    return zoo
+
+
+def ssd_operations(cfg, B: int, L: int) -> float:
+    """The SSD's matmul operations over L steps of B rows, one layer: the
+    four products a chunk of ``ssm.ssd_chunked`` (C.B, the intra-chunk
+    weights over x dt, C.h and the carry)."""
+    nh, hd, N = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state
+    chunk = min(cfg.ssm_chunk, L)
+    ops = 0.0
+    for s in range(0, L, chunk):
+        c = min(chunk, L - s)
+        ops += 2.0 * B * c * c * (N + nh * hd) + 4.0 * B * nh * c * hd * N
+    return ops
+
+
+def phase_hybrid_zoo(torch, np, errs):
+    """Phase 18, the hybrid zoo's serving path (see the module docstring).
+    ``errs`` takes the attention holds' errors; returns the flash and
+    decode kernels' ``zoo_hybrid`` entries for the kernels line."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.benchmarks import kernels_bench
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels import mamba_scan
+    from repro_torch.models import ssm
+
+    t_phase = time.perf_counter()
+    gc.collect()                    # phase 17's weights go first
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    full = get_config(HYBRID_ARCH)
+    rng = np.random.default_rng(20)
+    counters = (flash_attention, decode_attention, mamba_scan)
+
+    def reset():
+        for mod in counters:
+            mod.LAUNCHES = 0
+
+    def launches():
+        return tuple(mod.LAUNCHES for mod in counters)
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    # (a) two super-blocks at full width in float32, the card against the
+    # CPU: the shared block's weights over two caches
+    a = HYBRID_CHECK
+    cfg = dataclasses.replace(full, num_layers=a["layers"], dtype="float32")
+    n_super = cfg.num_layers // cfg.attn_every
+    S, steps = a["S"], a["steps"]
+    tokens = rng.integers(0, cfg.vocab_size, (a["B"], S + steps))
+
+    def check_run(params, device):
+        """Forward, prefill and decode steps; with each pass's launches
+        (flash, decode, scan) on the card."""
+        toks = torch.as_tensor(tokens, device=device)
+        counts = []
+        reset()
+        whole = models.forward(params, {"tokens": toks}, cfg,
+                               device=device)[0]
+        counts.append(launches())
+        reset()
+        lg, st = models.prefill(params, {"tokens": toks[:, :S]}, cfg,
+                                max_len=S + steps, device=device)
+        counts.append(launches())
+        reset()
+        out = {"forward": whole,
+               **{f"prefill_{n}": st["ssm"][n].clone() for n in ("h", "conv")},
+               **{f"prefill_{n}": st["kv"][n].clone() for n in ("k", "v")}}
+        logits = [lg]
+        for i in range(steps):
+            lg, st = models.decode_step(params, st, toks[:, S + i], cfg,
+                                        device=device)
+            logits.append(lg)
+        counts.append(launches())
+        out.update(steps=torch.stack(logits, 1), **st["ssm"], **st["kv"])
+        return out, counts
+
+    params = models.init_params(cfg, seed=20, device=DEVICE)
+    card, got = check_run(params, DEVICE)
+    want = [(n_super, 0, 0), (n_super, 0, 0), (0, n_super * steps, 0)]
+    if got != want:
+        fail(f"[18 hybrid] (a): launches (flash, decode, scan) forward "
+             f"{got[0]}, prefill {got[1]}, decode {got[2]}; want {want} (a "
+             f"flash launch a super-block a pass, a decode launch a "
+             f"super-block a step, no scan)")
+    t0 = time.perf_counter()
+    host, _ = check_run(tree_to(params, "cpu"), "cpu")
+    host_s = time.perf_counter() - t0
+    diffs = hold_to_cpu(torch, "[18 hybrid] (a)", card, host)
+    own = decode_against_forward(torch, "[18 hybrid] (a)", card, S, steps)
+    say(f"[18 hybrid] (a) {full.name} at full width, {a['layers']} layers "
+        f"({n_super} super-blocks of {cfg.attn_every} Mamba2 layers and "
+        f"the shared block), float32, B {a['B']}: forward over "
+        f"{S + steps} tokens, prefill of {S}, {steps} decode steps; card "
+        f"against the CPU rerun (max abs err: forward "
+        f"{diffs['forward']:.3g}, prefill and decode logits "
+        f"{diffs['steps']:.3g}, prefill h {diffs['prefill_h']:.3g}, conv "
+        f"{diffs['prefill_conv']:.3g}, K/V "
+        f"{max(diffs['prefill_k'], diffs['prefill_v']):.3g}; final h "
+        f"{diffs['h']:.3g}, conv {diffs['conv']:.3g}, K/V "
+        f"{max(diffs['k'], diffs['v']):.3g}; tolerance {ZOO_TOL}); card "
+        f"decode against card forward {own:.3g}; launches (flash, decode, "
+        f"scan) forward {got[0]}, prefill {got[1]}, decode {got[2]}; CPU "
+        f"rerun {host_s:.1f} s")
+    del params, card, host
+    torch.cuda.empty_cache()
+
+    # (b) all 54 layers in bfloat16: prefill, then greedy decode
+    b = HYBRID_SERVE
+    cfg, L = full, full.num_layers
+    n_super = L // cfg.attn_every
+    S, steps = b["S"], b["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = models.init_params(cfg, seed=21, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = nbytes(params)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b["B"], S)),
+                             device=DEVICE)
+
+    def serve(timed: bool):
+        return serve_greedy(torch, models, params, cfg, prompt, steps, timed,
+                            max_len=b["max_len"])
+
+    # the warm-up run holds the first and last super-block's attention, at
+    # the prefill and at the last decode step, to the plain versions
+    holds, kept = attention_holds(
+        torch, "[18 hybrid]", lambda: serve(timed=False),
+        {0: "first super-block", n_super - 1: "last super-block"},
+        {(steps - 1) * n_super: "first super-block",
+         steps * n_super - 1: "last super-block"}, steps)
+
+    reset()
+    prefill_s, step_ms, logits, lg, st = serve(timed=True)
+    got = launches()
+    if got != (n_super, n_super * steps, 0):
+        fail(f"[18 hybrid] (b): launches flash {got[0]}, decode {got[1]}, "
+             f"scan {got[2]}; want {n_super} (super-blocks x 1 pass), "
+             f"{n_super * steps} (super-blocks x steps) and 0")
+    if not bool(torch.isfinite(logits).all()):
+        fail("[18 hybrid] (b): a logit is not finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # a step waits for nothing on the host: one more under the sync
+    # debugger, which raises at any synchronising call
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lg, st = models.decode_step(params, st, lg.argmax(-1), cfg,
+                                    device=DEVICE)
+    except RuntimeError as e:
+        fail(f"[18 hybrid] (b): a decode step synchronised with the host: "
+             f"{e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+    # yardsticks: prefill's operations (the Mamba2 projections and the
+    # shared block's matmuls and causal attention once a super-block, the
+    # last position's unembedding, at the bfloat16 peak; the SSD's matmuls
+    # at the fp32 CUDA cores'); a decode step's bytes (every weight, the
+    # shared block's once a super-block, the untied head read whole, B
+    # embedding rows, the live caches at the last step, each layer's h and
+    # conv read and written) over HBM's rate
+    shared = params["shared_attn"]
+    layer_mm = sum(lp["mamba"][n].numel() for lp in params["layers"]
+                   for n in ("in_proj", "out_proj"))
+    shared_mm = sum(t.numel() for g in ("attn", "mlp")
+                    for t in shared[g].values())
+    pairs = S * (S + 1) / 2
+    mm_flops = (2.0 * (layer_mm + n_super * shared_mm) * b["B"] * S
+                + 4.0 * n_super * b["B"] * cfg.num_heads * pairs
+                * cfg.head_dim
+                + 2.0 * cfg.d_model * cfg.vocab_size * b["B"])
+    ssd_flops = L * ssd_operations(cfg, b["B"], S)
+    prefill_bound = (mm_flops / kernels_bench.BF16_FLOPS
+                     + ssd_flops / kernels_bench.FP32_FLOPS) * 1e3
+    item = params["embed"]["tok"].element_size()
+    state_bytes = nbytes(st["ssm"])
+    cache_live = (2.0 * n_super * b["B"] * cfg.num_kv_heads * (S + steps)
+                  * cfg.head_dim * item)
+    step_bytes = (nbytes(params["layers"]) + n_super * nbytes(shared)
+                  + nbytes(params["embed"]["head"])
+                  + nbytes(params["final_norm"])
+                  + b["B"] * cfg.d_model * item + cache_live
+                  + 2.0 * state_bytes)
+    step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    ms = sorted(step_ms)
+    line = dict(
+        config=f"{cfg.name} {L} layers bfloat16 B {b['B']} prefill {S} "
+               f"max_len {b['max_len']} steps {steps}",
+        weights_gb=weight_bytes / 1e9, init_s=init_s, prefill_s=prefill_s,
+        prefill_tokens_per_s=b["B"] * S / prefill_s,
+        prefill_bound_ms=prefill_bound,
+        decode_ms_mean=sum(step_ms) / steps, decode_ms_p50=ms[steps // 2],
+        decode_ms_min=ms[0], decode_ms_max=ms[-1],
+        decode_bound_ms=step_bound, state_gb=state_bytes / 1e9,
+        cache_gb=nbytes(st["kv"]) / 1e9, peak_gb=peak_gb)
+    say(f"[18 hybrid] (b) {cfg.name}, {L} layers ({n_super} super-blocks), "
+        f"bfloat16, weights {weight_bytes / 1e9:.2f} GB made in "
+        f"{init_s:.1f} s ({held_gb:.2f} GB held before); prefill B "
+        f"{b['B']} x S {S} into max_len {b['max_len']}: "
+        f"{prefill_s * 1e3:.1f} ms, {b['B'] * S / prefill_s:.0f} tokens/s "
+        f"(operations bound {prefill_bound:.1f} ms: {mm_flops / 1e12:.2f} "
+        f"TFLOP of matmuls and attention at 989 TFLOP/s and "
+        f"{ssd_flops / 1e12:.3f} of the SSD at 67); {steps} greedy decode "
+        f"steps: mean {line['decode_ms_mean']:.3f} ms/step, p50 "
+        f"{ms[steps // 2]:.3f}, min {ms[0]:.3f}, max {ms[-1]:.3f} (byte "
+        f"bound {step_bound:.3f} ms: {step_bytes / 1e9:.2f} GB, the state "
+        f"{state_bytes / 1e9:.3f} GB read and written, the live caches "
+        f"{cache_live / 1e9:.3f} GB, over 3.35 TB/s); launches flash "
+        f"{got[0]} (= {n_super} super-blocks x 1 pass), decode {got[1]} (= "
+        f"{n_super} x {steps} steps), scan {got[2]}; every logit finite; a "
+        f"step under the sync debugger ran without a host sync; caches "
+        f"{line['cache_gb']:.2f} GB, state {line['state_gb']:.2f} GB; peak "
+        f"memory {peak_gb:.2f} GB")
+    for label, err, share in holds:
+        say(f"{label}: agrees with the plain version (max abs err "
+            f"{err:.3g}, bfloat16 bit-equal {share:.4f})")
+
+    # where the time goes: a prefill, its SSD timed with CUDA events, and
+    # HYBRID_PROFILED further decode steps under torch.profiler
+    marks = []
+    base_ssd = ssm.ssd_chunked
+
+    def ssd_marked(*args):
+        ends = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ends[0].record()
+        out = base_ssd(*args)
+        ends[1].record()
+        marks.append(ends)
+        return out
+
+    def marked_prefill():
+        ssm.ssd_chunked = ssd_marked
+        try:
+            models.prefill(params, {"tokens": prompt}, cfg,
+                           max_len=b["max_len"], device=DEVICE)
+        finally:
+            ssm.ssd_chunked = base_ssd
+
+    state = {"lg": lg, "st": st}
+
+    def more_steps():
+        for _ in range(HYBRID_PROFILED):
+            state["lg"], state["st"] = models.decode_step(
+                params, state["st"], state["lg"].argmax(-1), cfg,
+                device=DEVICE)
+
+    prefill_profile = profile_passes(
+        torch, "[18 hybrid] prefill", marked_prefill, 1,
+        ("flash", "decode_"), "attention")
+    if len(marks) != L:
+        fail(f"[18 hybrid] (b): {len(marks)} SSD calls in a prefill, want "
+             f"{L}")
+    ssd_ms = sum(start.elapsed_time(end) for start, end in marks)
+    prefill_profile.update(ssd_ms=ssd_ms,
+                           ssd_share=ssd_ms / prefill_profile["device_ms"])
+    say(f"[18 hybrid] prefill's SSD ({L} calls, CUDA events around each): "
+        f"{ssd_ms:.3f} ms, {100 * prefill_profile['ssd_share']:.1f} % of "
+        f"the prefill's device time ({ssd_flops / 1e12:.3f} TFLOP, "
+        f"{ssd_flops / ssd_ms / 1e9:.1f} TFLOP/s against 67)")
+    decode_profile = profile_passes(
+        torch, f"[18 hybrid] {HYBRID_PROFILED} decode steps", more_steps,
+        HYBRID_PROFILED, ("flash", "decode_"), "attention")
+    del state, lg, st, logits
+    line.update(prefill_profile=prefill_profile,
+                decode_profile=decode_profile)
+
+    # the two kernels at the model's shapes, the warm-up run's inputs
+    zoo = attention_zoo(torch, "[18 hybrid]", cfg.name, kept, holds,
+                        {"flash_attention": got[0],
+                         "decode_attention": got[1]}, errs)
+    zoo["flash_attention"]["serving"] = line
+    del params, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[18 hybrid] phase {time.perf_counter() - t_phase:.1f} s")
     return zoo
 
 
@@ -3356,6 +3701,8 @@ def main() -> int:
     # -- phase 17: the Mamba1 zoo's serving path ---------------------------
     zoo["mamba_scan"] = dict(phase_ssm_zoo(torch, np, errs),
                              end_state=end_state)
+    # -- phase 18: the hybrid zoo's serving path ---------------------------
+    hybrid = phase_hybrid_zoo(torch, np, errs)
     camera_row["max_abs_err"] = max_err[CAMERA["name"]]
     tiles_row["max_abs_err"] = max_err[TILES["name"]]
 
@@ -3371,7 +3718,8 @@ def main() -> int:
              suite_launches=suite["tiles"])]
         + [dict(BENCH[name], launches=bench_launches[name],
                 max_abs_err=errs[name], **bench[name], model=widths[name],
-                **({"zoo": zoo[name]} if name in zoo else {}))
+                **({"zoo": zoo[name]} if name in zoo else {}),
+                **({"zoo_hybrid": hybrid[name]} if name in hybrid else {}))
            for name in BENCH]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,19 +1,22 @@
 """How far the PyTorch port's zoo lies from the JAX reference's, both on
 the CPU: the measure behind the tolerances of
-``tests/test_torch_models.py`` and ``tests/test_torch_models_ssm.py``.
+``tests/test_torch_models.py``, ``tests/test_torch_models_ssm.py`` and
+``tests/test_torch_models_hybrid.py``.
 
 For each dense smoke config (yi-6b, deepseek-7b, phi3-medium-14b,
-command-r-plus-104b), falcon-mamba-7b's (Mamba1) and each of six seeds,
+command-r-plus-104b), falcon-mamba-7b's (Mamba1, and Mamba2 as
+``falcon_mamba_7b/mamba2``), zamba2-2.7b's (hybrid) and each of six seeds,
 the reference's parameters (``repro.models.init_params``) cross to the
 port through ``params_from_numpy``; both run ``forward`` over 2 x 16
 tokens, ``prefill`` of 16 and of 12 into 16 slots, and 4
 ``decode_step``s (the port's from the reference's prefill state), and
 the port also decodes from its own prefill.  Prints, per config, the largest ``|port - ref| / (1 + |ref|)``
 over the seeds of the forward logits, prefill logits, prefill state (the
-caches, or Mamba1's h and conv) and decode logits, and of the port's
+caches and the ssm layers' h and conv) and decode logits, and of the port's
 decode against its own forward.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/torch_models_gap.py --dtype bfloat16
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/torch_models_gap.py --only zamba2_2p7b
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from repro_torch.convert import (decode_state_from_numpy,
                                  decode_state_to_numpy, params_from_numpy)
 
 ARCHS = ("yi_6b", "deepseek_7b", "phi3_medium_14b", "command_r_plus_104b",
-         "falcon_mamba_7b")
+         "falcon_mamba_7b", "falcon_mamba_7b/mamba2", "zamba2_2p7b")
 B, S, STEPS = 2, 16, 4
 SEEDS = 6
 
@@ -48,8 +51,8 @@ def gap(got, want) -> float:
 
 def state_leaves(state: dict) -> dict:
     """The tensors of a decode state in the reference's layout: the
-    caches k and v, or Mamba1's h and conv."""
-    return state["ssm"] if "ssm" in state else state["kv"]
+    caches k and v and the ssm layers' h and conv, where it has them."""
+    return {**state.get("ssm", {}), **state.get("kv", {})}
 
 
 def one(cfg, seed, fns) -> dict:
@@ -90,14 +93,19 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", default="bfloat16",
                     choices=("float32", "bfloat16"))
+    ap.add_argument("--only", nargs="+", choices=ARCHS, default=ARCHS,
+                    help="the configs to measure (all by default)")
     args = ap.parse_args(argv)
     fns = (jax.jit(R.init_params, static_argnums=0),
            jax.jit(R.forward, static_argnums=2),
            jax.jit(R.prefill, static_argnums=(2, 3)),
            jax.jit(R.decode_step, static_argnums=3))
     worst = {}
-    for arch in ARCHS:
-        cfg = dataclasses.replace(get_smoke_config(arch), dtype=args.dtype)
+    for arch in args.only:
+        name, _, version = arch.partition("/mamba")
+        cfg = dataclasses.replace(get_smoke_config(name), dtype=args.dtype)
+        if version:
+            cfg = dataclasses.replace(cfg, ssm_version=int(version))
         mine = {}
         for seed in range(SEEDS):
             for k, v in one(cfg, seed, fns).items():

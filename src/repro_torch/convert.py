@@ -73,12 +73,15 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
     """The reference's parameter tree (``repro.models.init_params`` read
     out as numpy: layers stacked on axis 0, query heads padded to
     ``cfg.num_padded_heads``) as the port's parameters on ``device``: one
-    dict a layer; the pad heads' columns of ``wq`` and ``bq`` and rows of
-    ``wo`` dropped, so the port runs ``cfg.num_heads`` heads (the pads are
-    zero and masked in the reference, so the output is unchanged); the
-    norms, and Mamba1's ``conv_w``, ``conv_b``, ``A_log``, ``dt_bias`` and
-    ``D``, in ``cfg.param_dtype`` and every other tensor cast once to
-    ``cfg.dtype``, the casts the reference makes at each use."""
+    dict a layer, and a hybrid's ``shared_attn`` (one dense layer, not
+    stacked) as it is; the pad heads' columns of ``wq`` and ``bq`` and
+    rows of ``wo`` dropped, so the port runs ``cfg.num_heads`` heads (the
+    pads are zero and masked in the reference, so the output is
+    unchanged); the norms, and the Mamba leaves of
+    ``ssm.PARAM_DTYPE_LEAVES`` (``conv_w``, ``conv_b``, ``A_log``,
+    ``dt_bias``, ``D`` and Mamba2's ``norm_scale``), in
+    ``cfg.param_dtype`` and every other tensor cast once to ``cfg.dtype``,
+    the casts the reference makes at each use."""
     check_family(cfg)
     dev = resolve_device(device)
     dt, pdt = getattr(torch, cfg.dtype), getattr(torch, cfg.param_dtype)
@@ -94,44 +97,53 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
             group == "mamba" and name in PARAM_DTYPE_LEAVES)
         return _tensor(a, pdt if held else dt, dev)
 
-    stacked = tree["layers"]
-    return {
+    def layer(groups: dict, index=None) -> dict:
+        return {group: {n: leaf(group, n, np.asarray(a) if index is None
+                                else np.asarray(a)[index])
+                        for n, a in sub.items()}
+                for group, sub in groups.items()}
+
+    out = {
         "embed": {n: leaf("embed", n, a) for n, a in tree["embed"].items()},
         "final_norm": {n: leaf("final_norm", n, a)
                        for n, a in tree["final_norm"].items()},
-        "layers": [{group: {n: leaf(group, n, np.asarray(a)[layer])
-                            for n, a in sub.items()}
-                    for group, sub in stacked.items()}
-                   for layer in range(cfg.num_layers)]}
+        "layers": [layer(tree["layers"], i) for i in range(cfg.num_layers)]}
+    if cfg.family == "hybrid":
+        out["shared_attn"] = layer(tree["shared_attn"])
+    return out
 
 
 def decode_state_from_numpy(cfg: ModelConfig, state: dict,
                             device="cuda") -> dict:
-    """The reference's decode state (``pos`` and caches (L,B,T,KV,hd),
-    read out as numpy) as the port's: ``pos`` an int and caches
-    (L,B,KV,T,hd) in ``cfg.dtype`` on ``device``; Mamba1's ``ssm`` states
-    in their own layout, h (L,B,di,N) float32 and conv (L,B,W-1,di) in
-    ``cfg.dtype``."""
+    """The reference's decode state (``pos``; caches (n,B,T,KV,hd); the
+    ssm layers' h and conv; read out as numpy) as the port's on
+    ``device``: ``pos`` an int, caches (n,B,KV,T,hd) in ``cfg.dtype``, and
+    the ssm states in their own layout, h (L,B,di,N) or Mamba2's
+    (L,B,nh,hd,N) float32 and conv (L,B,W-1,channels) in ``cfg.dtype``;
+    a hybrid's state carries both."""
     check_family(cfg)
     dev = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
-    if cfg.family == "ssm":
-        return {"pos": int(state["pos"]), "ssm": {
-            "h": _tensor(state["ssm"]["h"], torch.float32, dev),
-            "conv": _tensor(state["ssm"]["conv"], dt, dev)}}
-    return {"pos": int(state["pos"]), "kv": {
-        n: _tensor(state["kv"][n], dt, dev).permute(0, 1, 3, 2, 4)
-        .contiguous() for n in ("k", "v")}}
+    out: dict = {"pos": int(state["pos"])}
+    if cfg.family != "dense":
+        out["ssm"] = {"h": _tensor(state["ssm"]["h"], torch.float32, dev),
+                      "conv": _tensor(state["ssm"]["conv"], dt, dev)}
+    if cfg.family != "ssm":
+        out["kv"] = {n: _tensor(state["kv"][n], dt, dev)
+                     .permute(0, 1, 3, 2, 4).contiguous() for n in ("k", "v")}
+    return out
 
 
 def decode_state_to_numpy(state: dict) -> dict:
     """The port's decode state in the reference's layout: ``pos`` an
-    int32 scalar and caches (L,B,T,KV,hd), or Mamba1's h and conv, as
-    float32 arrays (numpy has no bfloat16; float32 holds a bfloat16
-    tensor's values exactly)."""
+    int32 scalar, the caches (n,B,T,KV,hd) and the ssm layers' h and conv
+    where the state has them, as float32 arrays (numpy has no bfloat16;
+    float32 holds a bfloat16 tensor's values exactly)."""
+    out: dict = {"pos": np.int32(state["pos"])}
     if "ssm" in state:
-        return {"pos": np.int32(state["pos"]), "ssm": {
-            n: t.float().cpu().numpy() for n, t in state["ssm"].items()}}
-    return {"pos": np.int32(state["pos"]), "kv": {
-        n: state["kv"][n].permute(0, 1, 3, 2, 4).float().cpu().numpy()
-        for n in ("k", "v")}}
+        out["ssm"] = {n: t.float().cpu().numpy()
+                      for n, t in state["ssm"].items()}
+    if "kv" in state:
+        out["kv"] = {n: state["kv"][n].permute(0, 1, 3, 2, 4).float().cpu()
+                     .numpy() for n in ("k", "v")}
+    return out

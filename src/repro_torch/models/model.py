@@ -1,32 +1,40 @@
 """Model assembly: init / forward / prefill / decode, the counterpart of
 ``repro.models.model`` for the dense family (llama-style GQA + SwiGLU:
-deepseek, yi, phi3, and command-r's parallel block with LayerNorm) and the
-ssm family's Mamba1 (falcon-mamba: a norm and a Mamba1 block a layer).
+deepseek, yi, phi3, and command-r's parallel block with LayerNorm), the
+ssm family (falcon-mamba: a norm and a Mamba1 or Mamba2 block a layer)
+and the hybrid family (zamba2: super-blocks of ``attn_every`` Mamba2
+layers, each followed by one shared dense block).
 
 Parameters are a dict as in the reference, with one dict a layer in
 ``params["layers"]`` where the reference stacks the layers on axis 0 for
-``lax.scan``; the weights are held in ``cfg.dtype`` (see ``layers``).
-The dense decode state is ``{"pos": int, "kv": {"k", "v"}}``, the caches
-(L, B, KV, T, hd) in ``cfg.dtype``: the kernels' head-major layout, so a
-decode step writes its token's K/V in place at ``pos`` and hands each
-layer's cache to the decode kernel as it lies.  The Mamba1 decode state
-is ``{"pos": int, "ssm": {"h", "conv"}}``, h (L, B, di, N) float32 and
-conv (L, B, W-1, di) in ``cfg.dtype``, the reference's layout; a step
-overwrites each layer's entries in place.
+``lax.scan``, and the hybrid's shared block in ``params["shared_attn"]``
+(one dense layer, its weights the same in every super-block); the weights
+are held in ``cfg.dtype`` (see ``layers``).  The decode state is
+``{"pos": int}`` with, for attention, ``"kv": {"k", "v"}``, the caches
+(n, B, KV, T, hd) in ``cfg.dtype`` (n the layers, or the hybrid's
+super-blocks: the shared block keeps a cache a super-block): the kernels'
+head-major layout, so a decode step writes its token's K/V in place at
+``pos`` and hands each cache to the decode kernel as it lies; and for the
+ssm layers ``"ssm": {"h", "conv"}``, the reference's layout, h (L, B, di,
+N) float32 for Mamba1 or (L, B, nh, hd, N) for Mamba2 and conv (L, B,
+W-1, channels) in ``cfg.dtype``; a step overwrites each layer's entries
+in place.
 
 Every entry point takes ``device=`` (default ``"cuda"``, which raises
 without a card; ``"cpu"`` runs the kernels' plain versions) and expects
 the parameters, and a given state, on that device.  On the card, each
-prefill or forward launches the flash kernel once a layer, and each
-decode step the decode kernel once a layer; on a Mamba1 model each
-prefill or forward launches the scan kernel once a layer (a prefill's
-launch also writes the layer's end state), and a decode step none.
+prefill or forward launches the flash kernel once an attention block (a
+layer, or a hybrid's super-block), and each decode step the decode kernel
+once an attention block; each prefill or forward of a Mamba1 model
+launches the scan kernel once a layer (a prefill's launch also writes the
+layer's end state), and a decode step none.  Mamba2 launches no kernel:
+its SSD is a chunked matmul form in PyTorch, as the reference's is jnp.
 
-The dense family and Mamba1 are ported.  The other families, and Mamba2,
-raise ``NotImplementedError`` naming the slice of ``ROADMAP.md`` (Queue
-1, item 2) that will port them.  The reference's remat, ``scan_layers``,
-mesh constraints, logical axes, ``abstract_params``, sequence-sharded
-caches and ``lm_loss`` (training) have no counterpart here.
+The dense, ssm and hybrid families are ported.  The others raise
+``NotImplementedError`` naming the slice of ``ROADMAP.md`` (Queue 1, item
+2) that will port them.  The reference's remat, ``scan_layers``, mesh
+constraints, logical axes, ``abstract_params``, sequence-sharded caches
+and ``lm_loss`` (training) have no counterpart here.
 """
 from __future__ import annotations
 
@@ -42,7 +50,6 @@ from repro_torch.models.layers import (Params, _dtype, apply_mlp, apply_norm,
 
 #: the slice of ROADMAP.md's Queue 1 item 2 that ports each other family
 PENDING_SLICES = {
-    "hybrid": ssm.MAMBA2_SLICE,
     "moe": "the MoE slice (phi3.5-moe, qwen3-moe)",
     "vlm": "the VLM slice (qwen2-vl, M-RoPE, the vision stub)",
     "audio": "the audio slice (whisper: encoder and cross attention)",
@@ -51,14 +58,20 @@ PENDING_SLICES = {
 
 def check_family(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless ``cfg`` is of a family this
-    package ports: dense, or ssm with Mamba1."""
-    if cfg.family == "ssm":
-        ssm.check_version(cfg)
-    elif cfg.family != "dense":
+    package ports (dense, ssm or hybrid), and ``ValueError`` for an ssm
+    version other than 1 or 2 or a hybrid whose ``num_layers`` is not a
+    multiple of ``attn_every`` (the reference's reshape into super-blocks
+    fails there)."""
+    if cfg.family in PENDING_SLICES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet; "
             f"ROADMAP.md Queue 1 item 2(a) queues it as "
             f"{PENDING_SLICES[cfg.family]}")
+    if cfg.family != "dense":
+        ssm.check_version(cfg)
+    if cfg.family == "hybrid" and cfg.num_layers % cfg.attn_every:
+        raise ValueError(f"{cfg.name}: num_layers {cfg.num_layers} is not a "
+                         f"multiple of attn_every {cfg.attn_every}")
 
 
 def _check_on(params: Params, dev: torch.device) -> None:
@@ -88,22 +101,28 @@ def _init_dense_layer(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def _init_ssm_layer(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    return {"ln1": init_norm(cfg, gen.device),
-            "mamba": ssm.init_mamba1(gen, cfg)}
+    init = ssm.init_mamba1 if cfg.ssm_version == 1 else ssm.init_mamba2
+    return {"ln1": init_norm(cfg, gen.device), "mamba": init(gen, cfg)}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Params:
     """Random parameters drawn on ``device`` from a ``torch.Generator``
     seeded with ``seed``, with the reference's distributions (truncated
     normal at fan-in scale, embeddings normal x 0.02, norms ones and
-    zeros; Mamba1's as ``ssm.init_mamba1`` says)."""
+    zeros; Mamba1's and Mamba2's as ``ssm.init_mamba1`` and
+    ``ssm.init_mamba2`` say); a hybrid's shared block is drawn after its
+    layers."""
     check_family(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    init_layer = _init_ssm_layer if cfg.family == "ssm" else _init_dense_layer
-    return {"embed": init_embed(gen, cfg),
-            "final_norm": init_norm(cfg, dev),
-            "layers": [init_layer(gen, cfg) for _ in range(cfg.num_layers)]}
+    init_layer = _init_dense_layer if cfg.family == "dense" \
+        else _init_ssm_layer
+    p = {"embed": init_embed(gen, cfg),
+         "final_norm": init_norm(cfg, dev),
+         "layers": [init_layer(gen, cfg) for _ in range(cfg.num_layers)]}
+    if cfg.family == "hybrid":
+        p["shared_attn"] = _init_dense_layer(gen, cfg)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -114,7 +133,7 @@ def _dense_layer_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig,
                        positions, *, cache=None, pos: int = 0, length=None):
     """One dense block over x (B,S,D).  Without ``cache``, causal
     attention over x's own tokens (the flash kernel).  With ``cache``, a
-    layer's (k, v) caches (B,KV,T,hd), x is one token at ``pos``: its K/V
+    block's (k, v) caches (B,KV,T,hd), x is one token at ``pos``: its K/V
     are written into the caches in place and it attends over the first
     ``length`` (B,) keys (the decode kernel).  Returns (x_out, k, v), k
     and v (B,KV,S,hd) of x's tokens.  The parallel block (command-r) sums
@@ -139,12 +158,32 @@ def _dense_layer_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig,
 
 def _ssm_layer_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig,
                      state=None, capture: bool = False):
-    """One Mamba1 layer, x + mamba(norm(x)): over x's tokens (one scan
-    launch; with ``capture`` also the layer's end state), or one step from
-    ``state``.  Returns (x_out, the layer's new state or None)."""
-    o, st = ssm.mamba1_block(lp["mamba"], apply_norm(lp["ln1"], x, cfg),
-                             cfg, state, return_final_state=capture)
+    """One ssm layer, x + mamba(norm(x)), Mamba1 or Mamba2 by
+    ``cfg.ssm_version``: over x's tokens (Mamba1 one scan launch; with
+    ``capture`` also the layer's end state), or one step from ``state``.
+    Returns (x_out, the layer's new state or None)."""
+    block = ssm.mamba1_block if cfg.ssm_version == 1 else ssm.mamba2_block
+    o, st = block(lp["mamba"], apply_norm(lp["ln1"], x, cfg), cfg, state,
+                  return_final_state=capture)
     return x + o, st
+
+
+def _blocks(params: Params, cfg: ModelConfig):
+    """The trunk in order, as (kind, index, block params): ("ssm", layer,
+    ...) for an ssm layer, ("attn", cache, ...) for a dense block, the
+    index naming its entry of the decode state.  A hybrid walks its
+    ``num_layers // attn_every`` super-blocks: ``attn_every`` Mamba2
+    layers, then the shared block with the super-block's own cache."""
+    layers = params["layers"]
+    if cfg.family == "dense":
+        return [("attn", i, lp) for i, lp in enumerate(layers)]
+    walk = [("ssm", i, lp) for i, lp in enumerate(layers)]
+    if cfg.family == "ssm":
+        return walk
+    E = cfg.attn_every
+    return [b for sb in range(cfg.num_layers // E)
+            for b in walk[sb * E:(sb + 1) * E]
+            + [("attn", sb, params["shared_attn"])]]
 
 
 def _positions(B: int, S: int, dev: torch.device) -> torch.Tensor:
@@ -158,18 +197,17 @@ def _positions(B: int, S: int, dev: torch.device) -> torch.Tensor:
 def forward_hidden(params: Params, batch: dict, cfg: ModelConfig, *,
                    device="cuda"):
     """Returns (hidden (B,S,D) after the final norm, aux losses dict; the
-    dense and Mamba1 families' are zero)."""
+    dense, ssm and hybrid families' are zero)."""
     check_family(cfg)
     dev = resolve_device(device)
     _check_on(params, dev)
     tokens = _tokens(batch["tokens"], dev)
     x = embed_tokens(params["embed"], tokens, cfg)
-    if cfg.family == "ssm":
-        for lp in params["layers"]:
+    positions = _positions(*tokens.shape, dev)
+    for kind, _, lp in _blocks(params, cfg):
+        if kind == "ssm":
             x, _ = _ssm_layer_apply(lp, x, cfg)
-    else:
-        positions = _positions(*tokens.shape, dev)
-        for lp in params["layers"]:
+        else:
             x, _, _ = _dense_layer_apply(lp, x, cfg, positions)
     x = apply_norm(params["final_norm"], x, cfg)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -188,46 +226,49 @@ def forward(params: Params, batch: dict, cfg: ModelConfig, *, device="cuda"):
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                       device="cuda") -> dict:
-    """An empty decode state: ``pos`` 0 and zeroed caches
-    (L, batch, KV, max_len, hd) in ``cfg.dtype``; for Mamba1 zeroed
-    states h (L, batch, di, N) float32 and conv (L, batch, W-1, di) in
-    ``cfg.dtype`` (``max_len`` is not read, as in the reference)."""
+    """An empty decode state: ``pos`` 0; for attention zeroed caches
+    (n, batch, KV, max_len, hd) in ``cfg.dtype``, n the dense layers or
+    the hybrid's super-blocks; for the ssm layers zeroed states (L, ...)
+    as ``ssm.mamba1_state_init`` or ``ssm.mamba2_state_init`` makes them
+    (an ssm model does not read ``max_len``, as in the reference)."""
     check_family(cfg)
     dev = resolve_device(device)
-    if cfg.family == "ssm":
-        one = ssm.mamba1_state_init(cfg, batch, dev)
-        return {"pos": 0, "ssm": {
-            n: t[None].repeat((cfg.num_layers,) + (1,) * t.ndim)
-            for n, t in one.items()}}
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
-    return {"pos": 0, "kv": {
-        "k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
-        "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev)}}
+    state: dict = {"pos": 0}
+    if cfg.family != "dense":
+        init = ssm.mamba1_state_init if cfg.ssm_version == 1 \
+            else ssm.mamba2_state_init
+        state["ssm"] = {n: t[None].repeat((cfg.num_layers,) + (1,) * t.ndim)
+                        for n, t in init(cfg, batch, dev).items()}
+    if cfg.family != "ssm":
+        n = cfg.num_layers if cfg.family == "dense" \
+            else cfg.num_layers // cfg.attn_every
+        shape = (n, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+        state["kv"] = {
+            "k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+            "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev)}
+    return state
 
 
 def _fill_state(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                 state: dict) -> torch.Tensor:
-    """One pass over the trunk that writes each layer's K/V of
-    ``tokens`` (B,S) into the first S slots of ``state``'s caches (each
-    layer's q/k/v computed once, where the reference computes them twice
-    with the same numbers), or for Mamba1 each layer's end state (h from
-    the scan's launch, conv the last W-1 inputs of its convolution) into
+    """One pass over the trunk that writes each attention block's K/V of
+    ``tokens`` (B,S) into the first S slots of its cache in ``state``
+    (its q/k/v computed once, where the reference computes them twice with
+    the same numbers), and each ssm layer's end state (h from its scan or
+    SSD, conv the last W-1 inputs of its convolution) into
     ``state["ssm"]``; returns the hidden state before the final norm."""
     B, S = tokens.shape
     x = embed_tokens(params["embed"], tokens, cfg)
-    if cfg.family == "ssm":
-        hs, cs = state["ssm"]["h"], state["ssm"]["conv"]
-        for layer, lp in enumerate(params["layers"]):
-            x, st = _ssm_layer_apply(lp, x, cfg, capture=True)
-            hs[layer] = st["h"]
-            cs[layer] = st["conv"]
-        return x
     positions = _positions(B, S, tokens.device)
-    ck, cv = state["kv"]["k"], state["kv"]["v"]
-    for layer, lp in enumerate(params["layers"]):
-        x, k, v = _dense_layer_apply(lp, x, cfg, positions)
-        ck[layer, :, :, :S] = k
-        cv[layer, :, :, :S] = v
+    for kind, i, lp in _blocks(params, cfg):
+        if kind == "ssm":
+            x, st = _ssm_layer_apply(lp, x, cfg, capture=True)
+            state["ssm"]["h"][i] = st["h"]
+            state["ssm"]["conv"][i] = st["conv"]
+        else:
+            x, k, v = _dense_layer_apply(lp, x, cfg, positions)
+            state["kv"]["k"][i, :, :, :S] = k
+            state["kv"]["v"][i, :, :, :S] = v
     return x
 
 
@@ -235,18 +276,18 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig,
             max_len: int | None = None, *, device="cuda"):
     """Prefill: one trunk pass that emits (last-position logits (B,V), a
     decode state whose caches of ``max_len or S`` slots hold the prompt's
-    K/V, ``pos`` = S).  For Mamba1 the state holds each layer's end state
-    and ``max_len`` is not read; a prompt shorter than ``ssm_conv - 1``
-    raises ``ValueError`` (``ssm.mamba1_block``: its conv state would be
-    short, and the reference's decode refuses it); any longer one runs, a
-    multiple of ``ssm_chunk`` or not."""
+    K/V, ``pos`` = S).  The ssm layers' states hold each layer's end
+    state (a Mamba1 model does not read ``max_len``); a prompt shorter
+    than ``ssm_conv - 1`` raises ``ValueError`` on a model with ssm layers
+    (its conv state would be short, and the reference's decode refuses
+    it); any longer one runs, a multiple of ``ssm_chunk`` or not."""
     check_family(cfg)
     dev = resolve_device(device)
     _check_on(params, dev)
     tokens = _tokens(batch["tokens"], dev)
     B, S = tokens.shape
     max_len = max_len or S
-    if cfg.family == "dense" and max_len < S:
+    if cfg.family != "ssm" and max_len < S:
         raise ValueError(f"max_len={max_len} is shorter than the prompt's "
                          f"{S} tokens")
     state = init_decode_state(cfg, B, max_len, device=dev)
@@ -260,8 +301,8 @@ def decode_step(params: Params, state: dict, token, cfg: ModelConfig, *,
                 device="cuda"):
     """token: (B,) integers.  Returns (logits (B,V), new state).  The new
     state shares the given state's tensors, into which this step writes
-    in place (the dense caches its token's K/V at ``pos``; Mamba1 each
-    layer's h and conv): the given state is consumed."""
+    in place (each cache its token's K/V at ``pos``; each ssm layer its h
+    and conv): the given state is consumed."""
     check_family(cfg)
     dev = resolve_device(device)
     _check_on(params, dev)
@@ -269,23 +310,23 @@ def decode_step(params: Params, state: dict, token, cfg: ModelConfig, *,
     token = _tokens(token, dev)
     B = token.shape[0]
     x = embed_tokens(params["embed"], token[:, None], cfg)          # (B,1,D)
-    if cfg.family == "ssm":
-        hs, cs = state["ssm"]["h"], state["ssm"]["conv"]
-        for layer, lp in enumerate(params["layers"]):
-            x, st = _ssm_layer_apply(lp, x, cfg, state={
-                "h": hs[layer], "conv": cs[layer]})
-            hs[layer] = st["h"]
-            cs[layer] = st["conv"]
-    else:
+    if "kv" in state:
         ck, cv = state["kv"]["k"], state["kv"]["v"]
         if pos >= ck.shape[3]:
             raise ValueError(f"the cache's {ck.shape[3]} slots are full "
                              f"(pos {pos})")
         positions = torch.full((B, 1), pos, dtype=torch.int32, device=dev)
         length = torch.full((B,), pos + 1, dtype=torch.int32, device=dev)
-        for layer, lp in enumerate(params["layers"]):
+    for kind, i, lp in _blocks(params, cfg):
+        if kind == "ssm":
+            hs, cs = state["ssm"]["h"], state["ssm"]["conv"]
+            x, st = _ssm_layer_apply(lp, x, cfg,
+                                     state={"h": hs[i], "conv": cs[i]})
+            hs[i] = st["h"]
+            cs[i] = st["conv"]
+        else:
             x, _, _ = _dense_layer_apply(lp, x, cfg, positions,
-                                         cache=(ck[layer], cv[layer]),
-                                         pos=pos, length=length)
+                                         cache=(ck[i], cv[i]), pos=pos,
+                                         length=length)
     x = apply_norm(params["final_norm"], x, cfg)
     return unembed(params["embed"], x, cfg)[:, 0], dict(state, pos=pos + 1)

@@ -1,9 +1,11 @@
 """The port on the card: the CUDA kernels against their plain versions
 (the serving path's re-id top-k kernels and the kernel benchmark's four),
-the tie rule of ``torch.argmax`` there, and small served worlds (camera-
-and tile-granular) traced on the card and on the CPU.  Every test needs an NVIDIA GPU and nvcc and skips
-without them; the module imports neither ``jax`` nor ``repro``, so it runs
-on a machine with a card and no JAX:
+the tie rule of ``torch.argmax`` there, small served worlds (camera-
+and tile-granular) traced on the card and on the CPU, and the zoo's
+Mamba1 and hybrid smoke models on the card against their CPU runs.
+Every test needs an NVIDIA GPU and nvcc and skips without them; the
+module imports neither ``jax`` nor ``repro``, so it runs on a machine
+with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -671,6 +673,48 @@ def test_cuda_mamba1_model_matches_cpu(card):
                     st["ssm"]["conv"]]
     for got, want in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_hybrid_model_matches_cpu(card):
+    """zamba2's smoke config in float32: forward, prefill (logits, every
+    layer's h and conv, each super-block's K/V) and decode steps on the
+    card against the CPU; the flash kernel launched once a super-block a
+    pass, the decode kernel once a super-block a step, the scan never."""
+    from repro_torch import models
+    from repro_torch.configs import get_smoke_config
+
+    cfg = dataclasses.replace(get_smoke_config("zamba2_2p7b"),
+                              dtype="float32")
+    n_super = cfg.num_layers // cfg.attn_every
+    host = models.init_params(cfg, seed=2, device="cpu")
+    params = _tree_to(host, card)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 24)))
+    counters = (flash_attention, decode_attention, mamba_scan)
+    out = {}
+    for dev, p in (("cpu", host), ("cuda", params)):
+        before = [mod.LAUNCHES for mod in counters]
+        t = tokens.to(dev)
+        whole = models.forward(p, {"tokens": t}, cfg, device=dev)[0]
+        lg, st = models.prefill(p, {"tokens": t[:, :20]}, cfg, max_len=24,
+                                device=dev)
+        filled = [st["ssm"]["h"].clone(), st["ssm"]["conv"].clone(),
+                  st["kv"]["k"].clone(), st["kv"]["v"].clone()]
+        steps = [lg]
+        for i in range(20, 24):
+            lg, st = models.decode_step(p, st, t[:, i], cfg, device=dev)
+            steps.append(lg)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert [mod.LAUNCHES - b for mod, b in zip(counters, before)] \
+                == [2 * n_super, 4 * n_super, 0]
+        out[dev] = [whole, torch.stack(steps, 1), *filled, st["ssm"]["h"],
+                    st["kv"]["k"]]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(out["cuda"][1], out["cuda"][0][:, 19:],
+                               rtol=2e-4, atol=2e-4)
 
 
 def _tree_to(tree, device):

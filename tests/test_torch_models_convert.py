@@ -1,6 +1,7 @@
 """The zoo's pieces around the differential of ``test_torch_models.py``:
 the copied configs, the parameter and state converters (the reference's
-pad heads dropped without changing its logits; Mamba1's tree and state),
+pad heads dropped without changing its logits; Mamba1's tree and state;
+the hybrid's Mamba2 layers, unstacked shared block and two-part state),
 the building blocks against the reference's, the port's own init, where
 attention goes, the head widths the CUDA kernels take, and the families
 not ported yet."""
@@ -26,9 +27,8 @@ from repro_torch.models import attention as PA
 from repro_torch.models import layers as PL
 
 DENSE = ("yi_6b", "deepseek_7b", "phi3_medium_14b", "command_r_plus_104b")
-#: the families not ported yet, and the ssm family under Mamba2
-OTHERS = ("zamba2_2p7b", "qwen2_vl_72b", "phi3p5_moe_42b", "qwen3_moe_30b",
-          "whisper_tiny", "falcon_mamba_7b/mamba2")
+#: the families not ported yet
+OTHERS = ("qwen2_vl_72b", "phi3p5_moe_42b", "qwen3_moe_30b", "whisper_tiny")
 TOL = 2e-4                      # float32, as in test_torch_models.py
 
 _init = jax.jit(R.init_params, static_argnums=0)
@@ -408,6 +408,90 @@ def test_mamba1_decode_state_round_trip(dtype):
     for n, t in fresh["ssm"].items():
         assert t.shape == port["ssm"][n].shape and not t.any()
         assert t.dtype == port["ssm"][n].dtype
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_params_from_numpy_holds_the_hybrid_tree(dtype):
+    """zamba2's smoke config: each Mamba2 layer's projections in
+    ``cfg.dtype`` and ``conv_w``, ``conv_b``, ``A_log``, ``dt_bias``, ``D``
+    and ``norm_scale`` in ``cfg.param_dtype``, values exact; the shared
+    block one unstacked dense layer, its 4 query heads out of the
+    reference's 16 (the pads zero), its norms in ``cfg.param_dtype``."""
+    cfg = dataclasses.replace(RC.get_smoke_config("zamba2_2p7b"),
+                              dtype=dtype)
+    tree = _np(_init(cfg, jax.random.PRNGKey(13)))
+    params = params_from_numpy(cfg, tree, device="cpu")
+    dt = getattr(torch, dtype)
+    held = {"conv_w", "conv_b", "A_log", "dt_bias", "D", "norm_scale"}
+    assert params.keys() == tree.keys() == {"embed", "final_norm",
+                                            "layers", "shared_attn"}
+    assert len(params["layers"]) == cfg.num_layers
+    for layer, lp in enumerate(params["layers"]):
+        assert lp.keys() == {"ln1", "mamba"}
+        assert lp["mamba"].keys() == tree["layers"]["mamba"].keys()
+        assert held < lp["mamba"].keys()
+        for n, t in lp["mamba"].items():
+            assert t.dtype == (torch.float32 if n in held else dt), n
+            want = torch.tensor(tree["layers"]["mamba"][n][layer])
+            assert torch.equal(t, want.to(t.dtype)), n
+    H, hd, D = cfg.num_heads, cfg.head_dim, cfg.d_model
+    assert (H, cfg.num_padded_heads) == (4, 16)
+    shared, ref = params["shared_attn"], tree["shared_attn"]
+    assert shared.keys() == ref.keys() == {"ln1", "attn", "ln2", "mlp"}
+    assert shared["attn"]["wq"].shape == (D, H * hd)
+    assert shared["attn"]["wo"].shape == (H * hd, D)
+    assert not ref["attn"]["wq"][:, H * hd:].any()
+    assert not ref["attn"]["wo"][H * hd:].any()
+    for group, sub in shared.items():
+        for n, t in sub.items():
+            want = ref[group][n]
+            if group == "attn" and n == "wq":
+                want = want[:, :H * hd]
+            if group == "attn" and n == "wo":
+                want = want[:H * hd]
+            assert t.dtype == (torch.float32 if group.startswith("ln")
+                               else dt), (group, n)
+            assert torch.equal(t, torch.tensor(want).to(t.dtype)), (group, n)
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_hybrid_decode_state_round_trip(dtype):
+    """The reference's hybrid prefill state (the Mamba2 layers' h
+    (L,B,nh,hd,N) float32 and conv (L,B,W-1,di+2N) in ``cfg.dtype``, a
+    cache a super-block) crosses into the port's layout and back
+    unchanged; a fresh state has the same shapes and dtypes, zeroed."""
+    cfg = dataclasses.replace(RC.get_smoke_config("zamba2_2p7b"),
+                              dtype=dtype)
+    params = _init(cfg, jax.random.PRNGKey(14))
+    _, state = jax.jit(R.prefill, static_argnums=(2, 3))(
+        params, {"tokens": _tokens(cfg, 14, S=10)}, cfg, 12)
+    state = _np(state)
+    port = decode_state_from_numpy(cfg, state, device="cpu")
+    L, B, nh, hd, N = state["ssm"]["h"].shape
+    n_super, _, T, KV, khd = state["kv"]["k"].shape
+    assert (L, n_super) == (cfg.num_layers, cfg.num_layers // cfg.attn_every)
+    assert (nh, hd, N) == (cfg.ssm_num_heads, cfg.ssm_head_dim,
+                           cfg.ssm_state)
+    assert port["pos"] == 10 and port.keys() == {"pos", "ssm", "kv"}
+    assert port["ssm"]["h"].dtype == torch.float32
+    assert port["ssm"]["conv"].shape == (L, B, cfg.ssm_conv - 1,
+                                         cfg.d_inner + 2 * N)
+    assert port["kv"]["k"].shape == (n_super, B, KV, T, khd)
+    back = decode_state_to_numpy(port)
+    assert back["pos"] == np.int32(10)
+    for group in ("ssm", "kv"):
+        for n, t in port[group].items():
+            assert t.is_contiguous()
+            assert t.dtype == (torch.float32 if n == "h"
+                               else getattr(torch, dtype))
+            np.testing.assert_array_equal(
+                back[group][n], np.asarray(state[group][n], np.float32))
+    fresh = P.init_decode_state(cfg, B, T, device="cpu")
+    assert fresh["pos"] == 0 and fresh.keys() == port.keys()
+    for group in ("ssm", "kv"):
+        for n, t in fresh[group].items():
+            assert t.shape == port[group][n].shape and not t.any()
+            assert t.dtype == port[group][n].dtype
 
 
 def test_entry_points_need_a_card_unless_told_cpu():
