@@ -282,7 +282,38 @@ Phases, one line or block each:
      ``ssm.ssd_chunked`` call (its share of the prefill's device time),
      and 4 profiled steps; both kernels timed at the model's activations
      beside their plain versions, bounds and library calls (the
-     ``zoo_hybrid`` entries of the kernels line).
+     ``zoo_hybrid`` entries of the kernels line);
+ 19. the MoE zoo's serving path (``repro_torch.models`` with
+     ``models.moe``) at qwen3-moe-30b's full width (48 layers, d_model
+     2,048, 32 query heads over 4 kv heads of 64, 128 experts top-8 of
+     d_ff 768, capacity factor 1.25; vocab 151,936, untied), random
+     weights drawn on the card from a seeded ``torch.Generator``, phase
+     18's freed first: (a) 2 layers in float32, B = 2: ``forward`` over
+     132 tokens (C = 21 slots an expert, entries drop), ``prefill`` of
+     128 and 4 ``decode_step``s, held to a CPU rerun on the same weights
+     (logits, caches, ``moe_aux`` and ``moe_z``, within 2e-4), and the
+     card's decode logits to its forward logits at ``capacity_factor = E
+     / k`` = 16 (C the whole chunk: nothing drops, where at 1.25 a
+     forward's tokens compete for slots a step's never fill); flash
+     launches 2 a forward and 2 a prefill, decode 2 a step; (b) all 48
+     layers in bfloat16, B = 8: ``prefill`` of 1,024 tokens into 2,048
+     slots (one chunk of 8,192 tokens, C = 640), then 32 greedy decode
+     steps (C = 4), timed (prefill tokens/s against the operations of
+     the experts over all E x C slots, as the reference computes them,
+     the projections and attention at the bfloat16 peak and the float32
+     routers at the fp32 peak; decode ms a step against the bytes of
+     every weight, each step running every expert over its 4 slots, and
+     of the live caches); the entries capacity drops at layer 0 in the
+     prefill and in the first step (the port's ``_route`` and
+     ``_dispatch_indices`` on that layer's input); a warm-up run first
+     holds the first and last layer's attention, at the prefill and at
+     the last step, to the plain versions on the card as phase 16 does;
+     launches flash 48 a prefill, decode 48 a step; no logit NaN or
+     infinite; a prefill and a step under
+     ``torch.cuda.set_sync_debug_mode("error")``; a profiled prefill and
+     4 profiled steps; both kernels timed at the model's activations
+     beside their plain versions, bounds and library calls (the
+     ``zoo_moe`` entries of the kernels line).
 
 The CPU reruns of phases 11, 12, 13 and 15 run in three worker processes
 of one thread each (``cpu_job``) while the card runs go on: the
@@ -463,6 +494,14 @@ HYBRID_CHECK = dict(layers=12, B=2, S=128, steps=4)
 HYBRID_SERVE = dict(B=8, S=1024, max_len=2048, steps=32)
 #: decode steps of phase 18's profiled window
 HYBRID_PROFILED = 4
+#: phase 19's model, the MoE zoo's qwen3-moe-30b (configs/qwen3_moe_30b.py)
+#: at full width: (a) 2 of 48 layers in float32 beside a CPU rerun, (b)
+#: all 48 layers in bfloat16, served
+MOE_ARCH = "qwen3_moe_30b"
+MOE_CHECK = dict(layers=2, B=2, S=128, steps=4)
+MOE_SERVE = dict(B=8, S=1024, max_len=2048, steps=32)
+#: decode steps of phase 19's profiled window
+MOE_PROFILED = 4
 #: worker processes for the CPU reruns of phases 11, 12, 13 and 15
 #: (``cpu_job``)
 CPU_WORKERS = 3
@@ -2757,6 +2796,286 @@ def phase_hybrid_zoo(torch, np, errs):
     return zoo
 
 
+def moe_drops(torch, cfg, router, x):
+    """The (token, expert) entries that capacity drops in one moe call on
+    x (B, S, D) with ``router``, reckoned with the port's own ``_route``
+    and ``_dispatch_indices``; returns (dropped, entries, C).  One chunk
+    (T <= ``moe.MOE_CHUNK``)."""
+    from repro_torch.models import moe
+
+    tokens = x.reshape(-1, x.shape[-1])
+    T = tokens.shape[0]
+    if T > moe.MOE_CHUNK:
+        fail(f"[19 moe] {T} tokens are more than one chunk")
+    C = moe.capacity(cfg, T)
+    ids = moe._route(tokens.float(), router, cfg.experts_per_token)[1]
+    valid = moe._dispatch_indices(ids, cfg.num_experts, C)[1]
+    return int((~valid).sum()), valid.numel(), C
+
+
+def phase_moe_zoo(torch, np, errs):
+    """Phase 19, the MoE zoo's serving path (see the module docstring).
+    ``errs`` takes the attention holds' errors; returns the flash and
+    decode kernels' ``zoo_moe`` entries for the kernels line."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.benchmarks import kernels_bench
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.models import moe
+
+    t_phase = time.perf_counter()
+    gc.collect()                    # phase 18's weights go first
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    full = get_config(MOE_ARCH)
+    E, k = full.num_experts, full.experts_per_token
+    rng = np.random.default_rng(22)
+
+    def reset():
+        flash_attention.LAUNCHES = decode_attention.LAUNCHES = 0
+
+    def launches():
+        return flash_attention.LAUNCHES, decode_attention.LAUNCHES
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    # (a) two layers at full width in float32, the card against the CPU
+    a = MOE_CHECK
+    cfg = dataclasses.replace(full, num_layers=a["layers"], dtype="float32")
+    S, steps = a["S"], a["steps"]
+    tokens = rng.integers(0, cfg.vocab_size, (a["B"], S + steps))
+
+    def check_run(params, device, cfg):
+        toks = torch.as_tensor(tokens, device=device)
+        whole, aux = models.forward(params, {"tokens": toks}, cfg,
+                                    device=device)
+        lg, st = models.prefill(params, {"tokens": toks[:, :S]}, cfg,
+                                max_len=S + steps, device=device)
+        out = [lg]
+        for i in range(steps):
+            lg, st = models.decode_step(params, st, toks[:, S + i], cfg,
+                                        device=device)
+            out.append(lg)
+        return dict(forward=whole, steps=torch.stack(out, 1),
+                    k=st["kv"]["k"], v=st["kv"]["v"], **aux)
+
+    params = models.init_params(cfg, seed=22, device=DEVICE)
+    weights_gb = nbytes(params) / 1e9
+    reset()
+    card = check_run(params, DEVICE, cfg)
+    got = launches()
+    if got != (a["layers"] * 2, a["layers"] * steps):
+        fail(f"[19 moe] (a): launches flash {got[0]}, decode {got[1]}; "
+             f"want {a['layers'] * 2} (layers x 2 passes) and "
+             f"{a['layers'] * steps} (layers x steps)")
+    if not all(float(card[n]) > 0 for n in ("moe_aux", "moe_z")):
+        fail("[19 moe] (a): the aux and z losses are not positive")
+    t0 = time.perf_counter()
+    host = check_run(tree_to(params, "cpu"), "cpu", cfg)
+    host_s = time.perf_counter() - t0
+    diffs = hold_to_cpu(torch, "[19 moe] (a)", card, host)
+    # decode against forward only where nothing can drop: at the config's
+    # 1.25 the forward's B x (S + steps) tokens compete for C slots an
+    # expert that a step's B tokens never fill, so the reference's decode
+    # parts from its forward too; at capacity_factor E / k, C is the chunk
+    roomy = dataclasses.replace(cfg, capacity_factor=E / k)
+    own = decode_against_forward(torch, "[19 moe] (a)",
+                                 check_run(params, DEVICE, roomy), S, steps)
+    T = a["B"] * (S + steps)
+    say(f"[19 moe] (a) {full.name} at full width, {a['layers']} layers, "
+        f"float32 ({weights_gb:.2f} GB), B {a['B']}: forward over "
+        f"{S + steps} tokens (C = {moe.capacity(cfg, T)} slots an expert "
+        f"of {E}, top-{k}), prefill of {S}, {steps} decode steps; card "
+        f"against the CPU rerun (max abs err: forward "
+        f"{diffs['forward']:.3g}, prefill and decode logits "
+        f"{diffs['steps']:.3g}, caches {max(diffs['k'], diffs['v']):.3g}, "
+        f"moe_aux {diffs['moe_aux']:.3g} of {float(card['moe_aux']):.4f}, "
+        f"moe_z {diffs['moe_z']:.3g} of {float(card['moe_z']):.4f}; "
+        f"tolerance {ZOO_TOL}); card decode against card forward {own:.3g} "
+        f"at capacity_factor E/k = {E // k} (C = "
+        f"{moe.capacity(roomy, T)}, the whole chunk: nothing drops, where "
+        f"at 1.25 a forward's tokens compete for slots a step's never "
+        f"fill); launches flash {got[0]}, decode {got[1]}; CPU rerun "
+        f"{host_s:.1f} s")
+    del params, card, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) all 48 layers in bfloat16: prefill, then greedy decode
+    b = MOE_SERVE
+    cfg, L = full, full.num_layers
+    S, steps = b["S"], b["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = models.init_params(cfg, seed=23, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = nbytes(params)
+    router_bytes = sum(nbytes(lp["moe"]["router"])
+                       for lp in params["layers"])
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b["B"], S)),
+                             device=DEVICE)
+
+    def serve(timed: bool):
+        return serve_greedy(torch, models, params, cfg, prompt, steps, timed,
+                            max_len=b["max_len"])
+
+    # the warm-up run holds the first and last layer's attention, at the
+    # prefill and at the last decode step, to the plain versions, and
+    # keeps layer 0's moe input at the prefill and at the first step
+    base_block, inputs = moe.moe_block, {}
+
+    def moe_kept(p, x, cfg_):
+        n = inputs.setdefault("calls", 0)
+        inputs["calls"] = n + 1
+        if n in (0, L):
+            inputs["prefill" if n == 0 else "step"] = (p["router"],
+                                                      x.clone())
+        return base_block(p, x, cfg_)
+
+    moe.moe_block = moe_kept
+    try:
+        holds, kept = attention_holds(
+            torch, "[19 moe]", lambda: serve(timed=False),
+            {0: "first layer", L - 1: "last layer"},
+            {(steps - 1) * L: "first layer", steps * L - 1: "last layer"},
+            steps)
+    finally:
+        moe.moe_block = base_block
+    if inputs.get("calls") != L * (1 + steps):
+        fail(f"[19 moe] (b): {inputs.get('calls')} moe calls in a prefill "
+             f"and {steps} steps, want {L * (1 + steps)}")
+    drops = {n: moe_drops(torch, cfg, *inputs[n])
+             for n in ("prefill", "step")}
+    del inputs
+
+    reset()
+    prefill_s, step_ms, logits, lg, st = serve(timed=True)
+    got = launches()
+    if got != (L, L * steps):
+        fail(f"[19 moe] (b): launches flash {got[0]}, decode {got[1]}; "
+             f"want {L} (layers x 1 pass) and {L * steps} (layers x "
+             f"steps)")
+    if not bool(torch.isfinite(logits).all()):
+        fail("[19 moe] (b): a logit is not finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # a prefill and a step wait for nothing on the host: one of each
+    # under the sync debugger, which raises at any synchronising call
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        models.prefill(params, {"tokens": prompt}, cfg,
+                       max_len=b["max_len"], device=DEVICE)
+        lg, st = models.decode_step(params, st, lg.argmax(-1), cfg,
+                                    device=DEVICE)
+    except RuntimeError as e:
+        fail(f"[19 moe] (b): a prefill or a decode step synchronised with "
+             f"the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+    # yardsticks: prefill's operations at the bfloat16 peak (the experts
+    # over all E x C slots, as the reference computes them whether a slot
+    # is filled or not; the attention projections; causal attention; the
+    # last position's unembedding) and the float32 router's at the fp32
+    # peak; a decode step's bytes (every weight but the embedding table
+    # once: each step runs every expert over its C = 4 slots; B embedding
+    # rows; the live caches at the last step) over HBM's rate
+    T = b["B"] * S
+    C = moe.capacity(cfg, T)
+    D, F = cfg.d_model, cfg.d_ff
+    attn_elems = sum(t.numel() for t in params["layers"][0]["attn"].values())
+    pairs = S * (S + 1) / 2
+    expert_flops = 6.0 * E * C * D * F
+    mm_flops = (L * (expert_flops + 2.0 * attn_elems * T
+                     + 4.0 * b["B"] * cfg.num_heads * pairs * cfg.head_dim)
+                + 2.0 * D * cfg.vocab_size * b["B"])
+    router_flops = L * 2.0 * T * D * E
+    prefill_bound = (mm_flops / kernels_bench.BF16_FLOPS
+                     + router_flops / kernels_bench.FP32_FLOPS) * 1e3
+    tok = params["embed"]["tok"]
+    item = tok.element_size()
+    cache_live = (2.0 * L * b["B"] * cfg.num_kv_heads * (S + steps)
+                  * cfg.head_dim * item)
+    step_bytes = (weight_bytes - nbytes(tok) + b["B"] * D * item
+                  + cache_live)
+    step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    ms = sorted(step_ms)
+    line = dict(
+        config=f"{cfg.name} {L} layers bfloat16 B {b['B']} prefill {S} "
+               f"max_len {b['max_len']} steps {steps}",
+        weights_gb=weight_bytes / 1e9, router_gb=router_bytes / 1e9,
+        init_s=init_s, prefill_s=prefill_s,
+        prefill_tokens_per_s=T / prefill_s, prefill_bound_ms=prefill_bound,
+        decode_ms_mean=sum(step_ms) / steps, decode_ms_p50=ms[steps // 2],
+        decode_ms_min=ms[0], decode_ms_max=ms[-1],
+        decode_bound_ms=step_bound, cache_gb=nbytes(st["kv"]) / 1e9,
+        peak_gb=peak_gb, held_gb=held_gb,
+        dropped={n: dict(zip(("dropped", "entries", "C"), d))
+                 for n, d in drops.items()})
+    say(f"[19 moe] (b) {cfg.name}, {L} layers, bfloat16, {E} experts "
+        f"top-{k}, weights {weight_bytes / 1e9:.2f} GB (the float32 "
+        f"routers {router_bytes / 1e9:.3f} of it) made in {init_s:.1f} s "
+        f"({held_gb:.2f} GB held before); prefill B {b['B']} x S {S} into "
+        f"max_len {b['max_len']}: {prefill_s * 1e3:.1f} ms, "
+        f"{T / prefill_s:.0f} tokens/s (operations bound "
+        f"{prefill_bound:.1f} ms: {mm_flops / 1e12:.2f} TFLOP at 989 "
+        f"TFLOP/s, the experts over all {E} x {C} slots "
+        f"{L * expert_flops / 1e12:.2f} of it, and the routers' "
+        f"{router_flops / 1e12:.3f} at 67); {steps} greedy decode steps: "
+        f"mean {line['decode_ms_mean']:.3f} ms/step, p50 "
+        f"{ms[steps // 2]:.3f}, min {ms[0]:.3f}, max {ms[-1]:.3f} (byte "
+        f"bound {step_bound:.3f} ms: {step_bytes / 1e9:.2f} GB, every "
+        f"expert over its C = {moe.capacity(cfg, b['B'])} slots, the live "
+        f"caches {cache_live / 1e9:.3f} GB, over 3.35 TB/s); launches "
+        f"flash {got[0]} (= {L} layers x 1 pass), decode {got[1]} (= {L} "
+        f"x {steps} steps); every logit finite; a prefill and a step under "
+        f"the sync debugger ran without a host sync; caches "
+        f"{line['cache_gb']:.2f} GB; peak memory {peak_gb:.2f} GB")
+    for n, (dropped, entries, cap) in drops.items():
+        say(f"[19 moe] (b) layer 0's {n} ({entries // k} tokens, C = "
+            f"{cap}): {dropped} of {entries} (token, expert) entries "
+            f"dropped by capacity ({100 * dropped / entries:.2f} %)")
+    for label, err, share in holds:
+        say(f"{label}: agrees with the plain version (max abs err "
+            f"{err:.3g}, bfloat16 bit-equal {share:.4f})")
+
+    # where the time goes: a prefill and MOE_PROFILED further decode steps
+    # under torch.profiler (device activity only), after the counted run
+    state = {"lg": lg, "st": st}
+
+    def more_steps():
+        for _ in range(MOE_PROFILED):
+            state["lg"], state["st"] = models.decode_step(
+                params, state["st"], state["lg"].argmax(-1), cfg,
+                device=DEVICE)
+
+    prefill_profile = profile_passes(
+        torch, "[19 moe] prefill", lambda: models.prefill(
+            params, {"tokens": prompt}, cfg, max_len=b["max_len"],
+            device=DEVICE), 1, ("flash", "decode_"), "attention")
+    decode_profile = profile_passes(
+        torch, f"[19 moe] {MOE_PROFILED} decode steps", more_steps,
+        MOE_PROFILED, ("flash", "decode_"), "attention")
+    del state, lg, st, logits
+    line.update(prefill_profile=prefill_profile,
+                decode_profile=decode_profile)
+
+    # the two kernels at the model's shapes, the warm-up run's inputs
+    zoo = attention_zoo(torch, "[19 moe]", cfg.name, kept, holds,
+                        {"flash_attention": got[0],
+                         "decode_attention": got[1]}, errs)
+    zoo["flash_attention"]["serving"] = line
+    del params, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[19 moe] phase {time.perf_counter() - t_phase:.1f} s")
+    return zoo
+
+
 def scan_end_state(torch, errs):
     """The scan's end state (``mamba_scan(..., final_state=True)``) held to
     the plain version's h at ``END_STATE_SHAPES``, with y: one launch a
@@ -3703,6 +4022,8 @@ def main() -> int:
                              end_state=end_state)
     # -- phase 18: the hybrid zoo's serving path ---------------------------
     hybrid = phase_hybrid_zoo(torch, np, errs)
+    # -- phase 19: the MoE zoo's serving path ------------------------------
+    moe_zoo = phase_moe_zoo(torch, np, errs)
     camera_row["max_abs_err"] = max_err[CAMERA["name"]]
     tiles_row["max_abs_err"] = max_err[TILES["name"]]
 
@@ -3719,7 +4040,8 @@ def main() -> int:
         + [dict(BENCH[name], launches=bench_launches[name],
                 max_abs_err=errs[name], **bench[name], model=widths[name],
                 **({"zoo": zoo[name]} if name in zoo else {}),
-                **({"zoo_hybrid": hybrid[name]} if name in hybrid else {}))
+                **({"zoo_hybrid": hybrid[name]} if name in hybrid else {}),
+                **({"zoo_moe": moe_zoo[name]} if name in moe_zoo else {}))
            for name in BENCH]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -16,7 +16,7 @@ from repro_torch.core.policy import PhaseState
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import head_mask
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import check_family
+from repro_torch.models.model import ATTENTION_FAMILIES, check_family
 from repro_torch.models.ssm import PARAM_DTYPE_LEAVES
 
 _MODEL_DTYPES = dict(S=np.float32, exit_frac=np.float32, cdf=np.float32,
@@ -80,8 +80,10 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
     unchanged); the norms, and the Mamba leaves of
     ``ssm.PARAM_DTYPE_LEAVES`` (``conv_w``, ``conv_b``, ``A_log``,
     ``dt_bias``, ``D`` and Mamba2's ``norm_scale``), in
-    ``cfg.param_dtype`` and every other tensor cast once to ``cfg.dtype``,
-    the casts the reference makes at each use."""
+    ``cfg.param_dtype``, a moe layer's router in float32 (the reference
+    routes on float32 logits, whatever ``cfg.param_dtype`` is) and every
+    other tensor, the experts' ``wi``, ``wg`` and ``wo`` too, cast once to
+    ``cfg.dtype``, the casts the reference makes at each use."""
     check_family(cfg)
     dev = resolve_device(device)
     dt, pdt = getattr(torch, cfg.dtype), getattr(torch, cfg.param_dtype)
@@ -93,6 +95,8 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
             a = a[..., real]
         elif group == "attn" and name == "wo":
             a = a[real]
+        if group == "moe" and name == "router":
+            return _tensor(a, torch.float32, dev)
         held = group in ("ln1", "ln2", "final_norm") or (
             group == "mamba" and name in PARAM_DTYPE_LEAVES)
         return _tensor(a, pdt if held else dt, dev)
@@ -120,12 +124,12 @@ def decode_state_from_numpy(cfg: ModelConfig, state: dict,
     ``device``: ``pos`` an int, caches (n,B,KV,T,hd) in ``cfg.dtype``, and
     the ssm states in their own layout, h (L,B,di,N) or Mamba2's
     (L,B,nh,hd,N) float32 and conv (L,B,W-1,channels) in ``cfg.dtype``;
-    a hybrid's state carries both."""
+    a hybrid's state carries both, a moe model's the caches alone."""
     check_family(cfg)
     dev = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
     out: dict = {"pos": int(state["pos"])}
-    if cfg.family != "dense":
+    if cfg.family not in ATTENTION_FAMILIES:
         out["ssm"] = {"h": _tensor(state["ssm"]["h"], torch.float32, dev),
                       "conv": _tensor(state["ssm"]["conv"], dt, dev)}
     if cfg.family != "ssm":

@@ -1,9 +1,10 @@
 """Model assembly: init / forward / prefill / decode, the counterpart of
 ``repro.models.model`` for the dense family (llama-style GQA + SwiGLU:
 deepseek, yi, phi3, and command-r's parallel block with LayerNorm), the
-ssm family (falcon-mamba: a norm and a Mamba1 or Mamba2 block a layer)
-and the hybrid family (zamba2: super-blocks of ``attn_every`` Mamba2
-layers, each followed by one shared dense block).
+moe family (phi3.5-moe, qwen3-moe: the dense block with ``moe.moe_block``
+in place of the MLP), the ssm family (falcon-mamba: a norm and a Mamba1
+or Mamba2 block a layer) and the hybrid family (zamba2: super-blocks of
+``attn_every`` Mamba2 layers, each followed by one shared dense block).
 
 Parameters are a dict as in the reference, with one dict a layer in
 ``params["layers"]`` where the reference stacks the layers on axis 0 for
@@ -29,8 +30,13 @@ once an attention block; each prefill or forward of a Mamba1 model
 launches the scan kernel once a layer (a prefill's launch also writes the
 layer's end state), and a decode step none.  Mamba2 launches no kernel:
 its SSD is a chunked matmul form in PyTorch, as the reference's is jnp.
+A moe layer launches what a dense layer does (flash a forward or
+prefill, decode a step) and no kernel for its router, dispatch and
+experts, which are PyTorch ops (sorts, a scatter, a gather and batched
+matmuls) as the reference's are jnp; ``forward`` returns the layers'
+mean aux and z losses.
 
-The dense, ssm and hybrid families are ported.  The others raise
+The dense, moe, ssm and hybrid families are ported.  The others raise
 ``NotImplementedError`` naming the slice of ``ROADMAP.md`` (Queue 1, item
 2) that will port them.  The reference's remat, ``scan_layers``, mesh
 constraints, logical axes, ``abstract_params``, sequence-sharded caches
@@ -42,15 +48,17 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import ssm
+from repro_torch.models import moe, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Params, _dtype, apply_mlp, apply_norm,
                                        embed_tokens, init_embed, init_mlp,
                                        init_norm, unembed)
 
+#: the families of attention layers alone, a cache each (the reference's
+#: ("dense", "vlm", "moe") grouping, less the VLM not ported yet)
+ATTENTION_FAMILIES = ("dense", "moe")
 #: the slice of ROADMAP.md's Queue 1 item 2 that ports each other family
 PENDING_SLICES = {
-    "moe": "the MoE slice (phi3.5-moe, qwen3-moe)",
     "vlm": "the VLM slice (qwen2-vl, M-RoPE, the vision stub)",
     "audio": "the audio slice (whisper: encoder and cross attention)",
 }
@@ -58,7 +66,7 @@ PENDING_SLICES = {
 
 def check_family(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless ``cfg`` is of a family this
-    package ports (dense, ssm or hybrid), and ``ValueError`` for an ssm
+    package ports (dense, moe, ssm or hybrid), and ``ValueError`` for an ssm
     version other than 1 or 2 or a hybrid whose ``num_layers`` is not a
     multiple of ``attn_every`` (the reference's reshape into super-blocks
     fails there)."""
@@ -67,7 +75,7 @@ def check_family(cfg: ModelConfig) -> None:
             f"{cfg.name}: the {cfg.family} family is not ported yet; "
             f"ROADMAP.md Queue 1 item 2(a) queues it as "
             f"{PENDING_SLICES[cfg.family]}")
-    if cfg.family != "dense":
+    if cfg.family not in ATTENTION_FAMILIES:
         ssm.check_version(cfg)
     if cfg.family == "hybrid" and cfg.num_layers % cfg.attn_every:
         raise ValueError(f"{cfg.name}: num_layers {cfg.num_layers} is not a "
@@ -96,7 +104,10 @@ def _init_dense_layer(gen: torch.Generator, cfg: ModelConfig) -> Params:
                  "attn": attn.init_attention(gen, cfg)}
     if not cfg.parallel_block:
         p["ln2"] = init_norm(cfg, gen.device)
-    p["mlp"] = init_mlp(gen, cfg)
+    if cfg.family == "moe":
+        p["moe"] = moe.init_moe(gen, cfg)
+    else:
+        p["mlp"] = init_mlp(gen, cfg)
     return p
 
 
@@ -115,7 +126,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Params:
     check_family(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    init_layer = _init_dense_layer if cfg.family == "dense" \
+    init_layer = _init_dense_layer if cfg.family in ATTENTION_FAMILIES \
         else _init_ssm_layer
     p = {"embed": init_embed(gen, cfg),
          "final_norm": init_norm(cfg, dev),
@@ -135,8 +146,9 @@ def _dense_layer_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig,
     attention over x's own tokens (the flash kernel).  With ``cache``, a
     block's (k, v) caches (B,KV,T,hd), x is one token at ``pos``: its K/V
     are written into the caches in place and it attends over the first
-    ``length`` (B,) keys (the decode kernel).  Returns (x_out, k, v), k
-    and v (B,KV,S,hd) of x's tokens.  The parallel block (command-r) sums
+    ``length`` (B,) keys (the decode kernel).  Returns (x_out, k, v,
+    losses), k and v (B,KV,S,hd) of x's tokens and losses a moe layer's
+    (aux, z), None for a dense one.  The parallel block (command-r) sums
     attention and MLP as the reference's default ``PerfFlags`` do
     (``parallel_fused_ar`` off)."""
     h = apply_norm(lp["ln1"], x, cfg)
@@ -150,10 +162,13 @@ def _dense_layer_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig,
         o = attn.decode_attention(q[:, :, 0], ck, cv, length, cfg)[:, :, None]
     a_out = attn.attn_output(lp["attn"], o, cfg)
     if cfg.parallel_block:
-        return x + a_out + apply_mlp(lp["mlp"], h, cfg), k, v
+        return x + a_out + apply_mlp(lp["mlp"], h, cfg), k, v, None
     x = x + a_out
     h2 = apply_norm(lp["ln2"], x, cfg)
-    return x + apply_mlp(lp["mlp"], h2, cfg), k, v
+    if "moe" in lp:
+        m_out, aux, z = moe.moe_block(lp["moe"], h2, cfg)
+        return x + m_out, k, v, (aux, z)
+    return x + apply_mlp(lp["mlp"], h2, cfg), k, v, None
 
 
 def _ssm_layer_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -171,11 +186,12 @@ def _ssm_layer_apply(lp: Params, x: torch.Tensor, cfg: ModelConfig,
 def _blocks(params: Params, cfg: ModelConfig):
     """The trunk in order, as (kind, index, block params): ("ssm", layer,
     ...) for an ssm layer, ("attn", cache, ...) for a dense block, the
-    index naming its entry of the decode state.  A hybrid walks its
-    ``num_layers // attn_every`` super-blocks: ``attn_every`` Mamba2
-    layers, then the shared block with the super-block's own cache."""
+    index naming its entry of the decode state (a moe layer is a dense
+    block).  A hybrid walks its ``num_layers // attn_every``
+    super-blocks: ``attn_every`` Mamba2 layers, then the shared block
+    with the super-block's own cache."""
     layers = params["layers"]
-    if cfg.family == "dense":
+    if cfg.family in ATTENTION_FAMILIES:
         return [("attn", i, lp) for i, lp in enumerate(layers)]
     walk = [("ssm", i, lp) for i, lp in enumerate(layers)]
     if cfg.family == "ssm":
@@ -196,22 +212,27 @@ def _positions(B: int, S: int, dev: torch.device) -> torch.Tensor:
 
 def forward_hidden(params: Params, batch: dict, cfg: ModelConfig, *,
                    device="cuda"):
-    """Returns (hidden (B,S,D) after the final norm, aux losses dict; the
-    dense, ssm and hybrid families' are zero)."""
+    """Returns (hidden (B,S,D) after the final norm, aux losses dict:
+    a moe model's ``moe_aux`` and ``moe_z`` the sums of its layers' over
+    ``num_layers``, as the reference's; the other families' zero)."""
     check_family(cfg)
     dev = resolve_device(device)
     _check_on(params, dev)
     tokens = _tokens(batch["tokens"], dev)
     x = embed_tokens(params["embed"], tokens, cfg)
     positions = _positions(*tokens.shape, dev)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    z = torch.zeros((), dtype=torch.float32, device=dev)
     for kind, _, lp in _blocks(params, cfg):
         if kind == "ssm":
             x, _ = _ssm_layer_apply(lp, x, cfg)
-        else:
-            x, _, _ = _dense_layer_apply(lp, x, cfg, positions)
+            continue
+        x, _, _, losses = _dense_layer_apply(lp, x, cfg, positions)
+        if losses is not None:
+            aux, z = aux + losses[0], z + losses[1]
     x = apply_norm(params["final_norm"], x, cfg)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    return x, {"moe_aux": zero, "moe_z": zero}
+    n = max(cfg.num_layers, 1)
+    return x, {"moe_aux": aux / n, "moe_z": z / n}
 
 
 def forward(params: Params, batch: dict, cfg: ModelConfig, *, device="cuda"):
@@ -227,20 +248,21 @@ def forward(params: Params, batch: dict, cfg: ModelConfig, *, device="cuda"):
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                       device="cuda") -> dict:
     """An empty decode state: ``pos`` 0; for attention zeroed caches
-    (n, batch, KV, max_len, hd) in ``cfg.dtype``, n the dense layers or
-    the hybrid's super-blocks; for the ssm layers zeroed states (L, ...)
-    as ``ssm.mamba1_state_init`` or ``ssm.mamba2_state_init`` makes them
-    (an ssm model does not read ``max_len``, as in the reference)."""
+    (n, batch, KV, max_len, hd) in ``cfg.dtype``, n the dense or moe
+    layers or the hybrid's super-blocks; for the ssm layers zeroed states
+    (L, ...) as ``ssm.mamba1_state_init`` or ``ssm.mamba2_state_init``
+    makes them (an ssm model does not read ``max_len``, as in the
+    reference)."""
     check_family(cfg)
     dev = resolve_device(device)
     state: dict = {"pos": 0}
-    if cfg.family != "dense":
+    if cfg.family not in ATTENTION_FAMILIES:
         init = ssm.mamba1_state_init if cfg.ssm_version == 1 \
             else ssm.mamba2_state_init
         state["ssm"] = {n: t[None].repeat((cfg.num_layers,) + (1,) * t.ndim)
                         for n, t in init(cfg, batch, dev).items()}
     if cfg.family != "ssm":
-        n = cfg.num_layers if cfg.family == "dense" \
+        n = cfg.num_layers if cfg.family in ATTENTION_FAMILIES \
             else cfg.num_layers // cfg.attn_every
         shape = (n, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
         state["kv"] = {
@@ -266,7 +288,7 @@ def _fill_state(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             state["ssm"]["h"][i] = st["h"]
             state["ssm"]["conv"][i] = st["conv"]
         else:
-            x, k, v = _dense_layer_apply(lp, x, cfg, positions)
+            x, k, v, _ = _dense_layer_apply(lp, x, cfg, positions)
             state["kv"]["k"][i, :, :, :S] = k
             state["kv"]["v"][i, :, :, :S] = v
     return x
@@ -325,8 +347,8 @@ def decode_step(params: Params, state: dict, token, cfg: ModelConfig, *,
             hs[i] = st["h"]
             cs[i] = st["conv"]
         else:
-            x, _, _ = _dense_layer_apply(lp, x, cfg, positions,
-                                         cache=(ck[i], cv[i]), pos=pos,
-                                         length=length)
+            x, _, _, _ = _dense_layer_apply(lp, x, cfg, positions,
+                                            cache=(ck[i], cv[i]), pos=pos,
+                                            length=length)
     x = apply_norm(params["final_norm"], x, cfg)
     return unembed(params["embed"], x, cfg)[:, 0], dict(state, pos=pos + 1)

@@ -1,10 +1,10 @@
 """The zoo's pieces around the differential of ``test_torch_models.py``:
 the copied configs, the parameter and state converters (the reference's
 pad heads dropped without changing its logits; Mamba1's tree and state;
-the hybrid's Mamba2 layers, unstacked shared block and two-part state),
-the building blocks against the reference's, the port's own init, where
-attention goes, the head widths the CUDA kernels take, and the families
-not ported yet."""
+the hybrid's Mamba2 layers, unstacked shared block and two-part state;
+the MoE layers' float32 router and experts), the building blocks against
+the reference's, the port's own init, where attention goes, the head
+widths the CUDA kernels take, and the families not ported yet."""
 import dataclasses
 
 import jax
@@ -27,8 +27,9 @@ from repro_torch.models import attention as PA
 from repro_torch.models import layers as PL
 
 DENSE = ("yi_6b", "deepseek_7b", "phi3_medium_14b", "command_r_plus_104b")
+MOE = ("phi3p5_moe_42b", "qwen3_moe_30b")
 #: the families not ported yet
-OTHERS = ("qwen2_vl_72b", "phi3p5_moe_42b", "qwen3_moe_30b", "whisper_tiny")
+OTHERS = ("qwen2_vl_72b", "whisper_tiny")
 TOL = 2e-4                      # float32, as in test_torch_models.py
 
 _init = jax.jit(R.init_params, static_argnums=0)
@@ -317,17 +318,22 @@ def test_attention_goes_through_the_kernel_wrappers(monkeypatch):
 
 def test_dense_head_widths_fit_the_cuda_kernels():
     """The CUDA attention paths take hd a multiple of 8 up to 256.  The
-    four dense configs have hd 128.  Of their smoke configs, phi3's has hd
-    20 (80 wide over 4 heads): the plain versions serve it on the CPU,
-    and on the card the wrappers refuse it rather than answer."""
-    for arch in DENSE:
-        assert PC.get_config(arch).head_dim == 128
+    four dense configs have hd 128, the MoE configs 128 (phi3.5-moe) and
+    64 (qwen3-moe).  Of their smoke configs, phi3's has hd 20 (80 wide
+    over 4 heads): the plain versions serve it on the CPU, and on the card
+    the wrappers refuse it rather than answer; the others have hd 16."""
+    full = {arch: PC.get_config(arch).head_dim for arch in DENSE + MOE}
+    assert full == dict.fromkeys(DENSE, 128) | {"phi3p5_moe_42b": 128,
+                                                "qwen3_moe_30b": 64}
+    for hd in set(full.values()):
         for dtype in (torch.float32, torch.bfloat16):
-            flash_kernel.flash_plan(128, dtype)
-        decode_kernel.check_width(128)
-    widths = {arch: PC.get_smoke_config(arch).head_dim for arch in DENSE}
+            flash_kernel.flash_plan(hd, dtype)
+        decode_kernel.check_width(hd)
+    widths = {arch: PC.get_smoke_config(arch).head_dim
+              for arch in DENSE + MOE}
     assert widths == {"yi_6b": 16, "deepseek_7b": 16, "phi3_medium_14b": 20,
-                      "command_r_plus_104b": 16}
+                      "command_r_plus_104b": 16, "phi3p5_moe_42b": 16,
+                      "qwen3_moe_30b": 16}
     for hd in set(widths.values()) - {20}:
         flash_kernel.flash_plan(hd, torch.bfloat16)
         decode_kernel.check_width(hd)
@@ -353,6 +359,75 @@ def test_other_families_are_not_ported(arch):
     for call in calls:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("arch", MOE)
+def test_params_from_numpy_holds_the_moe_tree(arch, dtype):
+    """A moe layer's router stays float32 in either dtype (the reference
+    routes on float32 logits); ``wi``, ``wg`` and ``wo`` are cast once to
+    ``cfg.dtype``, the attention as a dense layer's, the norms in
+    ``cfg.param_dtype``; every value exact."""
+    cfg = dataclasses.replace(RC.get_smoke_config(arch), dtype=dtype)
+    tree = _np(_init(cfg, jax.random.PRNGKey(15)))
+    params = params_from_numpy(cfg, tree, device="cpu")
+    dt = getattr(torch, dtype)
+    H, hd, E, D, F = (cfg.num_heads, cfg.head_dim, cfg.num_experts,
+                      cfg.d_model, cfg.d_ff)
+    assert len(params["layers"]) == cfg.num_layers
+    for layer, lp in enumerate(params["layers"]):
+        assert lp.keys() == tree["layers"].keys() == {"ln1", "attn", "ln2",
+                                                      "moe"}
+        moe = lp["moe"]
+        assert moe.keys() == {"router", "wi", "wg", "wo"}
+        assert moe["router"].shape == (D, E)
+        assert moe["wi"].shape == moe["wg"].shape == (E, D, F)
+        assert moe["wo"].shape == (E, F, D)
+        for group, sub in lp.items():
+            for n, t in sub.items():
+                want = tree["layers"][group][n][layer]
+                if group == "attn" and n == "wq":
+                    want = want[:, :H * hd]
+                if group == "attn" and n == "wo":
+                    want = want[:H * hd]
+                assert t.dtype == (
+                    torch.float32 if group.startswith("ln")
+                    or (group, n) == ("moe", "router") else dt), (group, n)
+                assert torch.equal(t, torch.tensor(want).to(t.dtype)), n
+        assert moe["router"].dtype == torch.float32
+        np.testing.assert_array_equal(moe["router"].numpy(),
+                                      tree["layers"]["moe"]["router"][layer])
+    assert params["embed"]["tok"].dtype == dt
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_decode_state_round_trip(arch, dtype):
+    """A moe model's state is a dense one's: ``pos`` and a cache a layer,
+    (L,B,KV,T,hd) in ``cfg.dtype``, into the port's layout and back
+    unchanged; a fresh state has the same shapes and dtypes, zeroed."""
+    cfg = dataclasses.replace(RC.get_smoke_config(arch), dtype=dtype)
+    params = _init(cfg, jax.random.PRNGKey(16))
+    _, state = jax.jit(R.prefill, static_argnums=(2, 3))(
+        params, {"tokens": _tokens(cfg, 16, S=10)}, cfg, 12)
+    state = _np(state)
+    port = decode_state_from_numpy(cfg, state, device="cpu")
+    L, B, T, KV, hd = state["kv"]["k"].shape
+    assert L == cfg.num_layers and port.keys() == {"pos", "kv"}
+    assert port["pos"] == 10
+    back = decode_state_to_numpy(port)
+    assert back["pos"] == np.int32(10) and back.keys() == {"pos", "kv"}
+    for n in ("k", "v"):
+        t = port["kv"][n]
+        assert t.shape == (L, B, KV, T, hd) and t.is_contiguous()
+        assert t.dtype == getattr(torch, dtype)
+        np.testing.assert_array_equal(back["kv"][n],
+                                      np.asarray(state["kv"][n], np.float32))
+    fresh = P.init_decode_state(cfg, B, T, device="cpu")
+    assert fresh["pos"] == 0 and fresh.keys() == port.keys()
+    for n, t in fresh["kv"].items():
+        assert t.shape == port["kv"][n].shape and not t.any()
+        assert t.dtype == port["kv"][n].dtype
 
 
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
