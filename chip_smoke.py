@@ -313,7 +313,64 @@ Phases, one line or block each:
      ``torch.cuda.set_sync_debug_mode("error")``; a profiled prefill and
      4 profiled steps; both kernels timed at the model's activations
      beside their plain versions, bounds and library calls (the
-     ``zoo_moe`` entries of the kernels line).
+     ``zoo_moe`` entries of the kernels line);
+ 20. the VLM zoo's serving path at qwen2-vl-72b's full width
+     (configs/qwen2_vl_72b.py: d_model 8,192, 64 query heads over 8 kv
+     heads of 128, qkv and MLP biases, d_ff 29,568, M-RoPE sections (16,
+     24, 24), vocab 152,064, untied), random weights drawn on the card
+     from a seeded ``torch.Generator`` with every bias (zero at init, as
+     the reference's) drawn nonzero, phase 19's freed first: (a) 2 of 80
+     layers in float32, B = 2: ``prefill`` of 64 patch embeddings (the
+     vision stub's ``embeds``: an image of 1 x 4 x 8 patches at M-RoPE
+     positions (t, h, w), then 32 text positions from the image's
+     largest + 1 on all three streams), 4 greedy ``decode_step``s, and
+     ``forward`` over the prompt and the fed tokens' embeddings at
+     ``pos`` on all three streams (where a step places them), held to a
+     CPU rerun fed the card's tokens (logits and caches within 2e-4), and
+     the card's decode logits to its forward logits; flash launches 2 a
+     prefill and 2 a forward, decode 2 a step; (b) 32 of the 80 layers in
+     bfloat16 (all 80 take 145.4 GB), B = 8: ``prefill`` of 1,024
+     embeddings (an image of 1 x 24 x 40 = 960 patches, then 64 text
+     positions) into 2,048 slots, then 32 greedy decode steps, timed
+     (prefill tokens/s against the operations of the matmuls, causal
+     attention and the last unembedding at the bfloat16 peak; decode ms
+     a step against the bytes of every weight but the embedding table and
+     of the live caches); a warm-up run first holds the first and last
+     layer's attention, at the prefill and at the last step, to the plain
+     versions as phase 16 does; launches flash 32 a prefill, decode 32 a
+     step; no logit NaN or infinite; a prefill and a step under
+     ``torch.cuda.set_sync_debug_mode("error")``; a profiled prefill and
+     4 profiled steps; both kernels timed at the model's activations
+     beside their plain versions, bounds and library calls (the
+     ``zoo_vlm`` entries of the kernels line);
+ 21. the audio zoo's serving path at whisper-tiny's full size
+     (configs/whisper_tiny.py: 4 encoder and 4 decoder layers, d_model
+     384, 6 heads of 64, LayerNorm, biases, d_ff 1,536, vocab 51,865;
+     ``encoder_seq`` 1,500 frames of the conv frontend's stub, drawn from
+     a seed), every bias drawn nonzero, phase 20's freed first: (a) in
+     float32, B = 2, 1,500 frames: ``forward`` over 68 tokens,
+     ``prefill`` of 64 and 4 ``decode_step``s, held to a CPU rerun
+     (logits, the self caches, the cross caches ``enc_kv`` and ``len``,
+     within 2e-4), and the card's decode logits to its forward logits;
+     flash launches 12 a forward and 12 a prefill (each encoder layer
+     once, not causal; each decoder layer twice, its causal self
+     attention and its cross attention over the 1,500 frames, not
+     causal), decode 8 a step (each decoder layer over its cache and over
+     its cross cache); (b) in bfloat16, B = 8, 1,500 frames: ``prefill``
+     of 64 tokens into 448 slots (whisper's text context), then 32 greedy
+     steps, timed, and the encoder (``encode_audio``) timed apart from the
+     prefill (medians of 5, synchronised), against operations bounds, and
+     decode ms a step against the bytes of the decoder's weights, the
+     head, the live caches and the cross caches; a warm-up run holds
+     flash, not causal, at the first and last encoder layer and the first
+     decoder layer's cross attention, and decode over the first layer's
+     cross cache and the last layer's own cache, at the last step, to the
+     plain versions; launches flash 12 a prefill, decode 8 a step; the
+     cross caches at the frames' 1,500; no logit NaN or infinite; a
+     prefill and a step under the sync debugger; a profiled prefill and 4
+     profiled steps; flash at the encoder's shape and decode over a cross
+     cache timed beside their plain versions, bounds and library calls
+     (the ``zoo_audio`` entries of the kernels line).
 
 The CPU reruns of phases 11, 12, 13 and 15 run in three worker processes
 of one thread each (``cpu_job``) while the card runs go on: the
@@ -502,6 +559,24 @@ MOE_CHECK = dict(layers=2, B=2, S=128, steps=4)
 MOE_SERVE = dict(B=8, S=1024, max_len=2048, steps=32)
 #: decode steps of phase 19's profiled window
 MOE_PROFILED = 4
+#: phase 20's model, the VLM zoo's qwen2-vl-72b (configs/qwen2_vl_72b.py)
+#: at full width: (a) 2 of 80 layers in float32 beside a CPU rerun, a
+#: prompt of an image's patch embeddings (t x h x w) and text, (b) 32 of
+#: 80 layers in bfloat16, served (all 80 take 145.4 GB in bfloat16)
+VLM_ARCH = "qwen2_vl_72b"
+VLM_CHECK = dict(layers=2, B=2, image=(1, 4, 8), text=32, steps=4)
+VLM_SERVE = dict(layers=32, B=8, image=(1, 24, 40), text=64, max_len=2048,
+                 steps=32)
+#: decode steps of phase 20's profiled window
+VLM_PROFILED = 4
+#: phase 21's model, the audio zoo's whisper-tiny (configs/whisper_tiny.py),
+#: whole: (a) in float32 beside a CPU rerun, (b) in bfloat16, served; T
+#: frames of the conv frontend's stub, a prompt of S tokens
+AUDIO_ARCH = "whisper_tiny"
+AUDIO_CHECK = dict(B=2, T=1500, S=64, steps=4)
+AUDIO_SERVE = dict(B=8, T=1500, S=64, max_len=448, steps=32)
+#: decode steps of phase 21's profiled window
+AUDIO_PROFILED = 4
 #: worker processes for the CPU reruns of phases 11, 12, 13 and 15
 #: (``cpu_job``)
 CPU_WORKERS = 3
@@ -1979,16 +2054,16 @@ def decode_against_forward(torch, tag, card, S, steps):
     return own
 
 
-def serve_greedy(torch, models, params, cfg, prompt, steps, timed,
+def serve_greedy(torch, models, params, cfg, batch, steps, timed,
                  **prefill_kw):
-    """Prefill ``prompt`` on the card, then ``steps`` greedy decode steps;
-    with ``timed`` each is synchronised before its clock reading.  Returns
-    (prefill seconds, per-step ms, logits (B, 1 + steps, V), the last
-    logits and state)."""
+    """Prefill the prompt ``batch`` (``{"tokens": ...}``, or a VLM's
+    embeddings, an audio model's frames) on the card, then ``steps``
+    greedy decode steps; with ``timed`` each is synchronised before its
+    clock reading.  Returns (prefill seconds, per-step ms, logits (B, 1 +
+    steps, V), the last logits and state)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lg, st = models.prefill(params, {"tokens": prompt}, cfg, device=DEVICE,
-                            **prefill_kw)
+    lg, st = models.prefill(params, batch, cfg, device=DEVICE, **prefill_kw)
     if timed:
         torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
@@ -2085,7 +2160,8 @@ def attention_zoo(torch, tag, model_name, kept, holds, launches, errs):
             shape=dict(B=args[0].shape[0], H=args[0].shape[1],
                        KV=args[1].shape[1], T=args[1].shape[2],
                        hd=args[0].shape[-1], dtype="bfloat16",
-                       **({"S": args[0].shape[2], "causal": True}
+                       **({"S": args[0].shape[2],
+                           "causal": kwargs["causal"]}
                           if name == "flash_attention" else
                           {"length": int(args[3].max())})),
             ms=device_ms(lambda: op(*args, **kwargs)),
@@ -2187,8 +2263,8 @@ def phase_zoo(torch, np, errs):
                              device=DEVICE)
 
     def serve(timed: bool):
-        return serve_greedy(torch, models, params, cfg, prompt, steps, timed,
-                            max_len=b["max_len"])
+        return serve_greedy(torch, models, params, cfg, {"tokens": prompt},
+                            steps, timed, max_len=b["max_len"])
 
     # the warm-up run holds the first and last layer's attention, at the
     # prefill and at the last decode step, to the plain versions
@@ -2372,7 +2448,8 @@ def phase_ssm_zoo(torch, np, errs):
                              device=DEVICE)
 
     def serve(timed: bool):
-        return serve_greedy(torch, models, params, cfg, prompt, steps, timed)
+        return serve_greedy(torch, models, params, cfg, {"tokens": prompt},
+                            steps, timed)
 
     # the warm-up run holds the first and last layer's scan, y and h_L at
     # the prefill, to the plain version on the card
@@ -2638,8 +2715,8 @@ def phase_hybrid_zoo(torch, np, errs):
                              device=DEVICE)
 
     def serve(timed: bool):
-        return serve_greedy(torch, models, params, cfg, prompt, steps, timed,
-                            max_len=b["max_len"])
+        return serve_greedy(torch, models, params, cfg, {"tokens": prompt},
+                            steps, timed, max_len=b["max_len"])
 
     # the warm-up run holds the first and last super-block's attention, at
     # the prefill and at the last decode step, to the plain versions
@@ -2796,6 +2873,48 @@ def phase_hybrid_zoo(torch, np, errs):
     return zoo
 
 
+def serve_without_sync(torch, models, tag, params, cfg, batch, lg, st,
+                       **prefill_kw):
+    """One prefill of ``batch`` and one greedy step from (``lg``, ``st``)
+    under ``torch.cuda.set_sync_debug_mode("error")``, which raises at any
+    call that synchronises with the host: fail if one does.  Returns the
+    step's (logits, state)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        models.prefill(params, batch, cfg, device=DEVICE, **prefill_kw)
+        return models.decode_step(params, st, lg.argmax(-1), cfg,
+                                  device=DEVICE)
+    except RuntimeError as e:
+        fail(f"{tag}: a prefill or a decode step synchronised with the "
+             f"host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def profile_serving(torch, models, tag, params, cfg, batch, lg, st, n,
+                    **prefill_kw):
+    """Where the time goes: a prefill of ``batch`` and ``n`` greedy steps
+    from (``lg``, ``st``) under ``torch.profiler`` (device activity only,
+    ``profile_passes``), the attention kernels apart; returns the two
+    profiles."""
+    state = {"lg": lg, "st": st}
+
+    def steps():
+        for _ in range(n):
+            state["lg"], state["st"] = models.decode_step(
+                params, state["st"], state["lg"].argmax(-1), cfg,
+                device=DEVICE)
+
+    return dict(
+        prefill_profile=profile_passes(
+            torch, f"{tag} prefill", lambda: models.prefill(
+                params, batch, cfg, device=DEVICE, **prefill_kw), 1,
+            ("flash", "decode_"), "attention"),
+        decode_profile=profile_passes(
+            torch, f"{tag} {n} decode steps", steps, n,
+            ("flash", "decode_"), "attention"))
+
+
 def moe_drops(torch, cfg, router, x):
     """The (token, expert) entries that capacity drops in one moe call on
     x (B, S, D) with ``router``, reckoned with the port's own ``_route``
@@ -2920,8 +3039,8 @@ def phase_moe_zoo(torch, np, errs):
                              device=DEVICE)
 
     def serve(timed: bool):
-        return serve_greedy(torch, models, params, cfg, prompt, steps, timed,
-                            max_len=b["max_len"])
+        return serve_greedy(torch, models, params, cfg, {"tokens": prompt},
+                            steps, timed, max_len=b["max_len"])
 
     # the warm-up run holds the first and last layer's attention, at the
     # prefill and at the last decode step, to the plain versions, and
@@ -2963,19 +3082,10 @@ def phase_moe_zoo(torch, np, errs):
         fail("[19 moe] (b): a logit is not finite")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    # a prefill and a step wait for nothing on the host: one of each
-    # under the sync debugger, which raises at any synchronising call
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        models.prefill(params, {"tokens": prompt}, cfg,
-                       max_len=b["max_len"], device=DEVICE)
-        lg, st = models.decode_step(params, st, lg.argmax(-1), cfg,
-                                    device=DEVICE)
-    except RuntimeError as e:
-        fail(f"[19 moe] (b): a prefill or a decode step synchronised with "
-             f"the host: {e}")
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
+    # a prefill and a step wait for nothing on the host
+    lg, st = serve_without_sync(torch, models, "[19 moe] (b)", params, cfg,
+                                {"tokens": prompt}, lg, st,
+                                max_len=b["max_len"])
 
     # yardsticks: prefill's operations at the bfloat16 peak (the experts
     # over all E x C slots, as the reference computes them whether a slot
@@ -3044,25 +3154,11 @@ def phase_moe_zoo(torch, np, errs):
             f"{err:.3g}, bfloat16 bit-equal {share:.4f})")
 
     # where the time goes: a prefill and MOE_PROFILED further decode steps
-    # under torch.profiler (device activity only), after the counted run
-    state = {"lg": lg, "st": st}
-
-    def more_steps():
-        for _ in range(MOE_PROFILED):
-            state["lg"], state["st"] = models.decode_step(
-                params, state["st"], state["lg"].argmax(-1), cfg,
-                device=DEVICE)
-
-    prefill_profile = profile_passes(
-        torch, "[19 moe] prefill", lambda: models.prefill(
-            params, {"tokens": prompt}, cfg, max_len=b["max_len"],
-            device=DEVICE), 1, ("flash", "decode_"), "attention")
-    decode_profile = profile_passes(
-        torch, f"[19 moe] {MOE_PROFILED} decode steps", more_steps,
-        MOE_PROFILED, ("flash", "decode_"), "attention")
-    del state, lg, st, logits
-    line.update(prefill_profile=prefill_profile,
-                decode_profile=decode_profile)
+    # under torch.profiler, after the counted run
+    line.update(profile_serving(torch, models, "[19 moe]", params, cfg,
+                                {"tokens": prompt}, lg, st, MOE_PROFILED,
+                                max_len=b["max_len"]))
+    del lg, st, logits
 
     # the two kernels at the model's shapes, the warm-up run's inputs
     zoo = attention_zoo(torch, "[19 moe]", cfg.name, kept, holds,
@@ -3073,6 +3169,481 @@ def phase_moe_zoo(torch, np, errs):
     gc.collect()
     torch.cuda.empty_cache()
     say(f"[19 moe] phase {time.perf_counter() - t_phase:.1f} s")
+    return zoo
+
+
+BIAS_LEAVES = ("bq", "bk", "bv", "bi", "bo", "bias")
+
+
+def fill_biases(torch, tree, gen) -> int:
+    """Draw every bias leaf of a parameter tree (attention's and the cross
+    attention's ``bq``, ``bk``, ``bv``, the MLP's ``bi`` and ``bo``, the
+    LayerNorms' ``bias``; zero at init, as the reference's) from a normal
+    x 0.5 on ``gen``, in place, so the runs add nonzero biases; returns
+    the leaves drawn."""
+    items = enumerate(tree) if isinstance(tree, list) else tree.items()
+    n = 0
+    for name, t in items:
+        if isinstance(t, (dict, list)):
+            n += fill_biases(torch, t, gen)
+        elif name in BIAS_LEAVES:
+            t.copy_(torch.randn(t.shape, generator=gen, device=t.device)
+                    * 0.5)
+            n += 1
+    return n
+
+
+def image_then_text(torch, B, image, text, device):
+    """(3, B, n) M-RoPE positions of a prompt as Qwen2-VL lays one out:
+    an image of ``image`` = (t, h, w) patches at (t, h, w), then ``text``
+    positions continuing at the image's largest position + 1 on all
+    three streams."""
+    t, h, w = image
+    grid = torch.stack(torch.meshgrid(
+        torch.arange(t), torch.arange(h), torch.arange(w),
+        indexing="ij")).reshape(3, -1)
+    tail = (grid.max() + 1 + torch.arange(text)).expand(3, text)
+    pos = torch.cat([grid, tail], 1).to(torch.int32)
+    return pos[:, None].expand(3, B, pos.shape[1]).contiguous().to(device)
+
+
+def phase_vlm_zoo(torch, np, errs):
+    """Phase 20, the VLM zoo's serving path (see the module docstring).
+    ``errs`` takes the attention holds' errors; returns the flash and
+    decode kernels' ``zoo_vlm`` entries for the kernels line."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.benchmarks import kernels_bench
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.models.layers import embed_tokens
+
+    t_phase = time.perf_counter()
+    gc.collect()                    # phase 19's weights go first
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    full = get_config(VLM_ARCH)
+    rng = np.random.default_rng(24)
+
+    def reset():
+        flash_attention.LAUNCHES = decode_attention.LAUNCHES = 0
+
+    def launches():
+        return flash_attention.LAUNCHES, decode_attention.LAUNCHES
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    # (a) two layers at full width in float32, the card against the CPU:
+    # a prompt of patch embeddings with M-RoPE positions, greedy steps
+    a = VLM_CHECK
+    cfg = dataclasses.replace(full, num_layers=a["layers"], dtype="float32")
+    steps = a["steps"]
+    positions = image_then_text(torch, a["B"], a["image"], a["text"], "cpu")
+    S = positions.shape[2]
+    embeds = torch.from_numpy(rng.standard_normal(
+        (a["B"], S, cfg.d_model)).astype(np.float32))
+
+    def check_run(params, device, fed=None):
+        """Prefill the embeddings, ``steps`` decode steps (greedy, or
+        fed the tokens ``fed``), then the forward whose last positions
+        are the fed tokens' embeddings at ``pos`` on all three streams,
+        as a decode step places them; returns the outputs and tokens."""
+        emb, pos = embeds.to(device), positions.to(device)
+        lg, st = models.prefill(params, {"embeds": emb, "positions": pos},
+                                cfg, max_len=S + steps, device=device)
+        out, toks = [lg], []
+        for i in range(steps):
+            tok = lg.argmax(-1) if fed is None else fed[:, i].to(device)
+            lg, st = models.decode_step(params, st, tok, cfg, device=device)
+            out.append(lg)
+            toks.append(tok)
+        toks = torch.stack(toks, 1)
+        at = torch.arange(S, S + steps, dtype=pos.dtype, device=device)
+        whole = models.forward(params, {
+            "embeds": torch.cat([emb, embed_tokens(params["embed"], toks,
+                                                   cfg)], 1),
+            "positions": torch.cat([pos, at.expand(3, a["B"], steps)], 2)},
+            cfg, device=device)[0]
+        return dict(forward=whole, steps=torch.stack(out, 1),
+                    k=st["kv"]["k"], v=st["kv"]["v"]), toks
+
+    params = models.init_params(cfg, seed=24, device=DEVICE)
+    n_bias = fill_biases(torch, params,
+                         torch.Generator(device=DEVICE).manual_seed(24))
+    weights_gb = nbytes(params) / 1e9
+    reset()
+    card, toks = check_run(params, DEVICE)
+    got = launches()
+    if got != (a["layers"] * 2, a["layers"] * steps):
+        fail(f"[20 vlm] (a): launches flash {got[0]}, decode {got[1]}; "
+             f"want {a['layers'] * 2} (layers x 2 passes) and "
+             f"{a['layers'] * steps} (layers x steps)")
+    t0 = time.perf_counter()
+    host, _ = check_run(tree_to(params, "cpu"), "cpu", fed=toks.cpu())
+    host_s = time.perf_counter() - t0
+    diffs = hold_to_cpu(torch, "[20 vlm] (a)", card, host)
+    own = decode_against_forward(torch, "[20 vlm] (a)", card, S, steps)
+    say(f"[20 vlm] (a) {full.name} at full width, {a['layers']} layers, "
+        f"float32 ({weights_gb:.2f} GB, {n_bias} bias leaves drawn "
+        f"nonzero), B {a['B']}: prefill of {S} patch embeddings (an image "
+        f"of {'x'.join(map(str, a['image']))} patches at (t, h, w), then "
+        f"{a['text']} text positions from the image's largest + 1), "
+        f"{steps} greedy decode steps, forward over the prompt and the "
+        f"fed tokens at pos on all three streams; card against the CPU "
+        f"rerun fed the card's tokens (max abs err: forward "
+        f"{diffs['forward']:.3g}, prefill and decode logits "
+        f"{diffs['steps']:.3g}, caches {max(diffs['k'], diffs['v']):.3g}; "
+        f"tolerance {ZOO_TOL}); card decode against card forward "
+        f"{own:.3g}; launches flash {got[0]}, decode {got[1]}; CPU rerun "
+        f"{host_s:.1f} s")
+    del params, card, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) VLM_SERVE["layers"] of the 80 layers in bfloat16: prefill of an
+    # image and text, then greedy decode
+    b = VLM_SERVE
+    cfg, L = dataclasses.replace(full, num_layers=b["layers"]), b["layers"]
+    steps = b["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = models.init_params(cfg, seed=25, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(25)
+    fill_biases(torch, params, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = nbytes(params)
+    positions = image_then_text(torch, b["B"], b["image"], b["text"],
+                                DEVICE)
+    S = positions.shape[2]
+    batch = {"embeds": torch.randn((b["B"], S, cfg.d_model), generator=gen,
+                                   device=DEVICE).to(torch.bfloat16),
+             "positions": positions}
+
+    def serve(timed: bool):
+        return serve_greedy(torch, models, params, cfg, batch, steps, timed,
+                            max_len=b["max_len"])
+
+    # the warm-up run holds the first and last layer's attention, at the
+    # prefill and at the last decode step, to the plain versions
+    holds, kept = attention_holds(
+        torch, "[20 vlm]", lambda: serve(timed=False),
+        {0: "first layer", L - 1: "last layer"},
+        {(steps - 1) * L: "first layer", steps * L - 1: "last layer"}, steps)
+
+    reset()
+    prefill_s, step_ms, logits, lg, st = serve(timed=True)
+    got = launches()
+    if got != (L, L * steps):
+        fail(f"[20 vlm] (b): launches flash {got[0]}, decode {got[1]}; "
+             f"want {L} (layers x 1 pass) and {L * steps} (layers x "
+             f"steps)")
+    if not bool(torch.isfinite(logits).all()):
+        fail("[20 vlm] (b): a logit is not finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # a prefill and a step wait for nothing on the host
+    lg, st = serve_without_sync(torch, models, "[20 vlm] (b)", params, cfg,
+                                batch, lg, st, max_len=b["max_len"])
+
+    # yardsticks: prefill's operations (the layers' matmuls, causal
+    # attention, the last position's unembedding) at the bfloat16 peak;
+    # a decode step's bytes (every weight but the embedding table once, B
+    # embedding rows, the live caches at the last step) over HBM's rate
+    tok = params["embed"]["tok"]
+    item = tok.element_size()
+    layer_elems = sum(t.numel() for t in tree_leaves(params["layers"]))
+    pairs = S * (S + 1) / 2
+    prefill_flops = (2.0 * layer_elems * b["B"] * S
+                     + 4.0 * L * b["B"] * cfg.num_heads * pairs
+                     * cfg.head_dim
+                     + 2.0 * cfg.d_model * cfg.vocab_size * b["B"])
+    prefill_bound = prefill_flops / kernels_bench.BF16_FLOPS * 1e3
+    cache_live = (2.0 * L * b["B"] * cfg.num_kv_heads * (S + steps)
+                  * cfg.head_dim * item)
+    step_bytes = (weight_bytes - nbytes(tok) + b["B"] * cfg.d_model * item
+                  + cache_live)
+    step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    ms = sorted(step_ms)
+    line = dict(
+        config=f"{cfg.name} {L} of {full.num_layers} layers bfloat16 B "
+               f"{b['B']} prefill {S} embeddings (image "
+               f"{'x'.join(map(str, b['image']))}, text {b['text']}) "
+               f"max_len {b['max_len']} steps {steps}",
+        weights_gb=weight_bytes / 1e9, init_s=init_s, prefill_s=prefill_s,
+        prefill_tokens_per_s=b["B"] * S / prefill_s,
+        prefill_bound_ms=prefill_bound, prefill_tflop=prefill_flops / 1e12,
+        decode_ms_mean=sum(step_ms) / steps, decode_ms_p50=ms[steps // 2],
+        decode_ms_min=ms[0], decode_ms_max=ms[-1],
+        decode_bound_ms=step_bound, cache_gb=nbytes(st["kv"]) / 1e9,
+        peak_gb=peak_gb, held_gb=held_gb)
+    say(f"[20 vlm] (b) {cfg.name}, {L} of {full.num_layers} layers, "
+        f"bfloat16, weights {weight_bytes / 1e9:.2f} GB made in "
+        f"{init_s:.1f} s ({held_gb:.2f} GB held before); prefill B "
+        f"{b['B']} x S {S} embeddings (an image of "
+        f"{'x'.join(map(str, b['image']))} patches, then {b['text']} text "
+        f"positions) into max_len {b['max_len']}: {prefill_s * 1e3:.1f} "
+        f"ms, {b['B'] * S / prefill_s:.0f} tokens/s (operations bound "
+        f"{prefill_bound:.1f} ms: {prefill_flops / 1e12:.2f} TFLOP at 989 "
+        f"TFLOP/s); {steps} greedy decode steps: mean "
+        f"{line['decode_ms_mean']:.3f} ms/step, p50 {ms[steps // 2]:.3f}, "
+        f"min {ms[0]:.3f}, max {ms[-1]:.3f} (byte bound "
+        f"{step_bound:.3f} ms: {step_bytes / 1e9:.2f} GB, the live caches "
+        f"{cache_live / 1e9:.3f} GB of it, over 3.35 TB/s); launches flash "
+        f"{got[0]} (= {L} layers x 1 pass), decode {got[1]} (= {L} x "
+        f"{steps} steps); every logit finite; a prefill and a step under "
+        f"the sync debugger ran without a host sync; caches "
+        f"{line['cache_gb']:.2f} GB; peak memory {peak_gb:.2f} GB")
+    for label, err, share in holds:
+        say(f"{label}: agrees with the plain version (max abs err "
+            f"{err:.3g}, bfloat16 bit-equal {share:.4f})")
+
+    # where the time goes: a prefill and VLM_PROFILED further decode steps
+    # under torch.profiler (device activity only), after the counted run
+    line.update(profile_serving(torch, models, "[20 vlm]", params, cfg,
+                                batch, lg, st, VLM_PROFILED,
+                                max_len=b["max_len"]))
+    del lg, st, logits
+
+    # the two kernels at the model's shapes, the warm-up run's inputs
+    zoo = attention_zoo(torch, "[20 vlm]", cfg.name, kept, holds,
+                        {"flash_attention": got[0],
+                         "decode_attention": got[1]}, errs)
+    zoo["flash_attention"]["serving"] = line
+    del params, kept, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[20 vlm] phase {time.perf_counter() - t_phase:.1f} s")
+    return zoo
+
+
+def phase_audio_zoo(torch, np, errs):
+    """Phase 21, the audio zoo's serving path (see the module docstring).
+    ``errs`` takes the attention holds' errors; returns the flash and
+    decode kernels' ``zoo_audio`` entries for the kernels line."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.benchmarks import kernels_bench
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, flash_attention
+
+    t_phase = time.perf_counter()
+    gc.collect()                    # phase 20's weights go first
+    torch.cuda.empty_cache()
+    full = get_config(AUDIO_ARCH)
+    L, E = full.num_layers, full.encoder_layers
+    rng = np.random.default_rng(26)
+
+    def reset():
+        flash_attention.LAUNCHES = decode_attention.LAUNCHES = 0
+
+    def launches():
+        return flash_attention.LAUNCHES, decode_attention.LAUNCHES
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    # (a) the whole model in float32, the card against the CPU
+    a = AUDIO_CHECK
+    cfg = dataclasses.replace(full, dtype="float32")
+    S, steps, T = a["S"], a["steps"], a["T"]
+    tokens = rng.integers(0, cfg.vocab_size, (a["B"], S + steps))
+    frames = rng.standard_normal((a["B"], T, cfg.d_model)).astype(
+        np.float32)
+
+    def check_run(params, device):
+        toks = torch.as_tensor(tokens, device=device)
+        fr = torch.as_tensor(frames, device=device)
+        whole = models.forward(params, {"tokens": toks, "frames": fr}, cfg,
+                               device=device)[0]
+        lg, st = models.prefill(params, {"tokens": toks[:, :S],
+                                         "frames": fr}, cfg,
+                                max_len=S + steps, device=device)
+        out = [lg]
+        for i in range(steps):
+            lg, st = models.decode_step(params, st, toks[:, S + i], cfg,
+                                        device=device)
+            out.append(lg)
+        return dict(forward=whole, steps=torch.stack(out, 1),
+                    k=st["kv"]["k"], v=st["kv"]["v"],
+                    enc_k=st["enc_kv"]["k"], enc_v=st["enc_kv"]["v"],
+                    enc_len=st["enc_kv"]["len"].float())
+
+    params = models.init_params(cfg, seed=26, device=DEVICE)
+    n_bias = fill_biases(torch, params,
+                         torch.Generator(device=DEVICE).manual_seed(26))
+    reset()
+    card = check_run(params, DEVICE)
+    got = launches()
+    want = (2 * (E + 2 * L), 2 * L * steps)
+    if got != want:
+        fail(f"[21 audio] (a): launches flash {got[0]}, decode {got[1]}; "
+             f"want {want[0]} ((encoder layers + 2 x decoder layers) x 2 "
+             f"passes) and {want[1]} (2 x decoder layers x steps)")
+    t0 = time.perf_counter()
+    host = check_run(tree_to(params, "cpu"), "cpu")
+    host_s = time.perf_counter() - t0
+    diffs = hold_to_cpu(torch, "[21 audio] (a)", card, host)
+    own = decode_against_forward(torch, "[21 audio] (a)", card, S, steps)
+    say(f"[21 audio] (a) {full.name}, all {E} encoder and {L} decoder "
+        f"layers, float32 ({nbytes(params) / 1e9:.3f} GB, {n_bias} bias "
+        f"leaves drawn nonzero), B {a['B']}, {T} frames: forward over "
+        f"{S + steps} tokens, prefill of {S}, {steps} decode steps; card "
+        f"against the CPU rerun (max abs err: forward "
+        f"{diffs['forward']:.3g}, prefill and decode logits "
+        f"{diffs['steps']:.3g}, caches {max(diffs['k'], diffs['v']):.3g}, "
+        f"cross caches {max(diffs['enc_k'], diffs['enc_v']):.3g}, len "
+        f"{diffs['enc_len']:.3g}; tolerance {ZOO_TOL}); card decode against "
+        f"card forward {own:.3g}; launches flash {got[0]}, decode "
+        f"{got[1]}; CPU rerun {host_s:.1f} s")
+    del params, card, host
+
+    # (b) bfloat16: prefill of a prompt over the frames, greedy decode
+    b = AUDIO_SERVE
+    cfg = full
+    S, steps, T = b["S"], b["steps"], b["T"]
+    torch.cuda.reset_peak_memory_stats()
+    params = models.init_params(cfg, seed=27, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(27)
+    fill_biases(torch, params, gen)
+    weight_bytes = nbytes(params)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (b["B"], S)), device=DEVICE),
+        "frames": torch.randn((b["B"], T, cfg.d_model), generator=gen,
+                              device=DEVICE).to(torch.bfloat16)}
+
+    def serve(timed: bool):
+        return serve_greedy(torch, models, params, cfg, batch, steps, timed,
+                            max_len=b["max_len"])
+
+    # the warm-up run holds flash (not causal) at the first and last
+    # encoder layer and at the first decoder layer's cross attention, and
+    # decode at the last step over the first layer's cross cache and the
+    # last layer's own cache, to the plain versions
+    base = (steps - 1) * 2 * L
+    holds, kept = attention_holds(
+        torch, "[21 audio]", lambda: serve(timed=False),
+        {0: "first encoder layer (not causal)",
+         E - 1: "last encoder layer (not causal)",
+         E + 1: "first decoder layer's cross attention (not causal)"},
+        {base + 1: "first layer's cross cache",
+         base + 2 * L - 2: "last layer's own cache"}, steps)
+
+    reset()
+    prefill_s, step_ms, logits, lg, st = serve(timed=True)
+    got = launches()
+    if got != (E + 2 * L, 2 * L * steps):
+        fail(f"[21 audio] (b): launches flash {got[0]}, decode {got[1]}; "
+             f"want {E + 2 * L} (encoder layers + 2 x decoder layers) and "
+             f"{2 * L * steps} (2 x decoder layers x steps)")
+    if not bool(torch.isfinite(logits).all()):
+        fail("[21 audio] (b): a logit is not finite")
+    if st["enc_kv"]["k"].shape[3] != T:
+        fail(f"[21 audio] (b): cross caches of {st['enc_kv']['k'].shape[3]} "
+             f"frames, want {T}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # the encoder's time apart from the prefill's, both synchronised
+    def median_ms(fn):
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return sorted(walls)[2]
+
+    encoder_ms = median_ms(lambda: models.encode_audio(
+        params, batch["frames"], cfg, device=DEVICE))
+    prefill_ms = median_ms(lambda: models.prefill(
+        params, batch, cfg, max_len=b["max_len"], device=DEVICE))
+
+    # a prefill and a step wait for nothing on the host
+    lg, st = serve_without_sync(torch, models, "[21 audio] (b)", params,
+                                cfg, batch, lg, st, max_len=b["max_len"])
+
+    # yardsticks: prefill's operations at the bfloat16 peak (the encoder's
+    # matmuls over B x T frames and its attention over T x T pairs; the
+    # decoder's matmuls over B x S tokens, its cross attention's wk and wv
+    # over the frames, causal self attention and the S x T cross pairs;
+    # the last position's unembedding); a decode step's bytes (the decoder
+    # layers' weights, the final norm and the head once, B embedding
+    # rows, the live self caches and the cross caches) over HBM's rate
+    D, H, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    enc_elems = sum(t.numel() for t in tree_leaves(params["enc_layers"]))
+    dec_elems = sum(t.numel() for t in tree_leaves(params["layers"]))
+    cross_kv_elems = sum(lp["xattn"][n].numel() for lp in params["layers"]
+                         for n in ("wk", "wv"))
+    pairs = S * (S + 1) / 2
+    encoder_flops = (2.0 * enc_elems * b["B"] * T
+                     + 4.0 * E * b["B"] * H * T * T * hd)
+    prefill_flops = (encoder_flops
+                     + 2.0 * (dec_elems - cross_kv_elems) * b["B"] * S
+                     + 2.0 * cross_kv_elems * b["B"] * T
+                     + 4.0 * L * b["B"] * H * (pairs + S * T) * hd
+                     + 2.0 * D * cfg.vocab_size * b["B"])
+    prefill_bound = prefill_flops / kernels_bench.BF16_FLOPS * 1e3
+    encoder_bound = encoder_flops / kernels_bench.BF16_FLOPS * 1e3
+    item = params["embed"]["tok"].element_size()
+    cache_live = (2.0 * L * b["B"] * cfg.num_kv_heads * (S + steps) * hd
+                  * item)
+    cross_bytes = nbytes({n: st["enc_kv"][n] for n in ("k", "v")})
+    step_bytes = (nbytes(params["layers"]) + nbytes(params["final_norm"])
+                  + nbytes(params["embed"]["head"]) + b["B"] * D * item
+                  + cache_live + cross_bytes)
+    step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    ms = sorted(step_ms)
+    line = dict(
+        config=f"{cfg.name} {E} + {L} layers bfloat16 B {b['B']} frames "
+               f"{T} prefill {S} max_len {b['max_len']} steps {steps}",
+        weights_gb=weight_bytes / 1e9, prefill_s=prefill_s,
+        prefill_tokens_per_s=b["B"] * S / prefill_s,
+        prefill_ms_median=prefill_ms, encoder_ms_median=encoder_ms,
+        prefill_bound_ms=prefill_bound, encoder_bound_ms=encoder_bound,
+        decode_ms_mean=sum(step_ms) / steps, decode_ms_p50=ms[steps // 2],
+        decode_ms_min=ms[0], decode_ms_max=ms[-1],
+        decode_bound_ms=step_bound, cross_gb=cross_bytes / 1e9,
+        peak_gb=peak_gb)
+    say(f"[21 audio] (b) {cfg.name}, {E} encoder and {L} decoder layers, "
+        f"bfloat16, weights {weight_bytes / 1e6:.1f} MB; B {b['B']}, {T} "
+        f"frames, prefill of {S} tokens into max_len {b['max_len']}: "
+        f"{prefill_s * 1e3:.1f} ms in the counted run, median of 5 "
+        f"{prefill_ms:.2f} ms, of it the encoder alone {encoder_ms:.2f} ms "
+        f"(operations bounds {prefill_bound:.3f} and {encoder_bound:.3f} "
+        f"ms: {prefill_flops / 1e12:.3f} and {encoder_flops / 1e12:.3f} "
+        f"TFLOP at 989 TFLOP/s); {steps} greedy decode steps: mean "
+        f"{line['decode_ms_mean']:.3f} ms/step, p50 {ms[steps // 2]:.3f}, "
+        f"min {ms[0]:.3f}, max {ms[-1]:.3f} (byte bound "
+        f"{step_bound:.4f} ms: {step_bytes / 1e6:.1f} MB, the cross caches "
+        f"{cross_bytes / 1e6:.1f} MB of it, over 3.35 TB/s); launches flash "
+        f"{got[0]} (= {E} encoder + 2 x {L} decoder layers), decode "
+        f"{got[1]} (= 2 x {L} x {steps} steps); every logit finite; a "
+        f"prefill and a step under the sync debugger ran without a host "
+        f"sync; peak memory {peak_gb:.2f} GB")
+    for label, err, share in holds:
+        say(f"{label}: agrees with the plain version (max abs err "
+            f"{err:.3g}, bfloat16 bit-equal {share:.4f})")
+
+    # where the time goes: a prefill and AUDIO_PROFILED further steps
+    line.update(profile_serving(torch, models, "[21 audio]", params, cfg,
+                                batch, lg, st, AUDIO_PROFILED,
+                                max_len=b["max_len"]))
+    del lg, st, logits
+
+    # the two kernels at the model's shapes: flash at the first encoder
+    # layer (T x T, not causal), decode over the first cross cache
+    zoo = attention_zoo(torch, "[21 audio]", cfg.name, kept, holds,
+                        {"flash_attention": got[0],
+                         "decode_attention": got[1]}, errs)
+    zoo["flash_attention"]["serving"] = line
+    del params, kept, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[21 audio] phase {time.perf_counter() - t_phase:.1f} s")
     return zoo
 
 
@@ -4024,6 +4595,10 @@ def main() -> int:
     hybrid = phase_hybrid_zoo(torch, np, errs)
     # -- phase 19: the MoE zoo's serving path ------------------------------
     moe_zoo = phase_moe_zoo(torch, np, errs)
+    # -- phase 20: the VLM zoo's serving path --------------------------------
+    vlm_zoo = phase_vlm_zoo(torch, np, errs)
+    # -- phase 21: the audio zoo's serving path ------------------------------
+    audio_zoo = phase_audio_zoo(torch, np, errs)
     camera_row["max_abs_err"] = max_err[CAMERA["name"]]
     tiles_row["max_abs_err"] = max_err[TILES["name"]]
 
@@ -4041,7 +4616,10 @@ def main() -> int:
                 max_abs_err=errs[name], **bench[name], model=widths[name],
                 **({"zoo": zoo[name]} if name in zoo else {}),
                 **({"zoo_hybrid": hybrid[name]} if name in hybrid else {}),
-                **({"zoo_moe": moe_zoo[name]} if name in moe_zoo else {}))
+                **({"zoo_moe": moe_zoo[name]} if name in moe_zoo else {}),
+                **({"zoo_vlm": vlm_zoo[name]} if name in vlm_zoo else {}),
+                **({"zoo_audio": audio_zoo[name]} if name in audio_zoo
+                   else {}))
            for name in BENCH]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -16,13 +16,15 @@ from repro_torch.core.policy import PhaseState
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import head_mask
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import ATTENTION_FAMILIES, check_family
+from repro_torch.models.model import check_family
 from repro_torch.models.ssm import PARAM_DTYPE_LEAVES
 
 _MODEL_DTYPES = dict(S=np.float32, exit_frac=np.float32, cdf=np.float32,
                      f0=np.int32, entry=np.float32, counts=np.float32)
 _STATE_DTYPES = dict(f_q=np.int32, c_q=np.int32, f_curr=np.int32,
                      phase=np.int32, live_f=np.float32, done=np.bool_)
+#: the norms' groups, held in ``cfg.param_dtype``
+NORMS = ("ln1", "ln2", "lnx", "final_norm", "enc_norm")
 
 
 def model_from_numpy(fields: dict, bin_width: int = 1, epoch: int = 0, *,
@@ -73,17 +75,20 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
     """The reference's parameter tree (``repro.models.init_params`` read
     out as numpy: layers stacked on axis 0, query heads padded to
     ``cfg.num_padded_heads``) as the port's parameters on ``device``: one
-    dict a layer, and a hybrid's ``shared_attn`` (one dense layer, not
-    stacked) as it is; the pad heads' columns of ``wq`` and ``bq`` and
-    rows of ``wo`` dropped, so the port runs ``cfg.num_heads`` heads (the
-    pads are zero and masked in the reference, so the output is
-    unchanged); the norms, and the Mamba leaves of
-    ``ssm.PARAM_DTYPE_LEAVES`` (``conv_w``, ``conv_b``, ``A_log``,
-    ``dt_bias``, ``D`` and Mamba2's ``norm_scale``), in
-    ``cfg.param_dtype``, a moe layer's router in float32 (the reference
-    routes on float32 logits, whatever ``cfg.param_dtype`` is) and every
-    other tensor, the experts' ``wi``, ``wg`` and ``wo`` too, cast once to
-    ``cfg.dtype``, the casts the reference makes at each use."""
+    dict a layer (an audio model's encoder layers too, in
+    ``"enc_layers"``), and a hybrid's ``shared_attn`` (one dense layer,
+    not stacked) as it is; the pad heads' columns of ``wq`` and ``bq`` and
+    rows of ``wo`` dropped, in the self attention ``attn`` and the cross
+    attention ``xattn`` alike, so the port runs ``cfg.num_heads`` heads
+    (the pads are zero and masked in the reference, so the output is
+    unchanged); the norms (``ln1``, ``ln2``, ``lnx``, ``final_norm``,
+    ``enc_norm``), and the Mamba leaves of ``ssm.PARAM_DTYPE_LEAVES``
+    (``conv_w``, ``conv_b``, ``A_log``, ``dt_bias``, ``D`` and Mamba2's
+    ``norm_scale``), in ``cfg.param_dtype``, a moe layer's router in
+    float32 (the reference routes on float32 logits, whatever
+    ``cfg.param_dtype`` is) and every other tensor, the biases and the
+    experts' ``wi``, ``wg`` and ``wo`` too, cast once to ``cfg.dtype``,
+    the casts the reference makes at each use."""
     check_family(cfg)
     dev = resolve_device(device)
     dt, pdt = getattr(torch, cfg.dtype), getattr(torch, cfg.param_dtype)
@@ -91,14 +96,14 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
     real = slice(None) if mask is None else np.repeat(mask > 0, cfg.head_dim)
 
     def leaf(group: str, name: str, a):
-        if group == "attn" and name in ("wq", "bq"):
+        if group in ("attn", "xattn") and name in ("wq", "bq"):
             a = a[..., real]
-        elif group == "attn" and name == "wo":
+        elif group in ("attn", "xattn") and name == "wo":
             a = a[real]
         if group == "moe" and name == "router":
             return _tensor(a, torch.float32, dev)
-        held = group in ("ln1", "ln2", "final_norm") or (
-            group == "mamba" and name in PARAM_DTYPE_LEAVES)
+        held = group in NORMS or (group == "mamba"
+                                  and name in PARAM_DTYPE_LEAVES)
         return _tensor(a, pdt if held else dt, dev)
 
     def layer(groups: dict, index=None) -> dict:
@@ -114,40 +119,57 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
         "layers": [layer(tree["layers"], i) for i in range(cfg.num_layers)]}
     if cfg.family == "hybrid":
         out["shared_attn"] = layer(tree["shared_attn"])
+    if cfg.family == "audio":
+        out["enc_layers"] = [layer(tree["enc_layers"], i)
+                             for i in range(cfg.encoder_layers)]
+        out["enc_norm"] = {n: leaf("enc_norm", n, a)
+                           for n, a in tree["enc_norm"].items()}
     return out
 
 
 def decode_state_from_numpy(cfg: ModelConfig, state: dict,
                             device="cuda") -> dict:
-    """The reference's decode state (``pos``; caches (n,B,T,KV,hd); the
+    """The reference's decode state (``pos``; caches (n,B,T,KV,hd); an
+    audio model's cross caches ``enc_kv`` (L,B,T,KV,hd) and ``len``; the
     ssm layers' h and conv; read out as numpy) as the port's on
-    ``device``: ``pos`` an int, caches (n,B,KV,T,hd) in ``cfg.dtype``, and
-    the ssm states in their own layout, h (L,B,di,N) or Mamba2's
-    (L,B,nh,hd,N) float32 and conv (L,B,W-1,channels) in ``cfg.dtype``;
-    a hybrid's state carries both, a moe model's the caches alone."""
+    ``device``: ``pos`` an int, caches and cross caches (n,B,KV,T,hd) in
+    ``cfg.dtype``, ``len`` int32, and the ssm states in their own layout,
+    h (L,B,di,N) or Mamba2's (L,B,nh,hd,N) float32 and conv (L,B,W-1,
+    channels) in ``cfg.dtype``; a hybrid's state carries both, a moe or
+    VLM model's the caches alone."""
     check_family(cfg)
     dev = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
     out: dict = {"pos": int(state["pos"])}
-    if cfg.family not in ATTENTION_FAMILIES:
+    if "ssm" in state:
         out["ssm"] = {"h": _tensor(state["ssm"]["h"], torch.float32, dev),
                       "conv": _tensor(state["ssm"]["conv"], dt, dev)}
-    if cfg.family != "ssm":
-        out["kv"] = {n: _tensor(state["kv"][n], dt, dev)
-                     .permute(0, 1, 3, 2, 4).contiguous() for n in ("k", "v")}
+    for group in ("kv", "enc_kv"):
+        if group in state:
+            out[group] = {n: _tensor(state[group][n], dt, dev)
+                          .permute(0, 1, 3, 2, 4).contiguous()
+                          for n in ("k", "v")}
+    if "enc_kv" in state:
+        out["enc_kv"]["len"] = torch.tensor(np.asarray(
+            state["enc_kv"]["len"], np.int32), device=dev)
     return out
 
 
 def decode_state_to_numpy(state: dict) -> dict:
     """The port's decode state in the reference's layout: ``pos`` an
-    int32 scalar, the caches (n,B,T,KV,hd) and the ssm layers' h and conv
-    where the state has them, as float32 arrays (numpy has no bfloat16;
-    float32 holds a bfloat16 tensor's values exactly)."""
+    int32 scalar, the caches and cross caches (n,B,T,KV,hd) and the ssm
+    layers' h and conv where the state has them, as float32 arrays (numpy
+    has no bfloat16; float32 holds a bfloat16 tensor's values exactly),
+    and the cross caches' ``len`` int32."""
     out: dict = {"pos": np.int32(state["pos"])}
     if "ssm" in state:
         out["ssm"] = {n: t.float().cpu().numpy()
                       for n, t in state["ssm"].items()}
-    if "kv" in state:
-        out["kv"] = {n: state["kv"][n].permute(0, 1, 3, 2, 4).float().cpu()
-                     .numpy() for n in ("k", "v")}
+    for group in ("kv", "enc_kv"):
+        if group in state:
+            out[group] = {n: state[group][n].permute(0, 1, 3, 2, 4).float()
+                          .cpu().numpy() for n in ("k", "v")}
+    if "enc_kv" in state:
+        out["enc_kv"]["len"] = state["enc_kv"]["len"].cpu().numpy().astype(
+            np.int32)
     return out

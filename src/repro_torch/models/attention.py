@@ -87,6 +87,28 @@ def qkv_project(p: Params, x: torch.Tensor, cfg: ModelConfig, positions):
             v.transpose(1, 2).contiguous())
 
 
+def cross_q(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The audio decoder's cross-attention queries: x (B,S,D) -> (B,H,S,hd)
+    through ``wq`` alone.  The reference applies neither ``bq`` nor RoPE
+    here, although the cross attention's parameters hold ``bq``."""
+    B, S, _ = x.shape
+    dt = _dtype(cfg)
+    q = (x.to(dt) @ p["wq"].to(dt)).view(B, S, cfg.num_heads, cfg.head_dim)
+    return q.transpose(1, 2).contiguous()
+
+
+def cross_kv(p: Params, enc: torch.Tensor, cfg: ModelConfig):
+    """The cross attention's keys and values over the encoder's output
+    enc (B,T,D) -> k, v (B,KV,T,hd), contiguous, through ``wk`` and
+    ``wv`` alone (no ``bk``, ``bv`` or RoPE, as in the reference)."""
+    B, T, _ = enc.shape
+    dt = _dtype(cfg)
+    enc = enc.to(dt)
+    return tuple((enc @ p[w].to(dt)).view(B, T, cfg.num_kv_heads,
+                                          cfg.head_dim).transpose(1, 2)
+                 .contiguous() for w in ("wk", "wv"))
+
+
 def full_attention(q, k, v, cfg: ModelConfig, *,
                    causal: bool = True) -> torch.Tensor:
     """Reference O(S^2)-memory attention (small shapes / oracles only):

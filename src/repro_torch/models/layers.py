@@ -110,6 +110,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return _rotate(x, positions[..., None].float() * freqs)
 
 
+@functools.cache
+def _mrope_streams(sections: tuple[int, int, int], half: int,
+                   device: torch.device) -> torch.Tensor:
+    """(half,) the position stream of each rotary frequency (section 0
+    temporal, 1 height, 2 width), on ``device``, copied there once, as
+    ``_freqs`` is."""
+    sec = np.asarray(sections, np.int64)
+    sec = (sec * half / sec.sum()).astype(np.int64)
+    sec[2] = half - sec[0] - sec[1]
+    src = np.concatenate([np.full(int(s), i, np.int64)
+                          for i, s in enumerate(sec)])
+    return torch.as_tensor(src, device=device)
+
+
 def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
                 sections: tuple[int, int, int]) -> torch.Tensor:
     """Qwen2-VL multimodal RoPE.
@@ -120,15 +134,9 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     the HF reference).
     """
     h = x.shape[-1]
-    half = h // 2
-    sec = np.asarray(sections, np.int64)
-    sec = (sec * half / sec.sum()).astype(np.int64)
-    sec[2] = half - sec[0] - sec[1]
     freqs = _freqs(h, theta, x.device)                           # (half,)
-    # per-frequency position source: section 0 temporal, 1 height, 2 width
-    src = np.concatenate([np.full(int(s), i, np.int64)
-                          for i, s in enumerate(sec)])
-    pos = positions3[torch.as_tensor(src, device=x.device)]      # (half,B,S)
+    src = _mrope_streams(tuple(sections), h // 2, x.device)
+    pos = positions3[src]                                        # (half,B,S)
     return _rotate(x, pos.permute(1, 2, 0).float() * freqs)
 
 

@@ -2,9 +2,12 @@
 the copied configs, the parameter and state converters (the reference's
 pad heads dropped without changing its logits; Mamba1's tree and state;
 the hybrid's Mamba2 layers, unstacked shared block and two-part state;
-the MoE layers' float32 router and experts), the building blocks against
-the reference's, the port's own init, where attention goes, the head
-widths the CUDA kernels take, and the families not ported yet."""
+the MoE layers' float32 router and experts; the VLM's biases; the audio
+model's encoder, cross attention and cross caches), the building blocks
+against the reference's, the port's own init, where attention goes, the
+head widths the CUDA kernels take, and the families the reference does
+not know."""
+import copy
 import dataclasses
 
 import jax
@@ -28,8 +31,9 @@ from repro_torch.models import layers as PL
 
 DENSE = ("yi_6b", "deepseek_7b", "phi3_medium_14b", "command_r_plus_104b")
 MOE = ("phi3p5_moe_42b", "qwen3_moe_30b")
-#: the families not ported yet
-OTHERS = ("qwen2_vl_72b", "whisper_tiny")
+#: configs of the VLM's and the audio model's shapes, given a family that
+#: neither package knows
+OTHERS = {"qwen2_vl_72b": "video", "whisper_tiny": "speech"}
 TOL = 2e-4                      # float32, as in test_torch_models.py
 
 _init = jax.jit(R.init_params, static_argnums=0)
@@ -319,21 +323,25 @@ def test_attention_goes_through_the_kernel_wrappers(monkeypatch):
 def test_dense_head_widths_fit_the_cuda_kernels():
     """The CUDA attention paths take hd a multiple of 8 up to 256.  The
     four dense configs have hd 128, the MoE configs 128 (phi3.5-moe) and
-    64 (qwen3-moe).  Of their smoke configs, phi3's has hd 20 (80 wide
-    over 4 heads): the plain versions serve it on the CPU, and on the card
-    the wrappers refuse it rather than answer; the others have hd 16."""
-    full = {arch: PC.get_config(arch).head_dim for arch in DENSE + MOE}
+    64 (qwen3-moe), the VLM 128 (qwen2-vl) and audio 64 (whisper).  Of
+    their smoke configs, phi3's has hd 20 (80 wide over 4 heads): the
+    plain versions serve it on the CPU, and on the card the wrappers
+    refuse it rather than answer; the others have hd 16."""
+    archs = DENSE + MOE + ("qwen2_vl_72b", "whisper_tiny")
+    full = {arch: PC.get_config(arch).head_dim for arch in archs}
     assert full == dict.fromkeys(DENSE, 128) | {"phi3p5_moe_42b": 128,
-                                                "qwen3_moe_30b": 64}
+                                                "qwen3_moe_30b": 64,
+                                                "qwen2_vl_72b": 128,
+                                                "whisper_tiny": 64}
     for hd in set(full.values()):
         for dtype in (torch.float32, torch.bfloat16):
             flash_kernel.flash_plan(hd, dtype)
         decode_kernel.check_width(hd)
-    widths = {arch: PC.get_smoke_config(arch).head_dim
-              for arch in DENSE + MOE}
+    widths = {arch: PC.get_smoke_config(arch).head_dim for arch in archs}
     assert widths == {"yi_6b": 16, "deepseek_7b": 16, "phi3_medium_14b": 20,
                       "command_r_plus_104b": 16, "phi3p5_moe_42b": 16,
-                      "qwen3_moe_30b": 16}
+                      "qwen3_moe_30b": 16, "qwen2_vl_72b": 16,
+                      "whisper_tiny": 16}
     for hd in set(widths.values()) - {20}:
         flash_kernel.flash_plan(hd, torch.bfloat16)
         decode_kernel.check_width(hd)
@@ -345,19 +353,25 @@ def test_dense_head_widths_fit_the_cuda_kernels():
 
 @pytest.mark.parametrize("arch", OTHERS)
 def test_other_families_are_not_ported(arch):
-    name, _, version = arch.partition("/mamba")
-    cfg = PC.get_smoke_config(name)
-    if version:
-        cfg = dataclasses.replace(cfg, ssm_version=int(version))
+    """Every family of the reference is ported; a config whose family the
+    reference does not know (its ``_init_all`` raises ``ValueError``)
+    raises ``ValueError`` naming the family at each entry point and
+    converter of the port."""
+    cfg = copy.copy(PC.get_smoke_config(arch))
+    object.__setattr__(cfg, "family", OTHERS[arch])   # past __post_init__
+    with pytest.raises(ValueError, match=OTHERS[arch]):
+        R.init_params(cfg, jax.random.PRNGKey(0))
     calls = [lambda: P.init_params(cfg, device="cpu"),
              lambda: P.forward({}, {}, cfg, device="cpu"),
              lambda: P.prefill({}, {}, cfg, device="cpu"),
              lambda: P.init_decode_state(cfg, 1, 4, device="cpu"),
              lambda: P.decode_step({}, {}, None, cfg, device="cpu"),
+             lambda: P.encode_audio({}, None, cfg, device="cpu"),
              lambda: params_from_numpy(cfg, {}, device="cpu"),
              lambda: decode_state_from_numpy(cfg, {}, device="cpu")]
     for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(ValueError, match=f"unknown family "
+                                             f"'{OTHERS[arch]}'"):
             call()
 
 
@@ -428,6 +442,116 @@ def test_moe_decode_state_round_trip(arch, dtype):
     for n, t in fresh["kv"].items():
         assert t.shape == port["kv"][n].shape and not t.any()
         assert t.dtype == port["kv"][n].dtype
+
+
+def _nonzero(tree, seed):
+    """Every leaf of a numpy tree, biases and pads included, drawn from a
+    normal seeded with ``seed``, so a value misplaced or cast twice
+    shows."""
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(
+        lambda a: rng.standard_normal(a.shape).astype(a.dtype), tree)
+
+
+def _want(group, n, a, width):
+    """The reference leaf ``a`` as the port holds it: the pad heads'
+    columns of ``wq`` and ``bq`` and rows of ``wo`` dropped, in the self
+    and the cross attention."""
+    if group in ("attn", "xattn") and n in ("wq", "bq"):
+        return a[..., :width]
+    if group in ("attn", "xattn") and n == "wo":
+        return a[:width]
+    return a
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("arch", ("qwen2_vl_72b", "whisper_tiny"))
+def test_params_from_numpy_holds_the_vlm_and_audio_trees(arch, dtype):
+    """qwen2-vl's and whisper's smoke trees, every leaf nonzero (the pad
+    heads' too): each layer's biases cast once to ``cfg.dtype`` with the
+    pads of ``bq`` dropped; an audio layer's ``lnx`` and the encoder's
+    norms in ``cfg.param_dtype``, its cross attention ``xattn`` trimmed
+    to ``cfg.num_heads`` heads as ``attn`` is, its encoder layers one
+    dict each; every value exact."""
+    cfg = dataclasses.replace(RC.get_smoke_config(arch), dtype=dtype)
+    tree = _nonzero(_np(_init(cfg, jax.random.PRNGKey(17))), 17)
+    params = params_from_numpy(cfg, tree, device="cpu")
+    dt = getattr(torch, dtype)
+    H, hd, D = cfg.num_heads, cfg.head_dim, cfg.d_model
+    width = H * hd
+    assert (H, cfg.num_padded_heads) == (4, 16)
+    stacks = {"layers": cfg.num_layers}
+    if arch == "whisper_tiny":
+        stacks["enc_layers"] = cfg.encoder_layers
+        assert params.keys() == tree.keys() == {"embed", "final_norm",
+                                                "layers", "enc_layers",
+                                                "enc_norm"}
+        assert tree["layers"].keys() >= {"lnx", "xattn"}
+        assert "xattn" not in tree["enc_layers"]
+        for n, t in params["enc_norm"].items():
+            assert t.dtype == torch.float32
+            assert torch.equal(t, torch.tensor(tree["enc_norm"][n]))
+    else:
+        assert params.keys() == tree.keys() == {"embed", "final_norm",
+                                                "layers"}
+    for stack, n_layers in stacks.items():
+        assert len(params[stack]) == n_layers
+        for layer, lp in enumerate(params[stack]):
+            assert lp.keys() == tree[stack].keys()
+            for group, sub in lp.items():
+                assert sub.keys() == tree[stack][group].keys()
+                for n, t in sub.items():
+                    want = _want(group, n, tree[stack][group][n][layer],
+                                 width)
+                    assert t.dtype == (torch.float32 if group.startswith(
+                        "ln") else dt), (stack, group, n)
+                    assert torch.equal(t, torch.tensor(want).to(t.dtype)), (
+                        stack, group, n)
+            for group in ("attn", "xattn"):
+                if group in lp:
+                    assert lp[group]["wq"].shape == (D, width)
+                    assert lp[group]["bq"].shape == (width,)
+                    assert lp[group]["wo"].shape == (width, D)
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("T", (32, 24))
+def test_audio_decode_state_round_trip(T, dtype):
+    """The reference's audio prefill state (the self caches, the cross
+    caches at the frames' T and their ``len``) crosses into the port's
+    layout and back unchanged; a fresh state has the self caches' shapes
+    and cross caches at ``encoder_seq``, zeroed."""
+    cfg = dataclasses.replace(RC.get_smoke_config("whisper_tiny"),
+                              dtype=dtype)
+    params = _init(cfg, jax.random.PRNGKey(18))
+    frames = np.random.default_rng(18).standard_normal(
+        (2, T, cfg.d_model)).astype(np.float32)
+    _, state = jax.jit(R.prefill, static_argnums=(2, 3))(
+        params, {"tokens": _tokens(cfg, 18, S=10), "frames": frames}, cfg, 12)
+    state = _np(state)
+    port = decode_state_from_numpy(cfg, state, device="cpu")
+    L, B, _, KV, hd = state["kv"]["k"].shape
+    assert port.keys() == {"pos", "kv", "enc_kv"} and port["pos"] == 10
+    assert port["enc_kv"]["k"].shape == (L, B, KV, T, hd)
+    assert port["enc_kv"]["len"].dtype == torch.int32
+    assert port["enc_kv"]["len"].tolist() == [T] * B
+    back = decode_state_to_numpy(port)
+    assert back["pos"] == np.int32(10) and back.keys() == port.keys()
+    assert back["enc_kv"]["len"].dtype == np.int32
+    for group in ("kv", "enc_kv"):
+        for n, t in port[group].items():
+            assert t.is_contiguous()
+            if n != "len":
+                assert t.dtype == getattr(torch, dtype)
+            np.testing.assert_array_equal(back[group][n],
+                                          np.asarray(state[group][n]))
+    fresh = P.init_decode_state(cfg, B, 12, device="cpu")
+    assert fresh.keys() == port.keys() and fresh["pos"] == 0
+    assert fresh["kv"]["k"].shape == port["kv"]["k"].shape
+    assert fresh["enc_kv"]["k"].shape == (L, B, KV, cfg.encoder_seq, hd)
+    for group in ("kv", "enc_kv"):
+        for n, t in fresh[group].items():
+            assert t.dtype == port[group][n].dtype and not t.any()
 
 
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
