@@ -370,7 +370,13 @@ Phases, one line or block each:
      prefill and a step under the sync debugger; a profiled prefill and 4
      profiled steps; flash at the encoder's shape and decode over a cross
      cache timed beside their plain versions, bounds and library calls
-     (the ``zoo_audio`` entries of the kernels line).
+     (the ``zoo_audio`` entries of the kernels line);
+ 22. the kernels refuse gradients they cannot give: for each of the six
+     CUDA wrappers on small inputs on the card, a call whose float inputs
+     require grad raises ``RuntimeError`` naming the kernel and launches
+     nothing; the same inputs under ``torch.no_grad()`` and their detached
+     copies with grad on launch once each and give outputs equal bit for
+     bit.
 
 The CPU reruns of phases 11, 12, 13 and 15 run in three worker processes
 of one thread each (``cpu_job``) while the card runs go on: the
@@ -3647,6 +3653,84 @@ def phase_audio_zoo(torch, np, errs):
     return zoo
 
 
+def phase_grad_guard(torch) -> None:
+    """Phase 22: no kernel has a backward, so each CUDA wrapper refuses
+    an input that requires grad under grad mode (``build.refuse_grad``),
+    before it allocates or launches anything, and serves the same inputs
+    under ``torch.no_grad()``.  Fails unless, for each of the six, the
+    refusal names the kernel and launches nothing, and the ``no_grad``
+    call and the call on detached inputs each launch once and agree bit
+    for bit."""
+    import numpy as np
+
+    from repro_torch.benchmarks import kernels_bench
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     mamba_scan, ops, reid_topk)
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(22)
+
+    def bench(name, shape):
+        args, kwargs = kernels_bench.make_inputs(name, shape, DEVICE, seed=22)
+        return getattr(ops, name), args, kwargs
+
+    cases = [
+        ("reid_topk_segment_masked", ops.reid_topk_segments,
+         synthetic_inputs(torch, rng, 33, 517, 64, 8) + (3,), {},
+         lambda: reid_topk.LAUNCHES),
+        ("reid_topk_tiles", ops.reid_topk_tiles,
+         synthetic_inputs(torch, rng, 33, 517, 64,
+                          8 * TILE_GRID * TILE_GRID) + (3,), {},
+         lambda: reid_topk.TILE_LAUNCHES),
+        ("reid_topk", *bench("reid_topk", dict(Q=33, G=517, D=64, k=3)),
+         lambda: reid_topk.UNMASKED_LAUNCHES),
+        ("flash_attention", *bench("flash_attention", dict(
+            B=1, H=8, KV=2, S=128, T=128, hd=64, causal=True)),
+         lambda: flash_attention.LAUNCHES),
+        ("decode_attention", *bench("decode_attention", dict(
+            B=2, H=8, KV=2, T=256, hd=64, length="random")),
+         lambda: decode_attention.LAUNCHES),
+        ("mamba_scan", *bench("mamba_scan", dict(B=1, L=64, D=64, N=16)),
+         lambda: mamba_scan.LAUNCHES),
+    ]
+    for name, op, args, kwargs, launches in cases:
+        floats = [isinstance(a, torch.Tensor) and a.is_floating_point()
+                  for a in args]
+        with_grad = tuple(a.detach().clone().requires_grad_() if f else a
+                          for a, f in zip(args, floats))
+        detached = tuple(a.detach() if f else a for a, f in zip(args, floats))
+        n0 = launches()
+        try:
+            op(*with_grad, **kwargs)
+        except RuntimeError as e:
+            refusal = str(e)
+            if not refusal.startswith(f"{name}: ") or \
+                    "no backward" not in refusal:
+                fail(f"[22 grad] {name}: refused with {refusal!r}")
+        else:
+            fail(f"[22 grad] {name}: inputs that require grad under grad "
+                 f"mode were served")
+        if launches() != n0:
+            fail(f"[22 grad] {name}: the refused call launched")
+        with torch.no_grad():
+            got = op(*with_grad, **kwargs)
+        want = op(*detached, **kwargs)
+        torch.cuda.synchronize()
+        if launches() != n0 + 2:
+            fail(f"[22 grad] {name}: {launches() - n0} launches for the "
+                 f"no_grad and the detached call, not 2")
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if any(g.requires_grad for g in got) or not all(
+                torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"[22 grad] {name}: the no_grad output is not the detached "
+                 f"call's bit for bit")
+        say(f"[22 grad] {name}: refused ({refusal!r}), launched nothing; "
+            f"no_grad and detached: 2 launches, "
+            f"{sum(g.numel() for g in got)} outputs bit-equal")
+    say(f"[22 grad] phase {time.perf_counter() - t_phase:.3f} s")
+
+
 def scan_end_state(torch, errs):
     """The scan's end state (``mamba_scan(..., final_state=True)``) held to
     the plain version's h at ``END_STATE_SHAPES``, with y: one launch a
@@ -3718,6 +3802,7 @@ def ptxas_summary(log: str) -> list[str]:
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -4599,9 +4684,12 @@ def main() -> int:
     vlm_zoo = phase_vlm_zoo(torch, np, errs)
     # -- phase 21: the audio zoo's serving path ------------------------------
     audio_zoo = phase_audio_zoo(torch, np, errs)
+    # -- phase 22: the kernels refuse gradients ------------------------------
+    phase_grad_guard(torch)
     camera_row["max_abs_err"] = max_err[CAMERA["name"]]
     tiles_row["max_abs_err"] = max_err[TILES["name"]]
 
+    say(f"[total] {time.perf_counter() - t_script:.1f} s from main's start")
     say(smi)
     say(json.dumps({"kernels": [
         dict(CAMERA, **camera_row, recal_launches={

@@ -109,6 +109,22 @@ def device_and_stream(t) -> tuple[int, int]:
     return index, torch.cuda.current_stream(t.device).cuda_stream
 
 
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise ``RuntimeError`` where autograd would want a gradient through
+    ``kernel``'s CUDA launch: grad mode is on and an input requires grad.
+    The launchers write into fresh tensors through ctypes, outside
+    autograd, and no kernel has a backward yet, so ``backward()`` would
+    otherwise give those inputs no gradient and say nothing.  The plain
+    versions on the CPU are torch ops and do pass gradients."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: an input requires grad, and the CUDA kernel has no "
+            f"backward yet; call it under torch.no_grad() or on detached "
+            f"inputs")
+
+
 def check(err: int, symbol: str) -> None:
     """Raise unless a launcher returned 0 (``cudaSuccess``)."""
     if err != 0:

@@ -267,6 +267,9 @@ def decode_attention(q, k_cache, v_cache, length):
         raise ValueError(f"length is on {length.device}, q on {q.device}")
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k_cache, v_cache, length)
+    from repro_torch.kernels import build
+
+    build.refuse_grad("decode_attention", q, k_cache, v_cache)
     check_width(hd)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")

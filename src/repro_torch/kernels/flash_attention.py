@@ -132,6 +132,9 @@ def flash_attention(q, k, v, *, causal: bool = True):
     check_heads(q, k, v, 4)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal)
+    from repro_torch.kernels import build
+
+    build.refuse_grad("flash_attention", q, k, v)
     B, H, S, hd = q.shape
     KV, T = k.shape[1], k.shape[2]
     plan = flash_plan(hd, q.dtype)
@@ -140,8 +143,6 @@ def flash_attention(q, k, v, *, causal: bool = True):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    from repro_torch.kernels import build
-
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     fn = build.launcher("flash_attention", "flash_attention",
                         (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 13

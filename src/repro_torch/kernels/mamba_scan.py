@@ -153,6 +153,9 @@ def mamba_scan(u, dt, Bm, Cm, A, *, final_state: bool = False):
         h0 = torch.zeros((B, D, N), dtype=torch.float32)
         y, h = ref.mamba_scan_ref(u, dt, Bm, Cm, A, h0)
         return (y, h) if final_state else y
+    from repro_torch.kernels import build
+
+    build.refuse_grad("mamba_scan", u, dt, Bm, Cm, A)
     if u.device.type != "cuda":
         raise ValueError(f"no kernel for device {u.device}")
     if max(B, L, D, N) > INT_MAX:

@@ -188,6 +188,9 @@ def _segment_masked_call(queries, q_tag, admit, gallery, gal_cam, gal_tag,
     if queries.device.type == "cpu":
         return ref.reid_topk_segments_ref(queries, q_tag, admit, gallery,
                                           gal_cam, gal_tag, k)
+    from repro_torch.kernels import build
+
+    build.refuse_grad("reid_topk_segment_masked", queries, gallery)
     if queries.device.type != "cuda":
         raise ValueError(f"no kernel for device {queries.device}")
     # past MAX_CAMS the camera kernel's packed admission bits no longer fit
@@ -243,6 +246,9 @@ def reid_topk_tiles(queries, q_tag, admit_ct, gallery, gal_ct, gal_tag,
     if queries.device.type == "cpu":
         return ref.reid_topk_tiles_ref(queries, q_tag, admit_ct, gallery,
                                        gal_ct, gal_tag, k)
+    from repro_torch.kernels import build
+
+    build.refuse_grad("reid_topk_tiles", queries, gallery)
     if queries.device.type != "cuda":
         raise ValueError(f"no kernel for device {queries.device}")
     out = _launch("reid_topk_tiles", "reid_topk_tiles", queries, q_tag,
@@ -277,10 +283,11 @@ def reid_topk(queries, gallery, k: int):
         return _empty(Q, k, queries.device)
     if queries.device.type == "cpu":
         return ref.reid_topk_ref(queries, gallery, k)
-    if queries.device.type != "cuda":
-        raise ValueError(f"no kernel for device {queries.device}")
     from repro_torch.kernels import build
 
+    build.refuse_grad("reid_topk", queries, gallery)
+    if queries.device.type != "cuda":
+        raise ValueError(f"no kernel for device {queries.device}")
     queries = queries.to(torch.float32).contiguous()
     gallery = gallery.to(torch.float32).contiguous()
     fn = build.launcher("reid_topk_plain", "reid_topk_unmasked",

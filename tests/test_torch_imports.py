@@ -70,3 +70,28 @@ def test_chip_smoke_alone_fails(tmp_path):
                                 PYTHONPATH=""))
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def test_analysis_plane_and_its_gate_import_without_jax_or_repro():
+    """``repro_torch.analysis`` and ``scripts/torch_check_invariants.py``
+    (run at HEAD and on its corpus) pull in neither ``jax`` nor ``repro``."""
+    mods = _port_modules()
+    for name in ("analysis", "analysis.lint"):
+        assert f"repro_torch.{name}" in mods, name
+    script = os.path.join(REPO, "scripts", "torch_check_invariants.py")
+    code = (
+        "import importlib, importlib.util, sys\n"
+        "importlib.import_module('repro_torch.analysis')\n"
+        "importlib.import_module('repro_torch.analysis.lint')\n"
+        "spec = importlib.util.spec_from_file_location('gate', "
+        f"{script!r})\n"
+        "gate = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(gate)\n"
+        "head, fixtures = gate.main([]), gate.main(['--fixtures'])\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print('RESULT', head, fixtures, bad)\n"
+        "assert not bad, bad\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "RESULT 0 1 []", r.stdout
