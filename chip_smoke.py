@@ -36,8 +36,9 @@ Phases, one line or block each:
      done or the world's horizon ends; every kernel's launch count is reset
      just before and read just after: the camera kernel's must equal the
      rounds that ranked a non-empty gallery, the tile kernel's must be 0.
-     The same ticks run again with ``device="cpu"`` (the plain versions)
-     and the two traces must agree;
+     The same ticks run again with ``device="cpu"`` (the plain versions),
+     in a worker process after phase 6's card runs, and the two traces
+     must agree;
   5. the camera kernel against its plain version at every round shape
      phase 4 produced; the most frequent and the largest are timed as in
      phase 3 and go into the kernels line, beside the stress shape; the
@@ -376,13 +377,31 @@ Phases, one line or block each:
      require grad raises ``RuntimeError`` naming the kernel and launches
      nothing; the same inputs under ``torch.no_grad()`` and their detached
      copies with grad on launch once each and give outputs equal bit for
-     bit.
+     bit;
+ 23. launch bounds (``repro_torch.analysis.kernel_audit``): (a) for every
+     launch of the audit's sweep at the card's own SM count and at 1, 16,
+     114 and 132, and for every single-field perturbation of each, the
+     compiled guard (each source's exported ``<symbol>_plan_ok``, which
+     runs the launcher's own guard and launches nothing) must answer as
+     the Python mirror ``launcher_accepts`` does, and every planner's plan
+     must pass; (b) each of the six launchers once at each of a dozen
+     ragged shapes and at its largest full-width shape, through
+     ``build.launcher``, on views inside buffers with 4 KB of guard band
+     on each side holding a NaN bit pattern: afterwards no guard byte and
+     no input byte may have changed, decode's ticket counters must be
+     zero again, and the outputs must equal the plain versions (the re-id
+     kernels bit for bit on integer-valued inputs; attention within 2e-5
+     in float32, 1e-4 at the full widths, 2e-2 in bfloat16; the scan
+     within 1e-4); (c) the ``(NEG_INF, -1)`` sentinel probes on the
+     kernels.
 
 The CPU reruns of phases 11, 12, 13 and 15 run in three worker processes
 of one thread each (``cpu_job``) while the card runs go on: the
 quickstart's, phase 12's, phase 13's and phase 15's start with the build,
-the duke and porto worlds' as phase 11 builds them.  Phases 4 and 6 rerun
-in line; phase 11's host-clock rates are taken with the workers busy
+the duke and porto worlds' as phase 11 builds them.  Phases 4 and 6's
+reruns join them once phase 6's timed and profiled ticks are done, so that
+no rerun of theirs runs beside those host-bound ticks, and are read after
+phase 10; phase 11's host-clock rates are taken with the workers busy
 beside them.  On the host the sweeps' wall gates give their ratios
 unasserted (``suite_rerun``): they judge the card's walls.
 
@@ -583,7 +602,7 @@ AUDIO_CHECK = dict(B=2, T=1500, S=64, steps=4)
 AUDIO_SERVE = dict(B=8, T=1500, S=64, max_len=448, steps=32)
 #: decode steps of phase 21's profiled window
 AUDIO_PROFILED = 4
-#: worker processes for the CPU reruns of phases 11, 12, 13 and 15
+#: worker processes for the CPU reruns of phases 4, 6, 11, 12, 13 and 15
 #: (``cpu_job``)
 CPU_WORKERS = 3
 CPU_POOL = None
@@ -631,6 +650,42 @@ def cpu_job(fn, *args, **kw):
         CPU_POOL = multiprocessing.get_context("spawn").Pool(
             CPU_WORKERS, _cpu_worker_init)
     return CPU_POOL.apply_async(_timed, (fn, args, kw))
+
+
+def serve_rerun(world, model, policy, serve_kw: dict, ticks: int,
+                count_live: bool):
+    """Phase 4's (6's) CPU rerun: ``world`` served on the CPU with
+    ``model``, ``policy`` and the card run's own ``serve_kw`` for ``ticks``
+    ticks; returns its trace, the engine's cost counters and, with
+    ``count_live``, the live (64-row, 64-row) tiles over its tile rounds
+    (live, total)."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_stream
+
+    live = [0, 0]
+    real = ops.reid_topk_tiles
+
+    def counted(*a):
+        n_live, n_total = live_tiles(torch, a)
+        live[0] += n_live
+        live[1] += n_total
+        return real(*a)
+
+    if count_live:
+        ops.reid_topk_tiles = counted
+    try:
+        eng = api.serve(model, lambda x: x, policy, device="cpu",
+                        **serve_kw)
+        trace = []
+        run_stream(eng, world, ticks, trace)
+    finally:
+        ops.reid_topk_tiles = real
+    counters = ("admitted_steps", "unique_frames", "admitted_tiles",
+                "unique_tiles")
+    return trace, {c: getattr(eng, c) for c in counters}, tuple(live)
 
 
 def engine_view(eng):
@@ -3731,6 +3786,83 @@ def phase_grad_guard(torch) -> None:
     say(f"[22 grad] phase {time.perf_counter() - t_phase:.3f} s")
 
 
+def phase_launch_bounds(torch, n_sms: int) -> dict:
+    """Phase 23: the launch-bounds audit (``kernel_audit``) against the
+    compiled launchers.  (a) Every plan of the audit's sweep at the card's
+    SM count and at ``kernel_audit.SM_COUNTS``, and each of its
+    perturbations, through the source's exported ``<symbol>_plan_ok`` and
+    the Python mirror: they must agree, and every plan must pass.  (b)
+    Each launcher once at each of ``guard_band_cases`` on guarded views:
+    no guard or input byte changed, decode's counters zero again, the
+    outputs equal to the plain versions.  (c) The sentinel probes on the
+    kernels.  Fails on the first fault; returns the counts."""
+    from repro_torch.analysis import kernel_audit as ka
+
+    t_phase = time.perf_counter()
+    counts = sorted({n_sms, *ka.SM_COUNTS})
+    compared = refused = 0
+    for c in ka.sweep():
+        if not ka.launches_at_all(c):
+            continue
+        c = ka.routed(c)
+        for n in counts:
+            args = ka.plan_args(c, n)
+            for label, a in [("plan", args)] + ka.perturbations(c.kernel,
+                                                                args):
+                got = ka.compiled_accepts(c.kernel, a)
+                if got != ka.launcher_accepts(c.kernel, a) or \
+                        (label == "plan" and not got):
+                    fail(f"[23 bounds] {c} at {n} SMs, {label}: the "
+                         f"compiled guard says {got}, the mirror "
+                         f"{ka.launcher_accepts(c.kernel, a)}")
+                compared += 1
+                refused += not got
+    t_a = time.perf_counter() - t_phase
+    say(f"[23 bounds] (a) compiled guards: {compared} plans compared "
+        f"between each *_plan_ok and the mirror at {counts} SMs, "
+        f"{refused} refused (every perturbation), 0 disagreements; "
+        f"{t_a:.2f} s")
+    t0 = time.perf_counter()
+    guarded = 0
+    for kernel, cases in ka.guard_band_cases().items():
+        for i, c in enumerate(cases):
+            r = ka.guard_band_run(c, DEVICE, seed=23)
+            if r["guard_bytes"] or r["input_bytes"] or r["counters_left"]:
+                fail(f"[23 bounds] {c}: {r['guard_bytes']} guard bytes and "
+                     f"{r['input_bytes']} input bytes changed, "
+                     f"{r['counters_left']} counters left nonzero")
+            full = i == len(cases) - 1
+            for got, want in zip(r["outputs"], r["plain"]):
+                if kernel.startswith("reid"):
+                    if not torch.equal(got, want):
+                        fail(f"[23 bounds] {c}: the guarded launch differs "
+                             f"from the plain version")
+                else:
+                    tol = SCAN_TOL if kernel == "mamba_scan" else \
+                        ATTN_TOL[c.dtype] if c.dtype == "bfloat16" or \
+                        not full else MODEL_TOL
+                    close_enough(torch, f"[23 bounds] {c}", got, want, tol)
+            guarded += 1
+            del r
+        torch.cuda.empty_cache()
+    t_b = time.perf_counter() - t0
+    say(f"[23 bounds] (b) guard bands: {guarded} guarded launches (six "
+        f"launchers x {guarded // 6} shapes, the last of each at full "
+        f"width), {ka.GUARD} B of 0x{ka.GUARD_BYTE:02X} each side: 0 guard "
+        f"bytes and 0 input bytes changed, decode's counters back at 0, "
+        f"outputs equal to the plain versions; {t_b:.2f} s")
+    t0 = time.perf_counter()
+    findings, probes = ka.sentinel_probes(DEVICE)
+    if findings:
+        fail("[23 bounds] sentinel probes on the kernels: "
+             + "; ".join(v.msg for v in findings))
+    say(f"[23 bounds] (c) sentinel probes: {len(probes)} probe calls on "
+        f"the kernels, 0 failures; {time.perf_counter() - t0:.2f} s")
+    say(f"[23 bounds] phase {time.perf_counter() - t_phase:.3f} s")
+    return dict(compared=compared, refused=refused, guarded=guarded,
+                probes=len(probes))
+
+
 def scan_end_state(torch, errs):
     """The scan's end state (``mamba_scan(..., final_state=True)``) held to
     the plain version's h at ``END_STATE_SHAPES``, with y: one launch a
@@ -4019,6 +4151,7 @@ def main() -> int:
         f"{len(world.vis)} visits, horizon {world.vis.horizon}, "
         f"{len(world.q_vids)} queries; built in "
         f"{time.perf_counter() - t0:.1f} s")
+    cam_kw = dict(geo_adj=world.net.geo_adjacent, topk=3, consolidate=True)
 
     def recorder(entry, rounds, kept, hook=None):
         """A stand-in for ``ops.<entry>`` that records each ranked round's
@@ -4038,8 +4171,7 @@ def main() -> int:
 
     def serve(device, trace, ticks=horizon_ticks, on_step=None):
         eng = api.serve(model.to(device), lambda x: x, policy,
-                        geo_adj=world.net.geo_adjacent, topk=3,
-                        consolidate=True, device=device)
+                        device=device, **cam_kw)
         return eng, run_stream(eng, world, ticks, trace, on_step)
 
     rounds, kept = [], {}      # (Q, G) of every ranked round; inputs by shape
@@ -4077,20 +4209,6 @@ def main() -> int:
         f"replay rescues={rescues}; {len(tick_s) / sum(tick_s):.1f} ticks/s; "
         f"tick p50 {np.percentile(lat, 50):.3f} ms p99 "
         f"{np.percentile(lat, 99):.3f} ms")
-
-    cpu_trace = []
-    t0 = time.perf_counter()
-    eng_cpu, _ = serve("cpu", cpu_trace)
-    n, parted = compare_traces(gpu_trace, cpu_trace, policy.match_thresh)
-    if parted is None and (eng_cpu.admitted_steps, eng_cpu.unique_frames) \
-            != (eng.admitted_steps, eng.unique_frames):
-        fail("cuda and cpu runs disagree on the cost counters")
-    say(f"[4 main] cpu rerun (plain versions) in "
-        f"{time.perf_counter() - t0:.1f} s: {n} of {len(gpu_trace)} trace "
-        f"records agree"
-        + ("; cost counters equal" if parted is None else
-           f"; query {parted} parted at a near-threshold record, so the "
-           f"cost counters are not compared"))
 
     singles = {"camera": dict(trace=gpu_trace, eng=eng, at=cam_at,
                               share=device_share(torch, serve, "[4 main]"))}
@@ -4143,11 +4261,12 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s: "
         f"{int(tile_model.tile_admit.sum())} of "
         f"{tile_model.tile_admit.numel()} (src, dst, tile) cells admitted")
+    tile_kw = dict(geo_adj=world.net.geo_adjacent, topk=3,
+                   tile_grid=TILE_GRID)
 
     def serve_tiles(device, trace, ticks=horizon_ticks, on_step=None):
         eng = api.serve(tile_model.to(device), lambda x: x, policy,
-                        geo_adj=world.net.geo_adjacent, topk=3,
-                        tile_grid=TILE_GRID, device=device)
+                        device=device, **tile_kw)
         return eng, run_stream(eng, world, ticks, trace, on_step)
 
     t_rounds, t_kept = [], {}
@@ -4172,13 +4291,13 @@ def main() -> int:
     served = len({r["qid"] for r in gpu_trace})
     lat = np.asarray(tick_s) * 1e3
     base_tiles = TT * eng.admitted_steps
-    counters = ("admitted_steps", "unique_frames", "admitted_tiles",
+    tile_counters = ("admitted_steps", "unique_frames", "admitted_tiles",
                 "unique_tiles")
     say(f"[6 tiles] cuda: {len(tick_s)} ticks (horizon {horizon_ticks}), "
         f"{served} of {len(world.q_vids)} queries served, {done} done; "
         f"{len(t_rounds)} ranked rounds, reid_topk_tiles launches "
         f"{t_launches} (= non-empty rounds), reid_topk launches 0; "
-        + " ".join(f"{c}={getattr(eng, c)}" for c in counters)
+        + " ".join(f"{c}={getattr(eng, c)}" for c in tile_counters)
         + f"; admitted tiles {eng.admitted_tiles} of {base_tiles} "
         f"camera-granular ({base_tiles / max(eng.admitted_tiles, 1):.3f}x), "
         f"unique {eng.unique_tiles} of {TT * eng.unique_frames}; "
@@ -4187,39 +4306,14 @@ def main() -> int:
         f"{np.percentile(lat, 50):.3f} ms p99 {np.percentile(lat, 99):.3f} "
         f"ms")
 
-    live = [0, 0]
-
-    def count_live(a):
-        n_live, n_total = live_tiles(torch, a)
-        live[0] += n_live
-        live[1] += n_total
-
-    cpu_trace = []
-    t0 = time.perf_counter()
-    real_call, ops.reid_topk_tiles = recorder("reid_topk_tiles", [], None,
-                                              count_live)
-    try:
-        eng_cpu, _ = serve_tiles("cpu", cpu_trace)
-    finally:
-        ops.reid_topk_tiles = real_call
-    n, parted = compare_traces(gpu_trace, cpu_trace, policy.match_thresh)
-    if parted is None and any(getattr(eng_cpu, c) != getattr(eng, c)
-                              for c in counters):
-        fail("cuda and cpu tile runs disagree on the cost counters: "
-             + " ".join(f"{c} {getattr(eng, c)}/{getattr(eng_cpu, c)}"
-                        for c in counters))
-    live_share = live[0] / max(live[1], 1)
-    say(f"[6 tiles] cpu rerun (plain versions) in "
-        f"{time.perf_counter() - t0:.1f} s: {n} of {len(gpu_trace)} trace "
-        f"records agree"
-        + ("; all four cost counters equal" if parted is None else
-           f"; query {parted} parted at a near-threshold record, so the "
-           f"cost counters are not compared")
-        + f"; live (64-row, 64-row) tiles over the run's rounds: {live[0]} "
-          f"of {live[1]} ({100 * live_share:.2f} %)")
-
     device_share(torch, serve_tiles, "[6 tiles]", ticks=TICKS)
     singles["tiles"] = dict(trace=gpu_trace, eng=eng, at=tiles_at)
+    # both CPU reruns run in the workers from here, after the card's timed
+    # and profiled ticks of phases 4 and 6, while phases 7-10 go on
+    cam_rerun = cpu_job(serve_rerun, world, model.to("cpu"), policy, cam_kw,
+                        horizon_ticks, False)
+    tile_rerun = cpu_job(serve_rerun, world, tile_model.to("cpu"), policy,
+                         tile_kw, horizon_ticks, True)
 
     # -- phase 7: the tile path's round shapes ----------------------------
     t_shapes = sorted(t_kept, key=lambda s: s[0] * s[1])
@@ -4256,7 +4350,6 @@ def main() -> int:
                      plain_ms=big["plain_ms"], library_ms=big["library_ms"],
                      bound_ms=big["bound_ms"], bound_by=big["bound_by"],
                      plan=big["plan"]),
-        live_tile_share=live_share,
         stress=dict(Q=256, G=8192, D=2048, CT=130 * TT, k=16, ms=st_t["ms"],
                     plain_ms=st_t["plain_ms"],
                     library_ms=st_t["library_ms"],
@@ -4643,6 +4736,42 @@ def main() -> int:
         torch.cuda.empty_cache()
     end_state = scan_end_state(torch, errs)
 
+    # -- phases 4 and 6's CPU reruns, run in the workers since phase 6 ---
+    t0 = time.perf_counter()
+    (cpu_trace, cpu_counts, _), took = cam_rerun.get(RERUN_WAIT)
+    cam = singles["camera"]
+    n, parted = compare_traces(cam["trace"], cpu_trace, policy.match_thresh)
+    if parted is None and (cpu_counts["admitted_steps"],
+                           cpu_counts["unique_frames"]) \
+            != (cam["eng"].admitted_steps, cam["eng"].unique_frames):
+        fail("cuda and cpu runs disagree on the cost counters")
+    say(f"[4 main] cpu rerun (plain versions) in {took:.1f} s in a worker "
+        f"(waited {time.perf_counter() - t0:.1f} s for it): {n} of "
+        f"{len(cam['trace'])} trace records agree"
+        + ("; cost counters equal" if parted is None else
+           f"; query {parted} parted at a near-threshold record, so the "
+           f"cost counters are not compared"))
+    t0 = time.perf_counter()
+    (cpu_trace, cpu_counts, live), took = tile_rerun.get(RERUN_WAIT)
+    tile_run = singles["tiles"]
+    n, parted = compare_traces(tile_run["trace"], cpu_trace,
+                               policy.match_thresh)
+    if parted is None and any(cpu_counts[c] != getattr(tile_run["eng"], c)
+                              for c in tile_counters):
+        fail("cuda and cpu tile runs disagree on the cost counters: "
+             + " ".join(f"{c} {getattr(tile_run['eng'], c)}/{cpu_counts[c]}"
+                        for c in tile_counters))
+    live_share = live[0] / max(live[1], 1)
+    say(f"[6 tiles] cpu rerun (plain versions) in {took:.1f} s in a worker "
+        f"(waited {time.perf_counter() - t0:.1f} s for it): {n} of "
+        f"{len(tile_run['trace'])} trace records agree"
+        + ("; all four cost counters equal" if parted is None else
+           f"; query {parted} parted at a near-threshold record, so the "
+           f"cost counters are not compared")
+        + f"; live (64-row, 64-row) tiles over the run's rounds: {live[0]} "
+          f"of {live[1]} ({100 * live_share:.2f} %)")
+    tiles_row["live_tile_share"] = live_share
+
     # -- phase 11: the batched tracker ----------------------------------
     phase_tracker(np, qs_rerun)
 
@@ -4686,6 +4815,8 @@ def main() -> int:
     audio_zoo = phase_audio_zoo(torch, np, errs)
     # -- phase 22: the kernels refuse gradients ------------------------------
     phase_grad_guard(torch)
+    # -- phase 23: launch bounds against the compiled launchers ---------------
+    phase_launch_bounds(torch, n_sms)
     camera_row["max_abs_err"] = max_err[CAMERA["name"]]
     tiles_row["max_abs_err"] = max_err[TILES["name"]]
 

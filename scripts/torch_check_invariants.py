@@ -3,9 +3,9 @@
 over ``src/repro_torch``, as one blocking step; the counterpart of
 ``scripts/check_invariants.py``.
 
-Default mode lints the tree at HEAD under the host-sync baseline
-(``repro_torch.analysis.lint.SYNC_BASELINE``) and exits non-zero on ANY
-finding:
+Default mode runs every layer at HEAD, the lint under the host-sync
+baseline (``repro_torch.analysis.lint.SYNC_BASELINE``), and exits non-zero
+on ANY finding:
 
     PYTHONPATH=src python scripts/torch_check_invariants.py
 
@@ -14,6 +14,12 @@ Layers (select a subset with ``--only``):
 * ``lint`` — AST rules REX001, REX002 and REX004 over ``src/repro_torch``
   (see ``repro_torch.analysis.lint.RULES``).  A hot function with more
   host syncs than its baseline entry, or fewer, is a finding.
+* ``kernel`` — the launch-bounds proof of the CUDA launchers over the
+  shape sweep at every SM count, the wrappers' routing and refusals, and
+  the ``(NEG_INF, -1)`` sentinel probes on the plain versions
+  (``repro_torch.analysis.kernel_audit.audit_kernels``; CPU only, about
+  5 s).  The compiled guards and the guard bands need a card:
+  ``chip_smoke.py`` phase 23.
 
 ``--fixtures`` mode lints the planted-violation corpus under
 ``tests/fixtures/torch_analysis`` instead, without the baseline, and exits
@@ -34,6 +40,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "src"))
 FIXTURES = os.path.join(REPO, "tests", "fixtures", "torch_analysis")
 
+LAYERS = ("lint", "kernel")
 _EXPECT_RE = re.compile(r"#\s*rex-expect:\s*(REX\d+)\s*=\s*(\d+)")
 
 
@@ -87,6 +94,9 @@ def run_head(layers: list[str]) -> int:
         from repro_torch.analysis.lint import SYNC_BASELINE, lint_paths
         findings += lint_paths([os.path.join(REPO, "src", "repro_torch")],
                                rel_to=REPO, baseline=SYNC_BASELINE)
+    if "kernel" in layers:
+        from repro_torch.analysis.kernel_audit import audit_kernels
+        findings += audit_kernels()
     for v in findings:
         print(v)
     n = len(findings)
@@ -100,8 +110,8 @@ def main(argv=None) -> int:
     ap.add_argument("--fixtures", action="store_true",
                     help="lint the planted-violation corpus; exits non-zero "
                          "iff every expectation is met (run it inverted)")
-    ap.add_argument("--only", nargs="+", default=["lint"], choices=["lint"],
-                    help="subset of audit layers to run")
+    ap.add_argument("--only", nargs="+", default=list(LAYERS),
+                    choices=LAYERS, help="subset of audit layers to run")
     args = ap.parse_args(argv)
     if args.fixtures:
         return run_fixtures()

@@ -1,6 +1,7 @@
 """The static invariant plane of the port, the counterpart of
-``repro.analysis``: an AST lint over ``src/repro_torch``
-(``scripts/torch_check_invariants.py`` is its gate).
+``repro.analysis``: an AST lint over ``src/repro_torch`` and the
+launch-bounds proof of the CUDA launchers
+(``scripts/torch_check_invariants.py`` is their gate).
 
 ``lint`` keeps three of the reference's five rules, re-targeted at eager
 PyTorch:
@@ -28,8 +29,14 @@ Parts of the reference with no counterpart here, by decision:
   counterpart in ``repro_torch.runtime.transport`` (``_sanitize_enabled``,
   switched by ``REPRO_SANITIZE``).
 
-The launch-bounds half of ``kernel_audit.py`` (plans, launchers, the
-``(NEG_INF, -1)`` sentinel probes) is not here yet.
+``kernel_audit`` is the launch-bounds half, the counterpart of the
+reference's ``kernel_audit.py``: a launch table in place of the
+intercepted ``pallas_call`` records, the geometry proof of every CUDA launcher and second
+pass from the planners over a shape sweep at several SM counts, the
+Python mirror of each launcher's guard (held to the compiled guards on a
+card), guard-banded launches, and the ``(NEG_INF, -1)`` sentinel probes.
+The port captures no CUDA graph, so the reference's ``RecompileGuard``
+has nothing to guard.
 """
 from __future__ import annotations
 

@@ -915,8 +915,12 @@ cudaError_t launch_mma(int hdp, const Args<bf16_t>& a, int blocks, int smem,
 // multiple of 8 in [8, 256]; float32 with heads 1, 2, 4 or 8 and a tile of
 // whole score blocks, bfloat16 with heads 8 and a tile of whole 16-key
 // blocks; 4 or 8 warps; splits = ceil(T / split) (1 when T = 0) of at
-// most MAX_SPLITS; the shared memory the layout takes; the grid within an
-// int; and the workspace and counters where the plan needs them.
+// most MAX_SPLITS; the shared memory the layout takes; the grid, and the
+// keys a warp steps through in int, within an int: its first key s split
+// + w tile, the key it scores t0 (past a split's end by under a round of
+// warps tiles) and the key it loads ld_t0 (STAGES - 1 rounds ahead of t0),
+// so T - 1 + STAGES warps tile at most; and the workspace and counters
+// where the plan needs them.
 bool plan_ok(int B, int H, int KV, int T, int hd, bool bf16, int heads,
              int tile, int split, int splits, int warps, int smem,
              const float* ws, const int* counters, int combine) {
@@ -937,6 +941,8 @@ bool plan_ok(int B, int H, int KV, int T, int hd, bool bf16, int heads,
     return false;
   const long long groups = (H / KV + heads - 1) / heads;
   if ((long long)B * KV * groups * splits > 0x7fffffffLL) return false;
+  if ((long long)T - 1 + (long long)STAGES * warps * tile > 0x7fffffffLL)
+    return false;
   return splits == 1 || (ws != nullptr && (!combine || counters != nullptr));
 }
 
@@ -989,4 +995,19 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                       T, hd, G, groups, tile, split, splits, combine, warps,
                       scale};
   return (int)launch_fma((hd + 31) / 32, heads, a, blocks, smem, s);
+}
+
+// The launcher's guard alone (plan_ok), on the launcher's own arguments
+// but the device and the stream: 1 where decode_attention would launch, 0
+// where it would return cudaErrorInvalidValue.  Launches nothing and
+// touches no device.
+extern "C" int decode_attention_plan_ok(const void* q, const void* k,
+                                        const void* v, const int* length,
+                                        void* o, float* ws, int* counters,
+                                        int B, int H, int KV, int T, int hd,
+                                        int bf16, int heads, int tile,
+                                        int split, int splits, int warps,
+                                        int smem, int combine) {
+  return plan_ok(B, H, KV, T, hd, bf16, heads, tile, split, splits, warps,
+                 smem, ws, counters, combine);
 }

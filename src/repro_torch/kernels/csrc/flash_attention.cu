@@ -75,6 +75,7 @@
 //   shared memory at the end: the benchmark's causal shape has 8 heads x
 //   16 such blocks, and the longest row's chain of tiles is halved.
 
+#include <climits>
 #include <cstdint>
 
 #include "attention.cuh"
@@ -838,6 +839,24 @@ cudaError_t launch_hd(int hdp, const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
+// The launcher's guard: the sizes it takes (the grid's y and z within
+// 65,535; S and T at most 127 short of INT_MAX, since q0 + ROWS and
+// kend + STEP - 1 are int), the plan it is built with for (hd, dtype),
+// and 16-byte aligned operands.
+bool plan_ok(const void* q, const void* k, const void* v, const void* o,
+             int B, int H, int KV, int S, int T, int hd, int bf16, int rows,
+             int bk, int splits, int stages) {
+  const int hdp = (hd + 15) / 16 * 16;
+  return B >= 1 && H >= 1 && KV >= 1 && H % KV == 0 && S >= 1 && T >= 0 &&
+         S <= INT_MAX - 127 && T <= INT_MAX - 127 && hd >= 8 && hd <= 256 &&
+         hd % 8 == 0 && H <= 65535 && B <= 65535 &&
+         rows == plan_rows(hdp, bf16 != 0) && bk == plan_bk(hdp) &&
+         splits == plan_splits(hdp, bf16 != 0) &&
+         stages == plan_stages(hdp, bf16 != 0) &&
+         ((((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) &
+           15) == 0);
+}
+
 }  // namespace
 
 // All pointers are device pointers to contiguous, 16-byte aligned arrays on
@@ -852,14 +871,10 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int hd, int bf16, int causal, int rows, int bk,
                                int splits, int stages, int device,
                                void* stream) {
-  const int hdp = (hd + 15) / 16 * 16;
-  if (B < 1 || H < 1 || KV < 1 || H % KV || S < 1 || T < 0 || hd < 8 ||
-      hd > 256 || hd % 8 || H > 65535 || B > 65535 ||
-      rows != plan_rows(hdp, bf16 != 0) || bk != plan_bk(hdp) ||
-      splits != plan_splits(hdp, bf16 != 0) ||
-      stages != plan_stages(hdp, bf16 != 0) ||
-      (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15))
+  if (!plan_ok(q, k, v, o, B, H, KV, S, T, hd, bf16, rows, bk, splits,
+               stages))
     return (int)cudaErrorInvalidValue;
+  const int hdp = (hd + 15) / 16 * 16;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -868,4 +883,18 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                 s);
   return (int)launch_hd<false>(hdp, q, k, v, o, B, H, KV, S, T, hd, causal,
                                s);
+}
+
+// The launcher's guard alone (plan_ok), on the launcher's own arguments
+// but the device and the stream: 1 where flash_attention would launch, 0
+// where it would return cudaErrorInvalidValue.  `causal` takes no part
+// in it.  Launches nothing and touches no device.
+extern "C" int flash_attention_plan_ok(const void* q, const void* k,
+                                       const void* v, void* o, int B, int H,
+                                       int KV, int S, int T, int hd,
+                                       int bf16, int causal, int rows,
+                                       int bk, int splits, int stages) {
+  (void)causal;
+  return plan_ok(q, k, v, o, B, H, KV, S, T, hd, bf16, rows, bk, splits,
+                 stages);
 }

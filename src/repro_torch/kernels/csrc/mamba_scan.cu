@@ -363,8 +363,6 @@ cudaError_t run(const float* u, const float* dt, const float* Bm,
                 const float* Cm, const float* A, float* y, float* hL,
                 float* ws_h, float* ws_p, const Shape& s, unsigned blocks,
                 cudaStream_t stream) {
-  if (smem_words<EG>(s) * sizeof(float) > MAX_SMEM)
-    return cudaErrorInvalidValue;
   if (s.segs > 1) {
     cudaError_t e = launch_scan<EG, true>(u, dt, Bm, Cm, A, y, nullptr,
                                           ws_h, ws_p, s, blocks, stream);
@@ -379,6 +377,30 @@ cudaError_t run(const float* u, const float* dt, const float* Bm,
   }
   return launch_scan<EG, false>(u, dt, Bm, Cm, A, y, hL, ws_h, ws_p, s,
                                 blocks, stream);
+}
+
+// The launcher's guard: the sizes it takes, a plan of the shapes the
+// kernel is built for (nl lanes a power of two to 32, eg 1, 4 or 8, a
+// power of two of warps to MAX_WARPS, whole groups a chunk, segments of
+// whole chunks that cover L and no more), its shared memory within the
+// card's and its grid within an int, and the workspace it needs.
+bool plan_ok(int B, int L, int D, int N, int nl, int eg, int warps,
+             int chunk, int segs, int seg_len, const float* ws_h,
+             const float* ws_p) {
+  const auto pow2 = [](int v) { return v >= 1 && (v & (v - 1)) == 0; };
+  if (!(B >= 1 && L >= 1 && D >= 1 && N >= 0 && pow2(nl) && nl <= 32 &&
+        (eg == 1 || eg == 4 || eg == 8) && pow2(warps) &&
+        warps <= MAX_WARPS && chunk >= GROUP && chunk % GROUP == 0 &&
+        segs >= 1 && seg_len >= 1 && seg_len % chunk == 0 &&
+        (long long)segs * seg_len >= L &&
+        (long long)(segs - 1) * seg_len < L &&
+        (ws_h != nullptr || (segs == 1 && N <= nl * eg)) &&
+        (ws_p != nullptr || segs == 1)))
+    return false;
+  const long long DB = (long long)warps * (32 / nl);
+  const long long blocks = (long long)B * segs * ((D + DB - 1) / DB);
+  const size_t words = 5 * (size_t)chunk * DB + 4 * (size_t)chunk * nl * eg;
+  return blocks <= INT_MAX && words * sizeof(float) <= MAX_SMEM;
 }
 
 }  // namespace
@@ -405,23 +427,12 @@ extern "C" int mamba_scan(const float* u, const float* dt, const float* Bm,
                 D % 4 == 0 && DB % 4 == 0 && aligned(u) && aligned(dt),
                 N % 4 == 0 && nl * eg % 4 == 0 && aligned(Bm) &&
                     aligned(Cm)};
-  const auto pow2 = [](int v) { return v >= 1 && (v & (v - 1)) == 0; };
-  const long long blocks = (long long)B * segs * ((D + DB - 1) / DB);
-  const bool plan_ok =
-      B >= 1 && L >= 1 && D >= 1 && N >= 0 && pow2(nl) && nl <= 32 &&
-      (eg == 1 || eg == 4 || eg == 8) && pow2(warps) &&
-      warps <= MAX_WARPS && chunk >= GROUP && chunk % GROUP == 0 &&
-      segs >= 1 &&
-      seg_len >= 1 && seg_len % chunk == 0 &&
-      (long long)segs * seg_len >= L && (long long)(segs - 1) * seg_len < L &&
-      blocks <= INT_MAX &&
-      (ws_h != nullptr || (segs == 1 && N <= nl * eg)) &&
-      (ws_p != nullptr || segs == 1);
-  if (!plan_ok) return (int)cudaErrorInvalidValue;
+  if (!plan_ok(B, L, D, N, nl, eg, warps, chunk, segs, seg_len, ws_h, ws_p))
+    return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned nb = (unsigned)blocks;
+  const unsigned nb = (unsigned)((long long)B * segs * ((D + DB - 1) / DB));
   switch (eg) {
     case 1:
       return (int)run<1>(u, dt, Bm, Cm, A, y, hL, ws_h, ws_p, s, nb, st);
@@ -430,4 +441,18 @@ extern "C" int mamba_scan(const float* u, const float* dt, const float* Bm,
     default:
       return (int)run<8>(u, dt, Bm, Cm, A, y, hL, ws_h, ws_p, s, nb, st);
   }
+}
+
+// The launcher's guard alone (plan_ok), on the launcher's own arguments
+// but the device and the stream: 1 where mamba_scan would launch, 0 where
+// it would return cudaErrorInvalidValue.  Launches nothing and touches no
+// device.
+extern "C" int mamba_scan_plan_ok(const float* u, const float* dt,
+                                  const float* Bm, const float* Cm,
+                                  const float* A, float* y, float* hL,
+                                  float* ws_h, float* ws_p, int B, int L,
+                                  int D, int N, int nl, int eg, int warps,
+                                  int chunk, int segs, int seg_len) {
+  return plan_ok(B, L, D, N, nl, eg, warps, chunk, segs, seg_len, ws_h,
+                 ws_p);
 }

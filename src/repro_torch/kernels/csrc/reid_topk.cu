@@ -131,6 +131,14 @@ cudaError_t launch(const float* q, const int* q_tag, const uint8_t* admit,
   return merge<K>(Q, S, k, ws_v, ws_i, out_v, out_i, stream);
 }
 
+// The launcher's guard: the sizes it takes and a plan of S slices
+// (split::plan_ok).
+bool accepts(int Q, int G, int D, int C, int k, int S, const void* ws_v,
+             const void* ws_i) {
+  return Q >= 1 && G >= 1 && D >= 1 && C >= 1 && C <= MAX_CAMS && k >= 1 &&
+         k <= MAX_K && plan_ok(Q, G, S, ws_v, ws_i);
+}
+
 }  // namespace
 
 // All pointers are device pointers to contiguous arrays: q (Q, D) float32,
@@ -150,8 +158,7 @@ extern "C" int reid_topk_segment_masked(const float* q, const int* q_tag,
                                         float* ws_v, int* ws_i, int Q,
                                         int G, int D, int C, int k, int S,
                                         int device, void* stream) {
-  if (Q < 1 || G < 1 || D < 1 || C < 1 || C > MAX_CAMS || k < 1 ||
-      k > MAX_K || !plan_ok(Q, G, S, ws_v, ws_i))
+  if (!accepts(Q, G, D, C, k, S, ws_v, ws_i))
     return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
@@ -170,4 +177,14 @@ extern "C" int reid_topk_segment_masked(const float* q, const int* q_tag,
                           ws_v, ws_i, Q, G, D, C, k, S, s);
   return (int)launch<16>(q, q_tag, admit, g, gal_cam, gal_tag, out_v, out_i,
                          ws_v, ws_i, Q, G, D, C, k, S, s);
+}
+
+// The launcher's guard alone, on the launcher's own arguments: 1 where
+// reid_topk_segment_masked would launch, 0 where it would return
+// cudaErrorInvalidValue.  Launches nothing and touches no device.
+extern "C" int reid_topk_segment_masked_plan_ok(
+    const float* q, const int* q_tag, const uint8_t* admit, const float* g,
+    const int* gal_cam, const int* gal_tag, float* out_v, int* out_i,
+    float* ws_v, int* ws_i, int Q, int G, int D, int C, int k, int S) {
+  return accepts(Q, G, D, C, k, S, ws_v, ws_i);
 }

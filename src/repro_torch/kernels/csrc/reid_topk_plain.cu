@@ -58,6 +58,14 @@ cudaError_t launch(const float* q, const float* g, float* out_v, int* out_i,
   return merge<K>(Q, S, k, ws_v, ws_i, out_v, out_i, stream);
 }
 
+// The launcher's guard: the sizes it takes and a plan of S slices
+// (split::plan_ok).
+bool accepts(int Q, int G, int D, int k, int S, const void* ws_v,
+             const void* ws_i) {
+  return Q >= 1 && G >= 1 && D >= 1 && k >= 1 && k <= MAX_K &&
+         plan_ok(Q, G, S, ws_v, ws_i);
+}
+
 }  // namespace
 
 // All pointers are device pointers to contiguous arrays on card `device`:
@@ -71,8 +79,7 @@ extern "C" int reid_topk_unmasked(const float* q, const float* g,
                                   float* out_v, int* out_i, float* ws_v,
                                   int* ws_i, int Q, int G, int D, int k,
                                   int S, int device, void* stream) {
-  if (Q < 1 || G < 1 || D < 1 || k < 1 || k > MAX_K ||
-      !plan_ok(Q, G, S, ws_v, ws_i))
+  if (!accepts(Q, G, D, k, S, ws_v, ws_i))
     return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
@@ -86,4 +93,14 @@ extern "C" int reid_topk_unmasked(const float* q, const float* g,
   if (k <= 8)
     return (int)launch<8>(q, g, out_v, out_i, ws_v, ws_i, Q, G, D, k, S, s);
   return (int)launch<16>(q, g, out_v, out_i, ws_v, ws_i, Q, G, D, k, S, s);
+}
+
+// The launcher's guard alone, on the launcher's own arguments: 1 where
+// reid_topk_unmasked would launch, 0 where it would return
+// cudaErrorInvalidValue.  Launches nothing and touches no device.
+extern "C" int reid_topk_unmasked_plan_ok(const float* q, const float* g,
+                                          float* out_v, int* out_i,
+                                          float* ws_v, int* ws_i, int Q,
+                                          int G, int D, int k, int S) {
+  return accepts(Q, G, D, k, S, ws_v, ws_i);
 }

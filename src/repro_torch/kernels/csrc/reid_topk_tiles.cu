@@ -134,6 +134,14 @@ cudaError_t launch(const float* q, const int* q_tag, const uint8_t* admit_ct,
   return merge<K>(Q, S, k, ws_v, ws_i, out_v, out_i, stream);
 }
 
+// The launcher's guard: the sizes it takes and a plan of S slices
+// (split::plan_ok).
+bool accepts(int Q, int G, int D, int CT, int k, int S, const void* ws_v,
+             const void* ws_i) {
+  return Q >= 1 && G >= 1 && D >= 1 && CT >= 1 && k >= 1 && k <= MAX_K &&
+         plan_ok(Q, G, S, ws_v, ws_i);
+}
+
 }  // namespace
 
 // All pointers are device pointers to contiguous arrays: q (Q, D) float32,
@@ -152,8 +160,7 @@ extern "C" int reid_topk_tiles(const float* q, const int* q_tag,
                                float* out_v, int* out_i, float* ws_v,
                                int* ws_i, int Q, int G, int D, int CT, int k,
                                int S, int device, void* stream) {
-  if (Q < 1 || G < 1 || D < 1 || CT < 1 || k < 1 || k > MAX_K ||
-      !plan_ok(Q, G, S, ws_v, ws_i))
+  if (!accepts(Q, G, D, CT, k, S, ws_v, ws_i))
     return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
@@ -172,4 +179,17 @@ extern "C" int reid_topk_tiles(const float* q, const int* q_tag,
                           out_i, ws_v, ws_i, Q, G, D, CT, k, S, s);
   return (int)launch<16>(q, q_tag, admit_ct, g, gal_ct, gal_tag, out_v,
                          out_i, ws_v, ws_i, Q, G, D, CT, k, S, s);
+}
+
+// The launcher's guard alone, on the launcher's own arguments: 1 where
+// reid_topk_tiles would launch, 0 where it would return
+// cudaErrorInvalidValue.  Launches nothing and touches no device.
+extern "C" int reid_topk_tiles_plan_ok(const float* q, const int* q_tag,
+                                       const uint8_t* admit_ct,
+                                       const float* g, const int* gal_ct,
+                                       const int* gal_tag, float* out_v,
+                                       int* out_i, float* ws_v, int* ws_i,
+                                       int Q, int G, int D, int CT, int k,
+                                       int S) {
+  return accepts(Q, G, D, CT, k, S, ws_v, ws_i);
 }

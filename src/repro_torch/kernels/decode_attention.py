@@ -61,6 +61,10 @@ MAX_SPLITS = 256
 MAX_SMEM = 232448
 #: the largest size a launcher's ``int`` argument holds
 INT_MAX = 2 ** 31 - 1
+#: the longest cache the kernel takes: the key a warp loads, STAGES - 1
+#: rounds ahead of the one it scores, is an int, at most T - 1 + STAGES
+#: rounds of 8 warps' tiles of at most 32 keys
+MAX_KEYS = INT_MAX + 1 - STAGES * 8 * 32
 
 #: calls that launched the kernel since the last reset
 LAUNCHES = 0
@@ -271,6 +275,10 @@ def decode_attention(q, k_cache, v_cache, length):
 
     build.refuse_grad("decode_attention", q, k_cache, v_cache)
     check_width(hd)
+    if T > MAX_KEYS:
+        raise ValueError(f"T={T}: the key a warp loads (up to T - 1 + "
+                         f"STAGES rounds of tiles) is an int in the kernel; "
+                         f"T must be at most {MAX_KEYS}")
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     if max(B, H, T) > INT_MAX:

@@ -31,6 +31,10 @@ DTYPES = (torch.float32, torch.bfloat16)
 MAX_SMEM = 232448
 #: float32 takes a third stage only within this, so two blocks fit an SM
 SMEM_PAIR = 116 * 1024
+#: the longest S and T the kernel takes: it forms a block's row bound
+#: (q0 + rows) and its last key tile's bound (kend + keys x splits - 1) in
+#: int, each at most 127 past S or T
+MAX_LEN = 2 ** 31 - 128
 
 #: kernel launches since the last reset
 LAUNCHES = 0
@@ -138,6 +142,9 @@ def flash_attention(q, k, v, *, causal: bool = True):
     B, H, S, hd = q.shape
     KV, T = k.shape[1], k.shape[2]
     plan = flash_plan(hd, q.dtype)
+    if max(S, T) > MAX_LEN:
+        raise ValueError(f"S={S}, T={T}: the kernel's row and key bounds "
+                         f"are int; each must be at most {MAX_LEN}")
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     out = torch.empty_like(q)

@@ -178,6 +178,16 @@ def _launch(source: str, symbol: str, queries, q_tag, admit, gallery,
     return out_v, out_i
 
 
+def camera_route(C: int) -> tuple[str, str]:
+    """(source, symbol) of the launcher a camera-masked call over ``C``
+    cameras goes to.  Past ``MAX_CAMS`` the camera kernel's packed
+    admission bits no longer fit its shared memory; the tile kernel applies
+    the same rule over any cell axis (admit[q, cell[g]], equal tags,
+    out-of-range never eligible), with the same plan, product and merge."""
+    return ("reid_topk", "reid_topk_segment_masked") if C <= MAX_CAMS \
+        else ("reid_topk_tiles", "reid_topk_tiles")
+
+
 def _segment_masked_call(queries, q_tag, admit, gallery, gal_cam, gal_tag,
                          k: int):
     global LAUNCHES
@@ -193,15 +203,8 @@ def _segment_masked_call(queries, q_tag, admit, gallery, gal_cam, gal_tag,
     build.refuse_grad("reid_topk_segment_masked", queries, gallery)
     if queries.device.type != "cuda":
         raise ValueError(f"no kernel for device {queries.device}")
-    # past MAX_CAMS the camera kernel's packed admission bits no longer fit
-    # its shared memory; the tile kernel applies the same rule over any
-    # cell axis (admit[q, cell[g]], equal tags, out-of-range never
-    # eligible), with the same plan, product and merge
-    source, symbol = ("reid_topk", "reid_topk_segment_masked") \
-        if admit.shape[1] <= MAX_CAMS else ("reid_topk_tiles",
-                                            "reid_topk_tiles")
-    out = _launch(source, symbol, queries, q_tag, admit, gallery, gal_cam,
-                  gal_tag, k)
+    out = _launch(*camera_route(admit.shape[1]), queries, q_tag, admit,
+                  gallery, gal_cam, gal_tag, k)
     LAUNCHES += 1
     return out
 

@@ -95,3 +95,32 @@ def test_analysis_plane_and_its_gate_import_without_jax_or_repro():
     r = _run(code)
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.strip().splitlines()[-1] == "RESULT 0 1 []", r.stdout
+
+
+def test_kernel_audit_and_its_gate_layer_import_without_jax_or_repro():
+    """``repro_torch.analysis.kernel_audit`` and the gate's ``kernel``
+    layer (``--only kernel``), run at HEAD, and the memcheck script's
+    imports pull in neither ``jax`` nor ``repro``."""
+    mods = _port_modules()
+    assert "repro_torch.analysis.kernel_audit" in mods
+    script = os.path.join(REPO, "scripts", "torch_check_invariants.py")
+    memcheck = os.path.join(REPO, "scripts", "torch_kernel_memcheck.py")
+    code = (
+        "import importlib, importlib.util, sys\n"
+        "importlib.import_module('repro_torch.analysis.kernel_audit')\n"
+        "spec = importlib.util.spec_from_file_location('gate', "
+        f"{script!r})\n"
+        "gate = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(gate)\n"
+        "spec = importlib.util.spec_from_file_location('memcheck', "
+        f"{memcheck!r})\n"
+        "memcheck = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(memcheck)\n"
+        "rc = gate.main(['--only', 'kernel'])\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print('RESULT', rc, bad)\n"
+        "assert not bad, bad\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "RESULT 0 []", r.stdout
