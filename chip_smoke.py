@@ -7,8 +7,9 @@ Phases, one line or block each:
 
   1. environment: torch / CUDA versions, the card, its power limit; TF32
      off for matmul and cuDNN (the plain versions must be full fp32);
-  2. build: all six CUDA sources (the serving path's two re-id kernels and
-     the kernel benchmark's four), with nvcc for sm_90a, one nvcc per
+  2. build: all seven CUDA sources (the serving path's two re-id kernels,
+     the kernel benchmark's four and the flash backward of the zoo's
+     training), with nvcc for sm_90a, one nvcc per
      source, all started together; each kernel's registers and spills,
      the gallery-split kernels' merge pass (``merge_slices``) among them,
      the flash kernel's per (padded head width, dtype) variant and the
@@ -372,28 +373,56 @@ Phases, one line or block each:
      profiled steps; flash at the encoder's shape and decode over a cross
      cache timed beside their plain versions, bounds and library calls
      (the ``zoo_audio`` entries of the kernels line);
- 22. the kernels refuse gradients they cannot give: for each of the six
-     CUDA wrappers on small inputs on the card, a call whose float inputs
+ 22. the kernels refuse gradients they cannot give: for each of the five
+     CUDA wrappers without a backward (decode, the scan, the three re-id
+     kernels) on small inputs on the card, a call whose float inputs
      require grad raises ``RuntimeError`` naming the kernel and launches
-     nothing; the same inputs under ``torch.no_grad()`` and their detached
-     copies with grad on launch once each and give outputs equal bit for
-     bit;
+     nothing; flash attention's goes through ``FlashAttention``: one
+     forward launch, one backward launch at ``backward()``, the gradients
+     within 1e-4 of the plain version's; for all six, the same inputs
+     under ``torch.no_grad()`` and their detached copies with grad on
+     launch once each and give outputs equal bit for bit (flash's also
+     equal to its output under grad);
  23. launch bounds (``repro_torch.analysis.kernel_audit``): (a) for every
      launch of the audit's sweep at the card's own SM count and at 1, 16,
      114 and 132, and for every single-field perturbation of each, the
      compiled guard (each source's exported ``<symbol>_plan_ok``, which
      runs the launcher's own guard and launches nothing) must answer as
      the Python mirror ``launcher_accepts`` does, and every planner's plan
-     must pass; (b) each of the six launchers once at each of a dozen
-     ragged shapes and at its largest full-width shape, through
+     must pass; (b) each of the seven launchers once at each of 8 to 13
+     ragged shapes and at its largest full-width shape (the backward's,
+     whisper's cross attention in training), through
      ``build.launcher``, on views inside buffers with 4 KB of guard band
      on each side holding a NaN bit pattern: afterwards no guard byte and
      no input byte may have changed, decode's ticket counters must be
      zero again, and the outputs must equal the plain versions (the re-id
      kernels bit for bit on integer-valued inputs; attention within 2e-5
      in float32, 1e-4 at the full widths, 2e-2 in bfloat16; the scan
-     within 1e-4); (c) the ``(NEG_INF, -1)`` sentinel probes on the
-     kernels.
+     within 1e-4; the backward's gradients within 1e-4 in float32 and
+     2e-2 in bfloat16); (c) the ``(NEG_INF, -1)`` sentinel probes on the
+     kernels;
+ 24. the zoo's training (``repro_torch.launch``): (a) the flash backward
+     kernel (``csrc/flash_attention_bwd.cu``) against its plain version
+     (autograd of the plain forward) at three ragged shapes (hd 8, 72,
+     256) and the training shapes (launch.train's scaled yi-6b, H 4 over
+     KV 1, hd 128, S 256, causal; whisper-tiny's decoder S 448 causal,
+     encoder S = T = 1,500 and cross attention S 448 over T 1,500, not
+     causal), float32 and bfloat16, gradients within 1e-4 and 2e-2, two
+     calls bit-equal, launches counted; at the training shapes timed
+     beside its bound, the plain version and SDPA's backward; then, every
+     launch count set to 0: (b) a float32 ``build_train_step`` step of the
+     dense, hybrid, MoE, VLM and audio smoke configs held to the same step
+     on the CPU (loss and grad_norm, the moments, the parameters), and
+     Mamba1's refused by the scan's wrapper by name; (c) ``python -m
+     repro_torch.launch.train`` at its defaults (yi-6b scaled to d 512, 8
+     layers, seq 256, batch 16, bfloat16 compute) for 60 steps with a
+     checkpoint every 30: the loss falls; a second run killed with
+     SIGKILL after its first checkpoint and resumed ends bit-equal to the
+     uninterrupted run; the same step timed and profiled in this process;
+     (d) whisper-tiny at full width, B 8 x 448 tokens over 1,500 frames,
+     6 steps on one batch: the loss falls, the step's time, busy share,
+     peak memory and flash's 12 forward and 12 backward launches a step;
+     the backward's launches over (b)-(d) go into the kernels line.
 
 The CPU reruns of phases 11, 12, 13 and 15 run in three worker processes
 of one thread each (``cpu_job``) while the card runs go on: the
@@ -434,6 +463,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -448,6 +478,10 @@ TOL = 1e-5
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 BF16_SHARE = 0.99           # bfloat16 attention outputs equal bit for bit
 MODEL_TOL = 1e-4            # attention and scan at model widths
+#: the flash backward's gradients against the plain version's,
+#: rtol = atol: float32 (sums in another order; measured at most 1.4e-5
+#: on values up to 10), bfloat16 (one rounding of each output)
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SCAN_TOL = 1e-4
 TICKS = 200                 # ticks of the tile path's profiled window
 DEVICE = "cuda"
@@ -602,6 +636,44 @@ AUDIO_CHECK = dict(B=2, T=1500, S=64, steps=4)
 AUDIO_SERVE = dict(B=8, T=1500, S=64, max_len=448, steps=32)
 #: decode steps of phase 21's profiled window
 AUDIO_PROFILED = 4
+#: phase 24, the zoo's training: (a) the flash backward's holds, three
+#: ragged shapes (hd 8, 72 and 256) beside the training shapes
+#: (``kernel_audit.TRAIN_SHAPES``: launch.train's scaled yi-6b, whisper's
+#: decoder, encoder and cross attention at full width), each in float32
+#: and bfloat16
+BWD_RAGGED = (
+    ("ragged hd8", dict(B=2, H=4, KV=2, S=33, T=65, hd=8, causal=True)),
+    ("ragged hd72", dict(B=1, H=3, KV=3, S=70, T=40, hd=72, causal=True)),
+    ("ragged hd256", dict(B=1, H=4, KV=2, S=33, T=31, hd=256,
+                          causal=False)),
+)
+#: (b) a float32 train step of each family that trains on the card, at its
+#: smoke config: dense, hybrid, MoE, VLM and audio; Mamba1 is refused
+TRAIN_FAMILIES = ("yi_6b", "zamba2_2p7b", "qwen3_moe_30b", "qwen2_vl_72b",
+                  "whisper_tiny")
+TRAIN_REFUSED = "falcon_mamba_7b"
+#: and one step under the driver's ``--flags bf16_params,pad_vocab``:
+#: whisper's smoke config at its real vocab of 51,865 (padded to 51,872),
+#: bfloat16 parameters with a float32 master
+TRAIN_FLAGGED = ("whisper_tiny", 51865)
+#: the updated parameters where the CPU's |m| >= TRAIN_FLOOR x the tree's
+#: largest |m| (the gradient determines the update's sign), |d| / (1 + |p|),
+#: as tests/torch_train_cases.py holds the port to the reference; the
+#: other elements within the first update's own bound, 2 lr
+TRAIN_PARAM_TOL, TRAIN_FLOOR = 1e-6, 1e-5
+#: (c) the driver at its defaults: steps, the checkpoint interval, and the
+#: least fall of the loss from step 1 to the last step.  The same command
+#: on the CPU (``--device cpu``) fell by LOSS_FALL_CPU, from 9.3907 to
+#: 9.0093, close to ln 8,192 = 9.011, the uniform guess it starts above;
+#: the gate keeps most of that fall
+DRIVER = dict(steps=60, ckpt_every=30)
+LOSS_FALL_CPU = 0.3814
+LOSS_FALL = 0.3
+#: in-process steps at the driver's defaults, timed and profiled
+DRIVER_TIMED, DRIVER_PROFILED = 10, 3
+#: (d) whisper-tiny at full width: batch, tokens, steps on one batch, and
+#: the profiled steps
+AUDIO_TRAIN = dict(B=8, S=448, steps=6, profiled=2)
 #: worker processes for the CPU reruns of phases 4, 6, 11, 12, 13 and 15
 #: (``cpu_job``)
 CPU_WORKERS = 3
@@ -1952,6 +2024,26 @@ def close_enough(torch, name, got, want, tol):
             fail(f"{name}: {share:.4f} of the bfloat16 outputs equal the "
                  f"plain version's, below {BF16_SHARE}")
     return err
+
+
+def close_grad(torch, name, got, want, tol):
+    """Fail unless the backward kernel's gradient ``got`` equals the plain
+    version's ``want`` in shape and dtype and within rtol = atol = ``tol``
+    (``GRAD_TOL``), compared in float32; returns (max absolute error, the
+    share of elements equal bit for bit).  No share is required: the
+    kernel sums over the keys (dq) or the query rows and heads (dk, dv)
+    in its own order, and a bfloat16 gradient rounds that sum once."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name}: kernel returned {tuple(got.shape)} {got.dtype}, "
+             f"plain {tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        fail(f"{name}: non-finite kernel output")
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    if not torch.allclose(g, w, rtol=tol, atol=tol):
+        fail(f"{name}: differs from the plain version (max abs {err:.3g}, "
+             f"tolerance {tol})")
+    return err, float((got == want).float().mean()) if got.numel() else 1.0
 
 
 def min_share(prefix: str) -> str:
@@ -3709,18 +3801,23 @@ def phase_audio_zoo(torch, np, errs):
 
 
 def phase_grad_guard(torch) -> None:
-    """Phase 22: no kernel has a backward, so each CUDA wrapper refuses
-    an input that requires grad under grad mode (``build.refuse_grad``),
-    before it allocates or launches anything, and serves the same inputs
-    under ``torch.no_grad()``.  Fails unless, for each of the six, the
-    refusal names the kernel and launches nothing, and the ``no_grad``
-    call and the call on detached inputs each launch once and agree bit
-    for bit."""
+    """Phase 22: five kernels have no backward, so each of their CUDA
+    wrappers refuses an input that requires grad under grad mode
+    (``build.refuse_grad``), before it allocates or launches anything, and
+    serves the same inputs under ``torch.no_grad()``; flash attention has
+    a backward kernel, so its wrapper goes through
+    ``flash_attention.FlashAttention`` instead.  Fails unless, for each of
+    the five, the refusal names the kernel and launches nothing; for
+    flash, the call under grad launches the forward once, its
+    ``backward()`` the backward kernel once, and the gradients equal the
+    plain version's; and, for all six, the ``no_grad`` call and the call
+    on detached inputs each launch once and agree bit for bit (flash's
+    also with the output under grad)."""
     import numpy as np
 
     from repro_torch.benchmarks import kernels_bench
     from repro_torch.kernels import (decode_attention, flash_attention,
-                                     mamba_scan, ops, reid_topk)
+                                     mamba_scan, ops, ref, reid_topk)
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(22)
@@ -3755,18 +3852,43 @@ def phase_grad_guard(torch) -> None:
                           for a, f in zip(args, floats))
         detached = tuple(a.detach() if f else a for a, f in zip(args, floats))
         n0 = launches()
-        try:
-            op(*with_grad, **kwargs)
-        except RuntimeError as e:
-            refusal = str(e)
-            if not refusal.startswith(f"{name}: ") or \
-                    "no backward" not in refusal:
-                fail(f"[22 grad] {name}: refused with {refusal!r}")
+        if name == "flash_attention":
+            b0 = flash_attention.BWD_LAUNCHES
+            out = op(*with_grad, **kwargs)
+            if type(out.grad_fn).__name__ != "FlashAttentionBackward" or \
+                    launches() != n0 + 1:
+                fail(f"[22 grad] {name}: under grad not one launch through "
+                     f"FlashAttention ({out.grad_fn}, "
+                     f"{launches() - n0} launches)")
+            do = torch.randn_like(out)
+            out.backward(do)
+            torch.cuda.synchronize()
+            if flash_attention.BWD_LAUNCHES != b0 + 1:
+                fail(f"[22 grad] {name}: backward() launched the backward "
+                     f"kernel {flash_attention.BWD_LAUNCHES - b0} times")
+            want = ref.flash_attention_bwd_ref(*with_grad, out.detach(), do,
+                                               **kwargs)
+            err = max(close_grad(torch, f"[22 grad] {name} d{x}", g, w,
+                                 GRAD_TOL["float32"])[0]
+                      for x, g, w in zip("qkv", (a.grad for a in with_grad),
+                                         want))
+            refusal = (f"none: through FlashAttention, 1 backward launch, "
+                       f"gradients within {err:.3g} of the plain version's")
+            n0 = launches()
         else:
-            fail(f"[22 grad] {name}: inputs that require grad under grad "
-                 f"mode were served")
-        if launches() != n0:
-            fail(f"[22 grad] {name}: the refused call launched")
+            try:
+                op(*with_grad, **kwargs)
+            except RuntimeError as e:
+                refusal = str(e)
+                if not refusal.startswith(f"{name}: ") or \
+                        "no backward" not in refusal:
+                    fail(f"[22 grad] {name}: refused with {refusal!r}")
+            else:
+                fail(f"[22 grad] {name}: inputs that require grad under "
+                     f"grad mode were served")
+            if launches() != n0:
+                fail(f"[22 grad] {name}: the refused call launched")
+            refusal = repr(refusal) + ", launched nothing"
         with torch.no_grad():
             got = op(*with_grad, **kwargs)
         want = op(*detached, **kwargs)
@@ -3780,9 +3902,12 @@ def phase_grad_guard(torch) -> None:
                 torch.equal(g, w) for g, w in zip(got, want)):
             fail(f"[22 grad] {name}: the no_grad output is not the detached "
                  f"call's bit for bit")
-        say(f"[22 grad] {name}: refused ({refusal!r}), launched nothing; "
-            f"no_grad and detached: 2 launches, "
-            f"{sum(g.numel() for g in got)} outputs bit-equal")
+        if name == "flash_attention" and not torch.equal(got[0],
+                                                         out.detach()):
+            fail(f"[22 grad] {name}: the output under grad is not the "
+                 f"no_grad output bit for bit")
+        say(f"[22 grad] {name}: refusal {refusal}; no_grad and detached: "
+            f"2 launches, {sum(g.numel() for g in got)} outputs bit-equal")
     say(f"[22 grad] phase {time.perf_counter() - t_phase:.3f} s")
 
 
@@ -3837,6 +3962,9 @@ def phase_launch_bounds(torch, n_sms: int) -> dict:
                     if not torch.equal(got, want):
                         fail(f"[23 bounds] {c}: the guarded launch differs "
                              f"from the plain version")
+                elif kernel == "flash_attention_bwd":
+                    close_grad(torch, f"[23 bounds] {c}", got, want,
+                               GRAD_TOL[c.dtype])
                 else:
                     tol = SCAN_TOL if kernel == "mamba_scan" else \
                         ATTN_TOL[c.dtype] if c.dtype == "bfloat16" or \
@@ -3846,9 +3974,11 @@ def phase_launch_bounds(torch, n_sms: int) -> dict:
             del r
         torch.cuda.empty_cache()
     t_b = time.perf_counter() - t0
-    say(f"[23 bounds] (b) guard bands: {guarded} guarded launches (six "
-        f"launchers x {guarded // 6} shapes, the last of each at full "
-        f"width), {ka.GUARD} B of 0x{ka.GUARD_BYTE:02X} each side: 0 guard "
+    n_launchers = len(ka.guard_band_cases())
+    say(f"[23 bounds] (b) guard bands: {guarded} guarded launches "
+        f"({n_launchers} launchers, 8 to 13 shapes each, the last of each "
+        f"at full width or, for the backward, a training shape), "
+        f"{ka.GUARD} B of 0x{ka.GUARD_BYTE:02X} each side: 0 guard "
         f"bytes and 0 input bytes changed, decode's counters back at 0, "
         f"outputs equal to the plain versions; {t_b:.2f} s")
     t0 = time.perf_counter()
@@ -3861,6 +3991,549 @@ def phase_launch_bounds(torch, n_sms: int) -> dict:
     say(f"[23 bounds] phase {time.perf_counter() - t_phase:.3f} s")
     return dict(compared=compared, refused=refused, guarded=guarded,
                 probes=len(probes))
+
+
+def event_ms(torch, fn, calls: int = 2, reps: int = 3) -> float:
+    """Median device time of one ``fn()`` call, timed with CUDA events
+    around ``calls`` back-to-back calls, ``reps`` times (for calls that
+    cannot be captured in a graph: autograd's backward)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return sorted(times)[len(times) // 2]
+
+
+def bwd_cost(shape, item: int) -> tuple[float, float]:
+    """(operations, bytes) of the flash backward at ``shape``: the work
+    the gradient needs, 5 products of 2 hd operations per (query, key)
+    pair the mask leaves (the scores S, dP, dv, dk and dq; the kernel
+    performs 8, recomputing the scores in each of its three passes and dP
+    in two, which the bound does not count); q, k, v, o and do read once,
+    dq, dk and dv written once."""
+    B, H, KV, S, T, hd = (shape[x] for x in ("B", "H", "KV", "S", "T", "hd"))
+    if shape["causal"]:
+        rows = min(S, T)
+        pairs = rows * (rows + 1) // 2 + max(0, S - T) * T
+    else:
+        pairs = S * T
+    flops = 10.0 * hd * B * H * pairs
+    nbytes = item * (4 * B * H * S * hd + 4 * B * KV * T * hd)
+    return flops, nbytes
+
+
+def sdpa_backward_ms(torch, q, k, v, do, causal) -> float:
+    """The yardstick: device ms of the backward of
+    ``scaled_dot_product_attention`` (GQA by ``enable_gqa``) at the same
+    inputs, never called by the port: a forward and its
+    ``torch.autograd.grad`` captured together in CUDA graphs
+    (``kernels_bench.device_ms``, as the kernel is timed, so no host gap
+    counts), less the forward alone."""
+    from repro_torch.benchmarks.kernels_bench import device_ms
+
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def forward():
+        return torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=causal, enable_gqa=True)
+
+    both = device_ms(lambda: torch.autograd.grad(forward(), leaves, do),
+                     calls=2, replays=5)
+    return both - device_ms(forward, calls=2, replays=5)
+
+
+def phase_bwd_kernel(torch) -> dict:
+    """Phase 24 (a): the flash backward kernel against its plain version
+    at ``BWD_RAGGED`` and the training shapes, float32 and bfloat16: two
+    calls bit-equal, one launch each counted; at the training shapes its
+    time beside its bound, the plain version's and SDPA's backward."""
+    from repro_torch.analysis.kernel_audit import TRAIN_SHAPES
+    from repro_torch.benchmarks.kernels_bench import (bound_ms, device_ms,
+                                                      peak_flops)
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    t_phase = time.perf_counter()
+    out = dict(max_abs_err=0.0, model=[])
+    training = {label for label, _ in TRAIN_SHAPES}
+    for label, shape in BWD_RAGGED + TRAIN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = "float32" if dtype == torch.float32 else "bfloat16"
+            B, H, KV, S, T, hd, causal = (shape[x] for x in (
+                "B", "H", "KV", "S", "T", "hd", "causal"))
+            gen = torch.Generator(device=DEVICE).manual_seed(S + T + hd)
+            q, k, v, do = (torch.randn(B, n, L, hd, generator=gen,
+                                       device=DEVICE).to(dtype)
+                           for n, L in ((H, S), (KV, T), (KV, T), (H, S)))
+            with torch.no_grad():
+                o = fa.flash_attention(q, k, v, causal=causal)
+            n0 = fa.BWD_LAUNCHES
+            got = fa.flash_attention_bwd(q, k, v, o, do, causal=causal)
+            again = fa.flash_attention_bwd(q, k, v, o, do, causal=causal)
+            torch.cuda.synchronize()
+            if fa.BWD_LAUNCHES != n0 + 2:
+                fail(f"[24 train] (a) {label} {name}: "
+                     f"{fa.BWD_LAUNCHES - n0} launches for two calls")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"[24 train] (a) {label} {name}: two calls differ")
+            want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal)
+            holds = [close_grad(torch, f"[24 train] (a) {label} {name} "
+                                f"d{x}", g, w, GRAD_TOL[name])
+                     for x, g, w in zip("qkv", got, want)]
+            err = max(e for e, _ in holds)
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            line = (f"[24 train] (a) {label} {name} {shape}: agrees (max "
+                    f"abs err {err:.3g}, bit-equal "
+                    f"{min(sh for _, sh in holds):.4f}), two calls "
+                    f"bit-equal")
+            del want
+            if label in training:
+                flops, nbytes = bwd_cost(shape, q.element_size())
+                b_ms, b_by = bound_ms(flops, nbytes, peak_flops(
+                    "flash_attention", (q,)))
+                t = dict(shape, label=label, dtype=name, max_abs_err=err,
+                         ms=device_ms(lambda: fa.flash_attention_bwd(
+                             q, k, v, o, do, causal=causal), calls=2,
+                             replays=5),
+                         plain_ms=event_ms(torch, lambda: (
+                             ref.flash_attention_bwd_ref(
+                                 q, k, v, o, do, causal=causal)),
+                             calls=1, reps=3),
+                         library_ms=sdpa_backward_ms(torch, q, k, v, do,
+                                                     causal),
+                         bound_ms=b_ms, bound_by=b_by)
+                out["model"].append(t)
+                line += (f"; kernel {t['ms']:.4f} ms, plain "
+                         f"{t['plain_ms']:.4f} ms, SDPA backward "
+                         f"{t['library_ms']:.4f} ms, bound {b_ms:.6f} ms "
+                         f"({b_by}, {t['ms'] / b_ms:.1f}x)")
+            say(line)
+            del q, k, v, do, o, got, again
+        torch.cuda.empty_cache()
+    say(f"[24 train] (a) {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def train_batch(np, cfg, B: int, S: int, seed: int) -> dict:
+    """Tokens (B, S) below the vocab and, for audio, frames of the
+    ``FrameEmbedStream`` stub, as numpy."""
+    from repro_torch.data import FrameEmbedStream, SyntheticLMStream
+
+    batch = SyntheticLMStream(cfg.vocab_size, S, B, seed=seed).next_batch()
+    if cfg.family == "audio":
+        batch.update(FrameEmbedStream(cfg.encoder_seq, cfg.d_model, B,
+                                      seed=seed).next_batch())
+    return batch
+
+
+def update_errs(torch, got, want, m_want) -> tuple:
+    """(max |d| / (1 + |p|) where the CPU's first moment ``m_want`` is at
+    least ``TRAIN_FLOOR`` x its largest |value| over the tree, max |d|
+    anywhere) between the card's updated parameters ``got`` and the
+    CPU's ``want``, leaf lists in one order.  On a first step m is the
+    clipped gradient x (1 - beta1): where it is float32 noise the
+    update's sign is noise too."""
+    mmax = max(float(m.abs().max()) for m in m_want)
+    rel = absolute = 0.0
+    for a, w, m in zip(got, want, m_want):
+        d = (a.detach().cpu().float() - w.float()).abs()
+        absolute = max(absolute, float(d.max()))
+        keep = m.abs() >= TRAIN_FLOOR * mmax
+        if keep.any():
+            rel = max(rel, float((d[keep] / (1 + w.float().abs()[keep]))
+                                 .max()))
+    return rel, absolute
+
+
+def phase_train_families(torch, np) -> dict:
+    """Phase 24 (b): one float32 ``build_train_step`` step of each of
+    ``TRAIN_FAMILIES``' smoke configs on the card, and one under the
+    driver's ``--flags bf16_params,pad_vocab`` (``TRAIN_FLAGGED``), held
+    to the same step on the CPU: loss and grad_norm within 1e-5
+    relative; the moments within 2e-5 of each leaf's scale (with
+    bfloat16 parameters the gradients are bfloat16, and an element may
+    round one step apart: 2**-6 of itself more); the parameters (the
+    float32 master under ``bf16_params``, the parameters its casts)
+    within ``TRAIN_PARAM_TOL`` where the gradient sets the update and 2
+    lr elsewhere.  Each card step runs twice under
+    ``torch.use_deterministic_algorithms(True)``, the driver's mode, which
+    raises at an op with no deterministic CUDA form, and the two must be
+    bit-equal.  Flash's forward and backward launches equal and nonzero;
+    Mamba1's step refused by the scan's wrapper, by name."""
+    import dataclasses
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan
+    from repro_torch.launch.steps import build_train_step, init_train_params
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.perf import PerfFlags, perf_flags
+
+    t_phase = time.perf_counter()
+    opt = OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    out = {}
+    cases = [(arch, arch, PerfFlags(), None) for arch in TRAIN_FAMILIES]
+    cases.append((f"{TRAIN_FLAGGED[0]} bf16_params+pad_vocab",
+                  TRAIN_FLAGGED[0], PerfFlags(bf16_params=True,
+                                              pad_vocab=True),
+                  TRAIN_FLAGGED[1]))
+    cases.append((TRAIN_REFUSED, TRAIN_REFUSED, PerfFlags(), None))
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    for label, arch, flags, vocab in cases:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        if vocab:
+            cfg = dataclasses.replace(cfg, vocab_size=vocab)
+        batch = train_batch(np, cfg, 2, 32, seed=24)
+        master = flags.bf16_params
+        runs = {}
+        for dev in ("cpu", DEVICE):
+            with perf_flags(flags):
+                step = build_train_step(cfg, opt, device=dev)
+            params = tree_to(init_train_params(step.cfg, 0, device="cpu"),
+                             dev)
+            state = init_opt_state(params, master_weights=master)
+            before = (fa.LAUNCHES, fa.BWD_LAUNCHES, mamba_scan.LAUNCHES)
+            if arch == TRAIN_REFUSED and dev == DEVICE:
+                try:
+                    step(params, state, batch)
+                except RuntimeError as e:
+                    if not (str(e).startswith("mamba_scan: ")
+                            and "no backward" in str(e)):
+                        fail(f"[24 train] (b) {arch}: refused with {e!r}")
+                    say(f"[24 train] (b) {arch} (Mamba1): refused by name "
+                        f"({str(e)!r}); the scan kernel has no backward "
+                        f"yet")
+                    out[arch] = dict(refused=str(e))
+                else:
+                    fail(f"[24 train] (b) {arch}: the Mamba1 step ran on "
+                         f"the card")
+                continue
+            if dev == "cpu":
+                runs[dev] = step(params, state, batch)
+                continue
+            torch.use_deterministic_algorithms(True)
+            try:
+                runs[dev], again = (step(params, state, batch)
+                                    for _ in range(2))
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(was[0],
+                                                   warn_only=was[1])
+            fwd, bwd, scan = (a - b for a, b in zip(
+                (fa.LAUNCHES, fa.BWD_LAUNCHES, mamba_scan.LAUNCHES),
+                before))
+            if not all(torch.equal(a, b) for a, b in zip(
+                    T.leaves(runs[dev]), T.leaves(again))):
+                fail(f"[24 train] (b) {label}: two steps from the same "
+                     f"inputs differ under deterministic algorithms")
+            del again
+        if arch == TRAIN_REFUSED:
+            continue
+        (p_c, s_c, m_c), (p_h, s_h, m_h) = runs[DEVICE], runs["cpu"]
+        if fwd == 0 or bwd != fwd or scan:
+            fail(f"[24 train] (b) {label}: flash forward {fwd}, backward "
+                 f"{bwd}, scan {scan} launches")
+        diffs = {}
+        for name in ("loss", "grad_norm"):
+            a, b = float(m_c[name]), float(m_h[name])
+            diffs[name] = abs(a - b) / max(abs(b), 1e-12)
+            if diffs[name] > 1e-5 or not np.isfinite(a):
+                fail(f"[24 train] (b) {label} {name}: card {a}, CPU {b}")
+        paths = T.flatten(p_h)[1]
+        for name in ("m", "v"):
+            for a, b in zip(T.leaves_at(s_c[name], paths),
+                            T.leaves_at(s_h[name], paths)):
+                d = (a.cpu() - b).abs()
+                lim = 2e-5 * max(1e-6, float(b.abs().max()))
+                if master:
+                    lim = lim + 2 ** -6 * b.abs()
+                if bool((d > lim).any()):
+                    fail(f"[24 train] (b) {label}: the moment {name} "
+                         f"differs from the CPU's")
+        got, want = T.leaves_at(p_c, paths), T.leaves_at(p_h, paths)
+        if master:
+            held = T.leaves_at(s_c["master"], paths)
+            if step.cfg.param_dtype != "bfloat16" or not any(
+                    p.dtype == torch.bfloat16 for p in got) or not all(
+                    w.dtype == torch.float32 and torch.equal(
+                        p, w.to(p.dtype)) for p, w in zip(got, held)):
+                fail(f"[24 train] (b) {label}: the parameters are not "
+                     f"the float32 master's bfloat16 casts")
+            got = T.leaves_at(s_c["master"], paths)
+            want = T.leaves_at(s_h["master"], paths)
+        rel, absolute = update_errs(torch, got, want,
+                                    T.leaves_at(s_h["m"], paths))
+        diffs.update(params_rel=rel, params_abs=absolute)
+        if rel > TRAIN_PARAM_TOL or absolute > 2 * opt.lr:
+            fail(f"[24 train] (b) {label}: parameters differ by {rel:.3g} "
+                 f"relative where the gradient sets the update, "
+                 f"{absolute:.3g} anywhere")
+        out[label] = dict(loss=float(m_c["loss"]),
+                          grad_norm=float(m_c["grad_norm"]),
+                          flash_launches=fwd, bwd_launches=bwd,
+                          diffs_to_cpu=diffs)
+        say(f"[24 train] (b) {label} ({cfg.family}, parameters "
+            f"{step.cfg.param_dtype}, vocab {step.cfg.vocab_size}) "
+            f"step: loss {float(m_c['loss']):.6f} (CPU "
+            f"{float(m_h['loss']):.6f}, rel {diffs['loss']:.2e}), "
+            f"grad_norm {float(m_c['grad_norm']):.6f} (rel "
+            f"{diffs['grad_norm']:.2e}), moments held, "
+            f"{'the master' if master else 'parameters'} within {rel:.3g} "
+            f"relative where the gradient sets the update "
+            f"(gate {TRAIN_PARAM_TOL}) and {absolute:.3g} anywhere; two "
+            f"card steps bit-equal under deterministic algorithms; flash "
+            f"launches forward {fwd}, backward {bwd} for the two")
+    say(f"[24 train] (b) {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def driver_log(proc, what: str, timeout: float):
+    """Wait for a driver process; returns (stdout, {step: (loss,
+    seconds)}) of its log lines, or fails on a nonzero exit."""
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        fail(f"[24 train] (c) {what} exited {proc.returncode}:\n"
+             f"{out[-2000:]}\n{err[-3000:]}")
+    steps = {int(m.group(1)): (float(m.group(2)), float(m.group(3)))
+             for m in re.finditer(r"step\s+(\d+)\s+loss\s+([-\d.]+)\s+"
+                                  r"lr\s+\S+\s+gnorm\s+\S+\s+([\d.]+)s",
+                                  out)}
+    return out, steps
+
+
+def phase_train_driver(torch, np) -> dict:
+    """Phase 24 (c): ``python -m repro_torch.launch.train`` at its
+    defaults (yi-6b scaled to d 512 and 8 layers, seq 256, batch 16,
+    bfloat16 compute) in subprocesses, ``DRIVER['steps']`` steps with a
+    checkpoint every ``DRIVER['ckpt_every']``: the loss falls by at least
+    ``LOSS_FALL``; a second run, started beside the first, is killed with
+    SIGKILL as soon as its first checkpoint is published, then resumed,
+    and its final checkpoint must equal the uninterrupted run's bit for
+    bit.  Then the same step in this process, timed and profiled: steps/s
+    and the card's busy share."""
+    import shutil
+    import signal
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.launch.steps import build_train_step, init_train_params
+    from repro_torch.launch.train import scaled_config
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "train_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    whole, cut = root / "whole", root / "cut"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--steps",
+           str(DRIVER["steps"]), "--ckpt-every", str(DRIVER["ckpt_every"])]
+
+    def start(ckpt, out=subprocess.PIPE):
+        return subprocess.Popen(cmd + ["--ckpt", str(ckpt)], env=env,
+                                cwd=ROOT, stdout=out, stderr=out, text=True)
+
+    # the uninterrupted run and the run to be killed, side by side; the
+    # killed one is killed once its first checkpoint is published
+    runs = [start(whole), start(cut, subprocess.DEVNULL)]
+    victim = runs[1]
+    first_ckpt = cut / f"step_{DRIVER['ckpt_every']:08d}" / "manifest.json"
+    try:
+        t0 = time.perf_counter()
+        while not first_ckpt.exists():
+            if victim.poll() is not None:
+                fail(f"[24 train] (c) the run to be killed exited "
+                     f"({victim.returncode}) before its first checkpoint")
+            if time.perf_counter() - t0 > 300:
+                fail("[24 train] (c) no checkpoint within 300 s")
+            time.sleep(0.02)
+        if victim.poll() is not None:
+            fail("[24 train] (c) the run ended before it could be killed")
+        victim.send_signal(signal.SIGKILL)
+        victim.wait()
+        at_kill = latest_step(str(cut))
+        runs.append(start(cut))
+        log, steps = driver_log(runs[0], "the uninterrupted run", 300)
+        log2, _ = driver_log(runs[2], "the resumed run", 300)
+    finally:
+        for p in runs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    say("[24 train] (c) the driver, uninterrupted:\n" + "\n".join(
+        "  " + line for line in log.splitlines()))
+    first, last = min(steps), max(steps)
+    fall = steps[first][0] - steps[last][0]
+    if last != DRIVER["steps"] or fall < LOSS_FALL:
+        fail(f"[24 train] (c) the loss fell by {fall:.4f} from step "
+             f"{first} to {last}, under {LOSS_FALL}")
+    rate = (last - first) / max(steps[last][1] - steps[first][1], 1e-9)
+    resumed = re.search(r"resumed from step (\d+)", log2)
+    if resumed is None or int(resumed.group(1)) != at_kill:
+        fail(f"[24 train] (c) the rerun did not resume from step {at_kill}")
+    (sw, tw), (sc, tc) = restore_checkpoint(str(whole)), \
+        restore_checkpoint(str(cut))
+    lw, paths = T.flatten(tw)
+    lc = T.leaves_at(tc, paths)
+    if sw != sc or len(lw) != len(T.leaves(tc)) or not all(
+            np.array_equal(np.asarray(a), np.asarray(b))
+            for a, b in zip(lw, lc)):
+        fail("[24 train] (c) the resumed run's final checkpoint differs "
+             "from the uninterrupted run's")
+    say(f"[24 train] (c) SIGKILL after the step-{at_kill} checkpoint "
+        f"(exit {victim.returncode}), resumed from step {at_kill}: the "
+        f"final checkpoint (step {sc}, {len(lw)} leaves: parameters, AdamW "
+        f"state, the stream's cursor) equals the uninterrupted run's bit "
+        f"for bit; loss {steps[first][0]:.4f} at step {first} -> "
+        f"{steps[last][0]:.4f} at step {last} (fell {fall:.4f}, gate "
+        f"{LOSS_FALL}; the CPU run fell {LOSS_FALL_CPU}); "
+        f"{rate:.2f} steps/s from the log (beside the other runs); "
+        f"{time.perf_counter() - t_phase:.1f} s for the three runs")
+    shutil.rmtree(root, ignore_errors=True)
+    # the same step in this process: timed and profiled
+    cfg = scaled_config("yi_6b", 512, 8)
+    step = build_train_step(cfg, OptConfig(lr=3e-4, warmup_steps=20,
+                                           total_steps=DRIVER["steps"]),
+                            device=DEVICE)
+    params = init_train_params(step.cfg, 0, device=DEVICE)
+    state = init_opt_state(params)
+    stream = SyntheticLMStream(cfg.vocab_size, 256, 16, seed=0)
+    batches = [stream.next_batch() for _ in range(DRIVER_TIMED + 3)]
+    for b in batches[:3]:
+        params, state, _ = step(params, state, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[3:]:
+        params, state, metrics = step(params, state, b)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / DRIVER_TIMED
+
+    def profiled():
+        nonlocal params, state
+        for b in batches[:DRIVER_PROFILED]:
+            params, state, _ = step(params, state, b)
+
+    prof = profile_passes(torch, "[24 train] (c) yi-6b scaled train step",
+                          profiled, DRIVER_PROFILED, ("bwd_",),
+                          "flash_bwd")
+    say(f"[24 train] (c) in process: {step_ms:.2f} ms a step "
+        f"({1e3 / step_ms:.2f} steps/s, {16 * 256 * 1e3 / step_ms:.0f} "
+        f"tokens/s) over {DRIVER_TIMED} steps; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(loss_first=steps[first][0], loss_last=steps[last][0],
+                fall=fall, steps_per_s_log=rate, step_ms=step_ms,
+                resumed_from=at_kill, **prof)
+
+
+def phase_train_audio(torch, np) -> dict:
+    """Phase 24 (d): whisper-tiny at full width (``get_config``, bfloat16
+    compute, float32 parameters) trained by ``build_train_step`` on one
+    batch of B 8 x 448 tokens over the stub's 1,500 frames: the loss
+    finite and falling over ``AUDIO_TRAIN['steps']`` steps, the step's
+    time, busy share and peak memory, and flash's launches a step (12 of
+    each: 4 encoder layers, 4 decoder self and 4 cross attentions)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import build_train_step, init_train_params
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    t_phase = time.perf_counter()
+    cfg = get_config("whisper_tiny")
+    B, S, n = AUDIO_TRAIN["B"], AUDIO_TRAIN["S"], AUDIO_TRAIN["steps"]
+    step = build_train_step(cfg, OptConfig(lr=1e-3, warmup_steps=0,
+                                           total_steps=100), device=DEVICE)
+    params = init_train_params(step.cfg, 0, device=DEVICE)
+    state = init_opt_state(params)
+    batch = train_batch(np, cfg, B, S, seed=24)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(n):
+        before = (fa.LAUNCHES, fa.BWD_LAUNCHES)
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        per_step = (fa.LAUNCHES - before[0], fa.BWD_LAUNCHES - before[1])
+        if per_step != (12, 12):
+            fail(f"[24 train] (d) whisper-tiny: flash launches (forward, "
+                 f"backward) {per_step} a step, not (12, 12)")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"[24 train] (d) whisper-tiny: losses {losses} not finite and "
+             f"falling")
+    step_ms = sorted(times[1:])[len(times[1:]) // 2]
+
+    def profiled():
+        nonlocal params, state
+        for _ in range(AUDIO_TRAIN["profiled"]):
+            params, state, _ = step(params, state, batch)
+
+    prof = profile_passes(torch, "[24 train] (d) whisper-tiny train step",
+                          profiled, AUDIO_TRAIN["profiled"], ("bwd_",),
+                          "flash_bwd")
+    say(f"[24 train] (d) whisper-tiny full width ({cfg.param_count():,} "
+        f"parameters), B {B} x {S} tokens over {cfg.encoder_seq} frames, "
+        f"one batch {n} steps: loss " + " -> ".join(f"{x:.4f}" for x in
+                                                   losses)
+        + f"; {step_ms:.2f} ms a step (median after the first), peak "
+        f"memory {peak:.2f} GiB; flash 12 forward and 12 backward "
+        f"launches a step; {time.perf_counter() - t_phase:.1f} s")
+    return dict(losses=losses, step_ms=step_ms, peak_gib=peak, **prof)
+
+
+def phase_train(torch, np) -> dict:
+    """Phase 24, the zoo's training on the card: (a) the flash backward
+    kernel's holds and times (``phase_bwd_kernel``); (b)-(d) the training
+    path, with every launch count set to 0 just before and read just
+    after: a step of each family (``phase_train_families``), the driver
+    (``phase_train_driver``, its own processes) and whisper-tiny at full
+    width (``phase_train_audio``).  Returns the kernels line's entry of
+    the backward kernel."""
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     mamba_scan, reid_topk)
+
+    t_phase = time.perf_counter()
+    kernel = phase_bwd_kernel(torch)
+    flash_attention.LAUNCHES = flash_attention.BWD_LAUNCHES = 0
+    decode_attention.LAUNCHES = mamba_scan.LAUNCHES = 0
+    reid_topk.LAUNCHES = reid_topk.TILE_LAUNCHES = 0
+    reid_topk.UNMASKED_LAUNCHES = 0
+    families = phase_train_families(torch, np)
+    driver = phase_train_driver(torch, np)
+    audio = phase_train_audio(torch, np)
+    launches = flash_attention.BWD_LAUNCHES
+    stray = (decode_attention.LAUNCHES, reid_topk.LAUNCHES,
+             reid_topk.TILE_LAUNCHES, reid_topk.UNMASKED_LAUNCHES)
+    if launches == 0 or any(stray):
+        fail(f"[24 train] the training path launched the backward "
+             f"{launches} times and decode / re-id {stray}")
+    say(f"[24 train] training path launches: flash backward {launches}, "
+        f"flash forward {flash_attention.LAUNCHES}, scan "
+        f"{mamba_scan.LAUNCHES} (the refused Mamba1 step), decode and "
+        f"re-id 0; phase {time.perf_counter() - t_phase:.1f} s")
+    at = next(t for t in kernel["model"] if t["label"] ==
+              "yi_6b scaled train" and t["dtype"] == "bfloat16")
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/kernels/flash_attention.py:22",
+                launches=launches, max_abs_err=kernel["max_abs_err"],
+                **{k: at[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+                shape={k: at[k] for k in ("label", "dtype", "B", "H", "KV",
+                                          "S", "T", "hd", "causal")},
+                model=kernel["model"], train=dict(
+                    families=families, driver=driver, audio=audio))
 
 
 def scan_end_state(torch, errs):
@@ -3935,6 +4608,10 @@ def ptxas_summary(log: str) -> list[str]:
 
 def main() -> int:
     t_script = time.perf_counter()
+    # phase 24 (b) runs train steps under deterministic algorithms, as the
+    # training driver does, which need cuBLAS's workspace fixed before
+    # its first handle
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3975,7 +4652,8 @@ def main() -> int:
                     for name in SUITE_SWEEPS + SUITE_TABLES}
     t0 = time.perf_counter()
     sources = ("reid_topk", "reid_topk_tiles", "reid_topk_plain",
-               "flash_attention", "decode_attention", "mamba_scan")
+               "flash_attention", "flash_attention_bwd", "decode_attention",
+               "mamba_scan")
     with ThreadPoolExecutor(len(sources)) as pool:
         futures = {name: pool.submit(build.build, name) for name in sources}
         lib_paths = {name: f.result() for name, f in futures.items()}
@@ -4817,6 +5495,8 @@ def main() -> int:
     phase_grad_guard(torch)
     # -- phase 23: launch bounds against the compiled launchers ---------------
     phase_launch_bounds(torch, n_sms)
+    # -- phase 24: the zoo's training ------------------------------------
+    backward = phase_train(torch, np)
     camera_row["max_abs_err"] = max_err[CAMERA["name"]]
     tiles_row["max_abs_err"] = max_err[TILES["name"]]
 
@@ -4839,7 +5519,7 @@ def main() -> int:
                 **({"zoo_vlm": vlm_zoo[name]} if name in vlm_zoo else {}),
                 **({"zoo_audio": audio_zoo[name]} if name in audio_zoo
                    else {}))
-           for name in BENCH]}))
+           for name in BENCH] + [backward]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

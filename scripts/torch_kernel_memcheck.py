@@ -5,7 +5,7 @@ reads and misaligned accesses that guard bands cannot see.
 
     python scripts/torch_kernel_memcheck.py
 
-Builds the six CUDA sources (``kernels.build``), then reruns itself with
+Builds the seven CUDA sources (``kernels.build``), then reruns itself with
 ``--child`` under ``compute-sanitizer --tool memcheck --error-exitcode 1``
 with PyTorch's caching allocator off (``PYTORCH_NO_CUDA_MEMORY_CACHING``),
 so that every tensor is an allocation of its own and a stray access past
@@ -29,7 +29,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 SOURCES = ("reid_topk", "reid_topk_tiles", "reid_topk_plain",
-           "flash_attention", "decode_attention", "mamba_scan")
+           "flash_attention", "flash_attention_bwd", "decode_attention",
+           "mamba_scan")
 
 
 def find_sanitizer() -> str | None:

@@ -119,6 +119,12 @@ LAUNCH_TABLE = {
         ("q", "k", "v", "o"),
         ("B", "H", "KV", "S", "T", "hd", "bf16", "causal", "rows", "bk",
          "splits", "stages")),
+    "flash_attention_bwd": Entry(
+        ("_flash_kernel",), "csrc/flash_attention_bwd.cu",
+        "flash_attention_bwd", "flash_attention_bwd_plan_ok",
+        "flash_attention.flash_bwd_plan",
+        ("q", "k", "v", "o", "do", "dq", "dk", "dv", "lse", "delta"),
+        ("B", "H", "KV", "S", "T", "hd", "bf16", "causal", "rows", "keys")),
     "decode_attention": Entry(
         ("_decode_kernel",), "csrc/decode_attention.cu", "decode_attention",
         "decode_attention_plan_ok",
@@ -138,6 +144,14 @@ LAUNCH_TABLE = {
         ("_reid_masked_kernel", "_reid_tiles_kernel", "_reid_kernel"),
         "csrc/reid_split.cuh", None, None,
         "after a split re-id launch (S > 1): " + _REID_PLAN),
+    "flash_bwd_dkdv": Entry(
+        ("_flash_kernel",), "csrc/flash_attention_bwd.cu", None, None,
+        "after flash_attention_bwd's statistics pass: "
+        "flash_attention.flash_bwd_plan"),
+    "flash_bwd_dq": Entry(
+        ("_flash_kernel",), "csrc/flash_attention_bwd.cu", None, None,
+        "after flash_attention_bwd's dk / dv pass: "
+        "flash_attention.flash_bwd_plan"),
     "decode_combine": Entry(
         ("_decode_kernel",), "csrc/decode_attention.cu", None, None,
         "the last block of a (row, kv head, group) with more than one "
@@ -200,6 +214,21 @@ def _flash_stages(hdp, bf16):
     return 3 if bf16 or _flash_smem(hdp, False, _flash_rows(hdp, False),
                                     _flash_bk(hdp), _flash_splits(hdp, False),
                                     3) <= 116 * 1024 else 2
+
+
+# flash_attention_bwd.cu: 32-row and 32-key tiles, 256 threads; the
+# template's width, and its shared memory (smem_floats)
+_BWD_ROWS = _BWD_KEYS = 32
+_BWD_THREADS = 256
+
+
+def _bwd_hdp(hd):
+    return 32 if hd <= 32 else 64 if hd <= 64 else 128 if hd <= 128 else 256
+
+
+def _bwd_smem(hdp):
+    return 4 * ((2 * _BWD_ROWS + 2 * _BWD_KEYS) * (hdp + 1)
+                + 2 * _BWD_ROWS * (_BWD_KEYS + 1) + 2 * _BWD_ROWS)
 
 
 # decode_attention.cu
@@ -278,6 +307,16 @@ def launcher_accepts(kernel: str, args: dict) -> bool:
                 and a["splits"] == _flash_splits(hdp, bf16)
                 and a["stages"] == _flash_stages(hdp, bf16)
                 and (a["q"] | a["k"] | a["v"] | a["o"]) & 15 == 0)
+    if kernel == "flash_attention_bwd":
+        hd = a["hd"]
+        return (all(a[p] != 0 and a[p] & 15 == 0
+                    for p in LAUNCH_TABLE[kernel].pointers)
+                and a["B"] >= 1 and a["H"] >= 1 and a["KV"] >= 1
+                and a["H"] % a["KV"] == 0 and a["S"] >= 1 and a["T"] >= 1
+                and max(a["S"], a["T"]) <= INT_MAX - 127
+                and 8 <= hd <= 256 and hd % 8 == 0 and a["H"] <= GRID_YZ_MAX
+                and a["B"] <= GRID_YZ_MAX and a["rows"] == _BWD_ROWS
+                and a["keys"] == _BWD_KEYS)
     if kernel == "decode_attention":
         B, H, KV, T, hd = a["B"], a["H"], a["KV"], a["T"], a["hd"]
         bf16, heads, tile = a["bf16"] != 0, a["heads"], a["tile"]
@@ -382,6 +421,8 @@ def launches_at_all(c: Case) -> bool:
         return s["Q"] > 0 and s["G"] > 0
     if c.kernel == "flash_attention":
         return s["B"] * s["H"] * s["S"] * s["hd"] > 0
+    if c.kernel == "flash_attention_bwd":
+        return s["B"] * s["H"] * s["S"] * s["T"] * s["hd"] > 0
     if c.kernel == "decode_attention":
         return s["B"] * s["H"] * s["hd"] > 0
     return s["B"] * s["L"] * s["D"] > 0
@@ -410,6 +451,13 @@ def plan_args(c: Case, n_sms: int) -> dict:
                     bf16=int(c.dtype == "bfloat16"),
                     causal=int(s["causal"]), rows=p.rows, bk=p.keys,
                     splits=p.splits, stages=p.stages, smem=p.smem)
+    if c.kernel == "flash_attention_bwd":
+        p = flash_attention.flash_bwd_plan(s["hd"], dtype)
+        ptrs = {name: ADDR for name in LAUNCH_TABLE[c.kernel].pointers}
+        return dict(ptrs, B=s["B"], H=s["H"], KV=s["KV"], S=s["S"],
+                    T=s["T"], hd=s["hd"], bf16=int(c.dtype == "bfloat16"),
+                    causal=int(s["causal"]), rows=p.rows, keys=p.keys,
+                    hdp=p.hdp, threads=p.threads, smem=p.smem)
     if c.kernel == "decode_attention":
         p = decode_attention.decode_plan(s["B"], s["H"], s["KV"], s["T"],
                                          s["hd"], dtype, n_sms)
@@ -457,6 +505,15 @@ def perturbations(kernel: str, args: dict) -> list[tuple[str, dict]]:
         change("hd 264", hd=264)
         change("H % KV != 0", KV=a["H"] + 1)
         change("o off 16 bytes", o=a["o"] + 8)
+    elif kernel == "flash_attention_bwd":
+        change("rows off the plan", rows=a["rows"] * 2)
+        change("keys off the plan", keys=a["keys"] // 2)
+        change("hd 264", hd=264)
+        change("H % KV != 0", KV=a["H"] + 1)
+        change("T = 0", T=0)
+        change("S past MAX_LEN", S=INT_MAX - 126)
+        change("do off 16 bytes", do=a["do"] + 8)
+        change("missing workspace", lse=0)
     elif kernel == "decode_attention":
         change("splits + 1", splits=a["splits"] + 1)
         change("splits - 1", splits=a["splits"] - 1)
@@ -617,6 +674,73 @@ def _flash_launches(a: dict) -> list[Launch]:
     L.covers.append(("o (B, H, S)", (B, H, S),
                      *_box((b, b + 1), (h, h + 1), (q0, q1)), None))
     return [L]
+
+
+def _flash_bwd_launches(a: dict) -> list[Launch]:
+    """The backward's three passes: statistics and dq a (query tile, h,
+    b), dk / dv a (key tile, kv head, b)."""
+    B, H, KV, S, T, hd = a["B"], a["H"], a["KV"], a["S"], a["T"], a["hd"]
+    R, K, causal = a["rows"], a["keys"], a["causal"]
+    G = H // KV
+    layout = _bwd_smem(_bwd_hdp(hd))
+    gx, gk = _cdiv(S, R), _cdiv(T, K)
+    kend_max = min(T, gx * R) if causal else T
+    ext_q, ext_k = B * H * S * hd, B * KV * T * hd
+    rows_ints = {"q0 + ROWS (a block's row bound)": gx * R,
+                 "k0 at the key loop's end": _cdiv(kend_max, K) * K}
+    stats = Launch("flash_attention_bwd", (gx, H, B), a["threads"],
+                   a["smem"], layout, 0, _BWD_THREADS, ints=rows_ints)
+    dkdv = Launch("flash_bwd_dkdv", (gk, KV, B), a["threads"], a["smem"],
+                  layout, 0, _BWD_THREADS,
+                  ints={"k0 + KEYS (a block's key bound)": gk * K,
+                        "q0 at the row loop's end": gx * R})
+    dq = Launch("flash_bwd_dq", (gx, H, B), a["threads"], a["smem"],
+                layout, 0, _BWD_THREADS, ints=dict(rows_ints))
+    out = [stats, dkdv, dq]
+    if max(gx * H * B, gk * KV * B) > _MAX_GRID_POINTS:
+        return out
+    i = np.arange(gx * H * B, dtype=np.int64)
+    bx, h, b = i % gx, i // gx % H, i // (gx * H)
+    q0 = bx * R
+    q1 = np.minimum(q0 + R, S)
+    kend = np.minimum(T, q0 + R) if causal else np.full_like(q0, T)
+    qrow, kvrow = (b * H + h) * S, (b * KV + h // G) * T
+    for L in (stats, dq):
+        L.extents = dict(q=ext_q, k=ext_k, v=ext_k, o=ext_q, do=ext_q,
+                         dq=ext_q, lse=B * H * S, delta=B * H * S)
+        L.reads = [("q", (qrow + q0) * hd, (qrow + q1) * hd),
+                   ("do", (qrow + q0) * hd, (qrow + q1) * hd),
+                   ("k", kvrow * hd, (kvrow + kend) * hd)]
+    stats.reads.append(("o", (qrow + q0) * hd, (qrow + q1) * hd))
+    stats.writes = [(n, qrow + q0, qrow + q1) for n in ("lse", "delta")]
+    stats.covers.append(("lse and D (B, H, S)", (B, H, S),
+                         *_box((b, b + 1), (h, h + 1), (q0, q1)), None))
+    dq.reads += [("v", kvrow * hd, (kvrow + kend) * hd),
+                 ("lse", qrow + q0, qrow + q1),
+                 ("delta", qrow + q0, qrow + q1)]
+    dq.writes = [("dq", (qrow + q0) * hd, (qrow + q1) * hd)]
+    dq.covers.append(("dq (B, H, S)", (B, H, S),
+                      *_box((b, b + 1), (h, h + 1), (q0, q1)), None))
+    j = np.arange(gk * KV * B, dtype=np.int64)
+    kx, kvh, b = j % gk, j // gk % KV, j // (gk * KV)
+    k0 = kx * K
+    k1 = np.minimum(k0 + K, T)
+    kvrow = (b * KV + kvh) * T
+    qstart = np.minimum(k0 // R * R, S) if causal else np.zeros_like(k0)
+    first, last = (b * H + kvh * G) * S, (b * H + kvh * G + G - 1) * S
+    dkdv.extents = dict(q=ext_q, k=ext_k, v=ext_k, do=ext_q, dk=ext_k,
+                        dv=ext_k, lse=B * H * S, delta=B * H * S)
+    dkdv.reads = [("k", (kvrow + k0) * hd, (kvrow + k1) * hd),
+                  ("v", (kvrow + k0) * hd, (kvrow + k1) * hd),
+                  ("q", (first + qstart) * hd, (last + S) * hd),
+                  ("do", (first + qstart) * hd, (last + S) * hd),
+                  ("lse", first + qstart, last + S),
+                  ("delta", first + qstart, last + S)]
+    dkdv.writes = [(n, (kvrow + k0) * hd, (kvrow + k1) * hd)
+                   for n in ("dk", "dv")]
+    dkdv.covers.append(("dk and dv (B, KV, T)", (B, KV, T),
+                        *_box((b, b + 1), (kvh, kvh + 1), (k0, k1)), None))
+    return out
 
 
 def _decode_keys(length, T, split, splits, tile, warps) -> dict:
@@ -817,6 +941,8 @@ def launches(c: Case, args: dict) -> list[Launch]:
         return _reid_launches(c.kernel, args)
     if c.kernel == "flash_attention":
         return _flash_launches(args)
+    if c.kernel == "flash_attention_bwd":
+        return _flash_bwd_launches(args)
     if c.kernel == "decode_attention":
         return _decode_launches(args, c.s["length"])
     return _scan_launches(args)
@@ -1065,6 +1191,24 @@ def sweep() -> list[Case]:
                             KV=1, S=65, T=65, hd=hd, causal=True))
             out.append(case("decode_attention", dtype, "widths", B=2, H=12,
                             KV=4, T=300, hd=hd, length=(300, 7)))
+    # -- the flash backward: its tile edges (32 rows, 32 keys), every head
+    # width, and the training shapes (launch.train's scaled yi-6b; whisper
+    # at full width: the decoder's self and cross attention, the encoder)
+    for hd, dtype in ((8, "float32"), (64, "bfloat16"), (256, "float32"),
+                      (136, "bfloat16")):
+        for S in (31, 32, 33):
+            for T in (31, 32, 33, 65):
+                for causal in (True, False):
+                    out.append(case("flash_attention_bwd", dtype,
+                                    "tile edges", B=2, H=4, KV=2, S=S, T=T,
+                                    hd=hd, causal=causal))
+    for hd in range(8, 257, 8):
+        for dtype in ("float32", "bfloat16"):
+            out.append(case("flash_attention_bwd", dtype, "widths", B=1,
+                            H=2, KV=1, S=65, T=65, hd=hd, causal=True))
+    for dtype in ("float32", "bfloat16"):
+        for label, shape in TRAIN_SHAPES:
+            out.append(case("flash_attention_bwd", dtype, label, **shape))
     # -- the zero-length calls, answered without a launch
     for kernel in ("reid_topk_unmasked", "reid_topk_segment_masked",
                    "reid_topk_tiles"):
@@ -1073,6 +1217,19 @@ def sweep() -> list[Case]:
                             **({} if kernel == "reid_topk_unmasked"
                                else dict(C=8))))
     return out + full_widths()
+
+
+#: the flash backward's training shapes: (label, shape)
+TRAIN_SHAPES = (
+    ("yi_6b scaled train", dict(B=16, H=4, KV=1, S=256, T=256, hd=128,
+                                causal=True)),
+    ("whisper_tiny decoder train", dict(B=8, H=6, KV=6, S=448, T=448,
+                                        hd=64, causal=True)),
+    ("whisper_tiny encoder train", dict(B=8, H=6, KV=6, S=1500, T=1500,
+                                        hd=64, causal=False)),
+    ("whisper_tiny cross train", dict(B=8, H=6, KV=6, S=448, T=1500,
+                                      hd=64, causal=False)),
+)
 
 
 def full_widths() -> list[Case]:
@@ -1356,8 +1513,8 @@ GUARD_BYTE = 0xFF
 
 
 def guard_band_cases() -> dict[str, list[Case]]:
-    """For each of the six launchers, a dozen ragged shapes and, last, its
-    largest full-width shape (``full_widths``)."""
+    """For each launcher, ragged shapes and, last, its largest full-width
+    shape (``full_widths``; the backward's, a training shape)."""
     reid = [(1, 1, 8, 1, 4), (5, 120, 16, 3, 30), (100, 700, 32, 2, 30),
             (16, 257, 16, 1, 130), (63, 63, 31, 16, 8), (64, 64, 32, 3, 8),
             (65, 65, 33, 5, 8), (33, 517, 64, 3, 8), (7, 70, 64, 16, 8),
@@ -1390,6 +1547,19 @@ def guard_band_cases() -> dict[str, list[Case]]:
             (2, 6, 6, 150, 150, 80, False, "bfloat16"),
             (1, 2, 1, 1, 1, 136, True, "float32"),
             (8, 64, 8, 1024, 1024, 128, True, "bfloat16"))]
+    out["flash_attention_bwd"] = [
+        case("flash_attention_bwd", dtype, B=B, H=H, KV=KV, S=S, T=T, hd=hd,
+             causal=causal)
+        for B, H, KV, S, T, hd, causal, dtype in (
+            (2, 4, 2, 33, 65, 64, True, "float32"),
+            (2, 4, 2, 65, 31, 64, False, "bfloat16"),
+            (1, 8, 1, 40, 40, 128, True, "bfloat16"),
+            (2, 4, 4, 17, 70, 8, False, "float32"),
+            (1, 4, 2, 33, 31, 256, True, "float32"),
+            (1, 2, 1, 1, 1, 136, True, "bfloat16"),
+            (2, 6, 6, 150, 150, 80, False, "float32"))] + [
+        case("flash_attention_bwd", "bfloat16", **dict(TRAIN_SHAPES)[
+            "whisper_tiny cross train"])]
     out["decode_attention"] = [
         case("decode_attention", dtype, B=len(length), H=H, KV=KV, T=T,
              hd=hd, length=length)
@@ -1485,6 +1655,18 @@ def guard_band_run(c: Case, device="cuda", seed=0) -> dict:
         del k_, v
         outs = dict(o=(tuple(q.shape), dtype))
         work = {}
+    elif c.kernel == "flash_attention_bwd":
+        (q, k_, v), _ = make_inputs("flash_attention", s, device, seed)
+        q, k_, v = q.to(dtype), k_.to(dtype), v.to(dtype)
+        do = torch.randn(q.shape, generator=gen, device=device).to(dtype)
+        inputs = dict(q=q, k=k_, v=v, o=ref.flash_attention_ref(
+            q, k_, v, causal=s["causal"]), do=do)
+        del k_, v
+        outs = dict(dq=(tuple(q.shape), dtype),
+                    dk=(tuple(inputs["k"].shape), dtype),
+                    dv=(tuple(inputs["k"].shape), dtype))
+        work = {n: ((s["B"], s["H"], s["S"]), torch.float32)
+                for n in ("lse", "delta")}
     elif c.kernel == "decode_attention":
         (q, k_, v, _), _ = make_inputs(
             c.kernel, dict(s, length="full"), device, seed)
@@ -1551,6 +1733,9 @@ def _plain(c: Case, x: dict) -> tuple:
     if c.kernel == "flash_attention":
         return (ref.flash_attention_ref(x["q"], x["k"], x["v"],
                                         causal=c.s["causal"]),)
+    if c.kernel == "flash_attention_bwd":
+        return ref.flash_attention_bwd_ref(x["q"], x["k"], x["v"], x["o"],
+                                           x["do"], causal=c.s["causal"])
     if c.kernel == "decode_attention":
         # eight rows at a time: the plain version's float32 copies of a
         # long bfloat16 cache would not fit the card at once
@@ -1570,4 +1755,6 @@ def _plan_text(c: Case, a: dict) -> str:
     if c.kernel == "flash_attention":
         return f"rows{a['rows']} keys{a['bk']}x{a['splits']} " \
                f"stages{a['stages']}"
+    if c.kernel == "flash_attention_bwd":
+        return f"rows{a['rows']} keys{a['keys']} hdp{a['hdp']}"
     return str(a["plan"])

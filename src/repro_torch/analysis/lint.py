@@ -83,7 +83,7 @@ HOT_FUNCTIONS: dict[str, frozenset[str]] = {
         "forward", "forward_hidden", "prefill", "decode_step", "_inputs",
         "_tokens", "_floats", "_positions", "_encode", "_enc_len",
         "_blocks", "_fill_state", "_dense_layer_apply",
-        "_ssm_layer_apply"}),
+        "_ssm_layer_apply", "lm_loss"}),
     "models/layers.py": frozenset({
         "_dtype", "apply_norm", "rope_freqs", "_freqs", "_rotate",
         "apply_rope", "_mrope_streams", "apply_mrope", "apply_mlp",
@@ -97,6 +97,9 @@ HOT_FUNCTIONS: dict[str, frozenset[str]] = {
     "models/ssm.py": frozenset({
         "mamba1_block", "mamba2_block", "_x_proj", "causal_conv1d",
         "conv1d_step", "ssd_chunked", "_gated_norm_out"}),
+    # the zoo's training: the step, and the update it runs
+    "launch/steps.py": frozenset({"train_step"}),
+    "optim/adamw.py": frozenset({"adamw_update", "lr_at", "global_norm"}),
 }
 
 # REX001's heavy host numpy, as the reference's: reductions,
@@ -171,6 +174,9 @@ SYNC_BASELINE: dict[tuple[str, str], tuple[int, str]] = {
            "M-RoPE positions"),
     ("models/model.py", "_encode"): (1, "`_floats` of the audio frames"),
     ("models/model.py", "decode_step"): (1, "`_tokens` of the step's token"),
+    ("models/model.py", "lm_loss"): (
+        2, "`_tokens` of the labels' tokens and the loss mask made a device "
+           "tensor: copies only where they come from the host"),
 }
 
 # REX002: numpy's legacy global-RNG entry points and the stdlib's, as the
@@ -199,7 +205,8 @@ TORCH_INPLACE_DRAWS = {
 TORCH_GLOBAL_SEEDS = {"manual_seed", "seed", "manual_seed_all"}
 
 # REX002 and REX004 apply under these directories
-RNG_SCOPE = ("core/", "runtime/", "kernels/", "models/")
+RNG_SCOPE = ("core/", "runtime/", "kernels/", "models/", "optim/", "data/",
+             "checkpoint/", "launch/")
 
 _SUPPRESS_RE = re.compile(r"#\s*rex:\s*disable(-file)?\s*=\s*([A-Z0-9,\s]+)")
 

@@ -3,9 +3,9 @@
 The JAX package's model fields, read out as numpy arrays, become the
 port's ``SpatioTemporalModel`` here, so both engines can be handed the
 same M; the profiler builds its model through the same function.  The
-backbone zoo's parameters and decode state cross the same way
-(``params_from_numpy``, ``decode_state_from_numpy``,
-``decode_state_to_numpy``)."""
+backbone zoo's parameters, optimizer state and decode state cross the
+same way (``params_from_numpy``, ``opt_state_from_numpy``,
+``decode_state_from_numpy``, ``decode_state_to_numpy``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -90,8 +90,43 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
     experts' ``wi``, ``wg`` and ``wo`` too, cast once to ``cfg.dtype``,
     the casts the reference makes at each use."""
     check_family(cfg)
-    dev = resolve_device(device)
     dt, pdt = getattr(torch, cfg.dtype), getattr(torch, cfg.param_dtype)
+
+    def dtype_of(group: str, name: str):
+        if group == "moe" and name == "router":
+            return torch.float32
+        held = group in NORMS or (group == "mamba"
+                                  and name in PARAM_DTYPE_LEAVES)
+        return pdt if held else dt
+
+    return _tree_from_numpy(cfg, tree, resolve_device(device), dtype_of)
+
+
+def opt_state_from_numpy(cfg: ModelConfig, state: dict,
+                         device="cuda") -> dict:
+    """The reference's AdamW state (``repro.optim.init_opt_state`` or an
+    update's, read out as numpy: ``m``, ``v``, and under ``bf16_params``
+    ``master``, each a parameter tree, and ``step``) as the port's on
+    ``device``: each tree mapped leaf for leaf as ``params_from_numpy``
+    maps the parameters, the pad heads' entries dropped the same way (the
+    reference's pads have zero gradients, so their moments stay zero), in
+    float32; ``step`` an int32 scalar tensor."""
+    check_family(cfg)
+    dev = resolve_device(device)
+    out = {n: _tree_from_numpy(cfg, state[n], dev,
+                               lambda group, name: torch.float32)
+           for n in ("m", "v", "master") if n in state}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32, device=dev)
+    return out
+
+
+def _tree_from_numpy(cfg: ModelConfig, tree: dict, dev: torch.device,
+                     dtype_of) -> dict:
+    """A reference parameter tree (layers stacked on axis 0, query heads
+    padded) as the port's layout on ``dev``: one dict a layer, the pad
+    heads' columns of ``wq`` and ``bq`` and rows of ``wo`` dropped, each
+    leaf a tensor of ``dtype_of(group, name)``."""
     mask = head_mask(cfg)
     real = slice(None) if mask is None else np.repeat(mask > 0, cfg.head_dim)
 
@@ -100,11 +135,7 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
             a = a[..., real]
         elif group in ("attn", "xattn") and name == "wo":
             a = a[real]
-        if group == "moe" and name == "router":
-            return _tensor(a, torch.float32, dev)
-        held = group in NORMS or (group == "mamba"
-                                  and name in PARAM_DTYPE_LEAVES)
-        return _tensor(a, pdt if held else dt, dev)
+        return _tensor(a, dtype_of(group, name), dev)
 
     def layer(groups: dict, index=None) -> dict:
         return {group: {n: leaf(group, n, np.asarray(a) if index is None

@@ -113,9 +113,12 @@ def refuse_grad(kernel: str, *tensors) -> None:
     """Raise ``RuntimeError`` where autograd would want a gradient through
     ``kernel``'s CUDA launch: grad mode is on and an input requires grad.
     The launchers write into fresh tensors through ctypes, outside
-    autograd, and no kernel has a backward yet, so ``backward()`` would
-    otherwise give those inputs no gradient and say nothing.  The plain
-    versions on the CPU are torch ops and do pass gradients."""
+    autograd, so ``backward()`` would otherwise give those inputs no
+    gradient and say nothing.  Flash attention has a backward kernel
+    (``flash_attention.FlashAttention``) and does not call this guard; the
+    other five wrappers (decode, the scan and the three re-id kernels),
+    whose kernels have no backward yet, do.  The plain versions on the CPU
+    are torch ops and do pass gradients."""
     import torch
 
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):

@@ -14,6 +14,16 @@ Dispatch is by the tensors' device: on the CPU the plain version
 raises.  ``flash_plan`` chooses the kernel's tiles from hd and the dtype;
 the kernel is built for exactly that plan.  ``LAUNCHES`` counts the
 kernel's launches.
+
+The gradient: ``flash_attention_bwd`` runs ``csrc/flash_attention_bwd.cu``
+(the plain version ``ref.flash_attention_bwd_ref`` on the CPU), which
+returns (dq, dk, dv) from q, k, v, the forward's output and its gradient;
+``BWD_LAUNCHES`` counts its launches.  Where grad mode is on and an input
+requires grad, ``flash_attention`` runs through ``FlashAttention``, a
+``torch.autograd.Function`` whose forward is the same launch (bit for bit
+the ``no_grad`` output) and whose backward is ``flash_attention_bwd``.
+The Pallas kernel has no backward: the reference trains through XLA's
+autodiff of jnp attention.
 """
 from __future__ import annotations
 
@@ -38,6 +48,13 @@ MAX_LEN = 2 ** 31 - 128
 
 #: kernel launches since the last reset
 LAUNCHES = 0
+#: backward launches since the last reset (``flash_attention_bwd``)
+BWD_LAUNCHES = 0
+#: the backward kernel's query rows and keys a tile
+#: (csrc/flash_attention_bwd.cu)
+BWD_ROWS = BWD_KEYS = 32
+#: its threads a block
+BWD_THREADS = 256
 
 
 class FlashPlan(NamedTuple):
@@ -130,21 +147,24 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
-    """Prefill attention (see the module docstring)."""
+def _check_lengths(S: int, T: int) -> None:
+    if max(S, T) > MAX_LEN:
+        raise ValueError(f"S={S}, T={T}: the kernel's row and key bounds "
+                         f"are int; each must be at most {MAX_LEN}")
+
+
+def _forward(q, k, v, causal: bool):
+    """The forward's dispatch: the plain version on the CPU, else one
+    launch of the kernel (or a raise)."""
     global LAUNCHES
-    check_heads(q, k, v, 4)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal)
     from repro_torch.kernels import build
 
-    build.refuse_grad("flash_attention", q, k, v)
     B, H, S, hd = q.shape
     KV, T = k.shape[1], k.shape[2]
     plan = flash_plan(hd, q.dtype)
-    if max(S, T) > MAX_LEN:
-        raise ValueError(f"S={S}, T={T}: the kernel's row and key bounds "
-                         f"are int; each must be at most {MAX_LEN}")
+    _check_lengths(S, T)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     out = torch.empty_like(q)
@@ -161,3 +181,113 @@ def flash_attention(q, k, v, *, causal: bool = True):
                    *build.device_and_stream(q)), "flash_attention")
     LAUNCHES += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Prefill attention with a gradient: the forward's launch, saving q,
+    k, v and the output, and ``flash_attention_bwd`` as its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o = _forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """Prefill attention (see the module docstring); through
+    ``FlashAttention`` where grad mode is on and an input requires grad."""
+    check_heads(q, k, v, 4)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal)
+
+
+class BwdPlan(NamedTuple):
+    """The launch geometry of ``csrc/flash_attention_bwd.cu``."""
+    hdp: int         # the template's width: hd up to 32, 64, 128 or 256
+    rows: int        # query rows a tile
+    keys: int        # keys a tile
+    threads: int
+    smem: int        # bytes of shared memory a block, every pass alike
+
+    def __str__(self):
+        return (f"rows{self.rows} keys{self.keys} hdp{self.hdp} "
+                f"{self.smem} B")
+
+
+def bwd_smem_bytes(hdp: int) -> int:
+    """Shared memory of a backward block, as the kernel lays it out, in
+    float32: the Q, dO, K and V tiles at rows of hdp + 1, the P and dS
+    tiles at rows of keys + 1, and the rows' lse and D."""
+    return 4 * ((2 * BWD_ROWS + 2 * BWD_KEYS) * (hdp + 1)
+                + 2 * BWD_ROWS * (BWD_KEYS + 1) + 2 * BWD_ROWS)
+
+
+def flash_bwd_plan(hd: int, dtype) -> BwdPlan:
+    """The backward kernel's plan for head width ``hd`` and ``dtype``: the
+    widths the forward takes (a multiple of 8 from 8 to 256), 32-row and
+    32-key tiles, 256 threads."""
+    if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"hd={hd}: the kernel takes a multiple of 8 from 8 "
+                         f"to {MAX_HEAD_DIM}")
+    if dtype not in DTYPES:
+        raise TypeError(f"no kernel for {dtype}")
+    hdp = next(w for w in (32, 64, 128, 256) if hd <= w)
+    return BwdPlan(hdp, BWD_ROWS, BWD_KEYS, BWD_THREADS, bwd_smem_bytes(hdp))
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True):
+    """(dq, dk, dv) of ``flash_attention(q, k, v, causal=causal)`` = ``o``
+    against its output gradient ``do`` ((B, H, S, hd) like q and o), each
+    in the inputs' dtype; dk and dv sum over the query heads of each kv
+    head.  On the CPU the plain version; on a CUDA tensor one launch of
+    the backward kernel (its three passes), or the wrapper raises.  With
+    S = 0 or T = 0 the gradients are zeros and nothing launches."""
+    global BWD_LAUNCHES
+    check_heads(q, k, v, 4)
+    for name, t in (("o", o), ("do", do)):
+        if not isinstance(t, torch.Tensor) or t.shape != q.shape or \
+                t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must be a tensor of q's shape, dtype "
+                             f"and device {tuple(q.shape)} {q.dtype} "
+                             f"{q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal)
+    from repro_torch.kernels import build
+
+    B, H, S, hd = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    plan = flash_bwd_plan(hd, q.dtype)
+    _check_lengths(S, T)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    if q.numel() == 0 or k.numel() == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
+    fn = build.launcher("flash_attention_bwd", "flash_attention_bwd",
+                        (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 11
+                        + (ctypes.c_void_p,))
+    build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                   do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                   dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                   B, H, KV, S, T, hd, int(q.dtype == torch.bfloat16),
+                   int(causal), plan.rows, plan.keys,
+                   *build.device_and_stream(q)), "flash_attention_bwd")
+    BWD_LAUNCHES += 1
+    return dq, dk, dv

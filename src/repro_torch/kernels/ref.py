@@ -161,6 +161,22 @@ def flash_attention_ref(q, k, v, *, causal: bool = True):
     return o.reshape(B, H, S, hd).to(q.dtype)
 
 
+def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True):
+    """The gradients (dq, dk, dv) of ``flash_attention_ref`` at (q, k, v)
+    against the output gradient ``do``: ``torch.autograd.grad`` of the
+    plain forward on float32 copies of q, k, v and ``do``, cast to the
+    inputs' dtype.  dk and dv sum over the H / KV query heads that read
+    each kv head.  ``o`` (the forward's output) is not read: the plain
+    version recomputes it."""
+    with torch.enable_grad():
+        q32, k32, v32 = (t.detach().to(torch.float32).requires_grad_()
+                         for t in (q, k, v))
+        out = flash_attention_ref(q32, k32, v32, causal=causal)
+        grads = torch.autograd.grad(out, (q32, k32, v32),
+                                    do.to(torch.float32))
+    return tuple(g.to(q.dtype) for g in grads)
+
+
 def decode_attention_ref(q, k_cache, v_cache, length):
     """One-token attention over a cache.  q (B, H, hd); caches
     (B, KV, T, hd); length (B,) valid keys per row (a length past T means

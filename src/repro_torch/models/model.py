@@ -48,9 +48,17 @@ experts, which are PyTorch ops (sorts, a scatter, a gather and batched
 matmuls) as the reference's are jnp; ``forward`` returns the layers'
 mean aux and z losses.
 
+``lm_loss`` is the training loss over ``forward_hidden``; its gradient
+runs through the flash kernel's backward (``kernels.flash_attention``'s
+``FlashAttention``) on the card.  To train, hold the parameters in
+``cfg.param_dtype`` (``init_params(dataclasses.replace(cfg,
+dtype=cfg.param_dtype))``, as ``launch.steps.init_train_params`` does):
+every function casts its weights to ``cfg.dtype`` at use, as the
+reference does, so the forward's numbers are the same and the gradients
+land on the parameters themselves.
+
 The reference's remat, ``scan_layers``, mesh constraints, logical axes,
-``abstract_params``, sequence-sharded caches and ``lm_loss`` (training)
-have no counterpart here.
+``abstract_params`` and sequence-sharded caches have no counterpart here.
 """
 from __future__ import annotations
 
@@ -70,6 +78,9 @@ ATTENTION_FAMILIES = ("dense", "vlm", "moe")
 #: the families with Mamba layers
 SSM_FAMILIES = ("ssm", "hybrid")
 FAMILIES = ATTENTION_FAMILIES + SSM_FAMILIES + ("audio",)
+#: positions a chunk of the loss's logits (the reference's bound on the
+#: (B, chunk, V) float32 buffer)
+LOSS_CHUNK = 2048
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -337,6 +348,49 @@ def forward(params: Params, batch: dict, cfg: ModelConfig, *, device="cuda"):
     """Full logits (B,S,V) in ``cfg.dtype`` and the aux dict."""
     h, aux = forward_hidden(params, batch, cfg, device=device)
     return unembed(params["embed"], h, cfg), aux
+
+
+# ---------------------------------------------------------------------------
+# loss (chunked over the sequence to bound the logits buffer)
+# ---------------------------------------------------------------------------
+
+def lm_loss(params: Params, batch: dict, cfg: ModelConfig, *,
+            device="cuda"):
+    """The next-token loss: the mean over the unmasked positions of the
+    float32 negative log likelihood of ``batch["tokens"]`` shifted by one
+    (the last position has no label), times ``batch["loss_mask"]`` where
+    the batch has one; the logits made ``LOSS_CHUNK`` positions at a time.
+    A moe model adds ``aux_loss_coef`` x ``moe_aux`` and ``router_z_coef``
+    x ``moe_z``.  Returns (loss, {"loss", "ntok", "moe_aux", "moe_z"}), all
+    float32 scalar tensors."""
+    h, aux = forward_hidden(params, batch, cfg, device=device)
+    dev = h.device
+    tokens = _tokens(batch["tokens"], dev)
+    B, S = tokens.shape
+    labels = torch.cat([tokens[:, 1:], tokens.new_zeros((B, 1))], dim=1)
+    mask = torch.cat([torch.ones((B, S - 1), dtype=torch.float32,
+                                 device=dev),
+                      torch.zeros((B, 1), dtype=torch.float32, device=dev)],
+                     dim=1)
+    if "loss_mask" in batch:
+        mask = mask * torch.as_tensor(batch["loss_mask"],
+                                      device=dev).to(torch.float32)
+    C = min(LOSS_CHUNK, S)
+    if S % C:
+        raise ValueError(f"S={S} is not a multiple of the loss's chunk {C}")
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for c0 in range(0, S, C):
+        logits = unembed(params["embed"], h[:, c0:c0 + C], cfg).to(
+            torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[:, c0:c0 + C, None])[..., 0]
+        total = total + ((lse - gold) * mask[:, c0:c0 + C]).sum()
+    ntok = torch.clamp(mask.sum(), min=1.0)
+    loss = total / ntok
+    if cfg.family == "moe":
+        loss = loss + cfg.aux_loss_coef * aux["moe_aux"] \
+            + cfg.router_z_coef * aux["moe_z"]
+    return loss, {"loss": loss, "ntok": ntok, **aux}
 
 
 # ---------------------------------------------------------------------------

@@ -236,7 +236,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
                             device=x.device).tril()
         seg = seg.masked_fill_(~causal, float("-inf")).exp_()
         cb = torch.matmul(C_c, B_c.transpose(1, 2))     # (B, i, j)
-        scores = seg.mul_(cb[:, None])                   # (B, nh, i, j)
+        # out of place: exp's backward reads seg
+        scores = seg * cb[:, None]                       # (B, nh, i, j)
         xdt = (x_c * dt_c[..., None]).transpose(1, 2)   # (B, nh, c, hd)
         y = torch.matmul(scores, xdt)                    # (B, nh, i, hd)
         # the carried state's term: C_i . h, decayed to step i

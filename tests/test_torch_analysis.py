@@ -313,8 +313,9 @@ def test_gate_reports_an_uncached_mrope_index():
 
 
 def _zoo_reach():
-    """Functions of ``models/`` reachable by name from forward, prefill
-    and decode_step, ``init_*`` and ``check_*`` left out, by file."""
+    """Functions of ``models/`` reachable by name from forward, prefill,
+    decode_step and lm_loss (the training loss), ``init_*`` and
+    ``check_*`` left out, by file."""
     defs: dict[str, list[tuple[str, ast.FunctionDef]]] = {}
     models = os.path.join(PORT, "models")
     for f in sorted(os.listdir(models)):
@@ -324,7 +325,7 @@ def _zoo_reach():
                     if isinstance(n, ast.FunctionDef):
                         defs.setdefault(n.name, []).append((f, n))
     seen: set[str] = set()
-    todo = ["forward", "prefill", "decode_step"]
+    todo = ["forward", "prefill", "decode_step", "lm_loss"]
     while todo:
         name = todo.pop()
         if name in seen or name.lstrip("_").startswith(("init_", "check_")):

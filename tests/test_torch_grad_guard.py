@@ -1,14 +1,19 @@
-"""The CUDA kernels have no backward, so their wrappers refuse gradients.
+"""Five CUDA kernels have no backward, so their wrappers refuse gradients;
+flash attention has one, so its wrapper passes them.
 
 ``kernels.build.refuse_grad`` raises ``RuntimeError`` under grad mode when
-an input requires grad.  Each of the six wrappers calls it on its non-CPU
-path, after the CPU branch and before anything is allocated or launched:
-on ``meta`` tensors (whose checks read no values) an input that requires
-grad stops at the guard, and under ``torch.no_grad()`` the same call goes
-past it to the device check.  The CPU path is unchanged: the plain
-versions are torch ops and pass gradients.  The card half (a raise for a
-CUDA input, bit-equal output under ``no_grad``) is ``chip_smoke.py``'s
-phase 22 and the ``cuda`` test below."""
+an input requires grad.  Each of the five wrappers without a backward
+calls it on its non-CPU path, after the CPU branch and before anything is
+allocated or launched: on ``meta`` tensors (whose checks read no values)
+an input that requires grad stops at the guard, and under
+``torch.no_grad()`` the same call goes past it to the device check.
+Flash attention under grad goes through its ``torch.autograd.Function``
+(``flash_attention.FlashAttention``) instead, never reaches the guard,
+and on ``meta`` stops at the device check, launching nothing.  The CPU
+path is unchanged: the plain versions are torch ops and pass gradients.
+The card half (a raise for a CUDA input, or flash's gradient against the
+plain version's; bit-equal output under ``no_grad``) is
+``chip_smoke.py``'s phase 22 and the ``cuda`` test below."""
 import pytest
 import torch
 
@@ -74,10 +79,18 @@ def _calls(device, grad):
 
 
 KERNELS = sorted(_calls("cpu", False))
+#: the one wrapper with a backward kernel
+WITH_BACKWARD = "flash_attention"
 
 
 def test_six_wrappers():
-    assert len(KERNELS) == 6
+    """Six wrappers; flash's under grad is ``FlashAttention``'s output."""
+    assert len(KERNELS) == 6 and WITH_BACKWARD in KERNELS
+    call, _ = _calls("cpu", True)[WITH_BACKWARD]
+    out = call()
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    with torch.no_grad():
+        assert call().grad_fn is None
 
 
 def test_refuse_grad_raises_under_grad_mode():
@@ -108,11 +121,16 @@ def test_refuse_grad_quiet_with_grad_mode_off_globally():
 @pytest.mark.parametrize("name", KERNELS)
 def test_wrapper_refuses_grad_on_its_device_path(name):
     """An input that requires grad stops at the guard, named, and nothing
-    launches."""
+    launches; flash's goes through its autograd Function to the device
+    check (``meta`` has no kernel), and nothing launches."""
     call, launches = _calls("meta", True)[name]
     before = launches()
-    with pytest.raises(RuntimeError, match=rf"^{name}: .*no backward"):
-        call()
+    if name == WITH_BACKWARD:
+        with pytest.raises(ValueError, match="no kernel for device"):
+            call()
+    else:
+        with pytest.raises(RuntimeError, match=rf"^{name}: .*no backward"):
+            call()
     assert launches() == before
 
 
@@ -136,6 +154,15 @@ def test_wrapper_calls_the_guard_with_its_name(name, monkeypatch):
         raise LookupError("guard reached")
 
     monkeypatch.setattr(build, "refuse_grad", record)
+    if name == WITH_BACKWARD:
+        # flash has a backward and no longer calls the guard, under grad
+        # or not
+        for grad in (True, False):
+            call, _ = _calls("meta", grad)[name]
+            with pytest.raises(ValueError, match="no kernel for device"):
+                call()
+        assert seen == []
+        return
     call, _ = _calls("meta", False)[name]
     with pytest.raises(LookupError, match="guard reached"):
         call()
@@ -175,8 +202,28 @@ def test_cuda_wrapper_refuses_grad_and_no_grad_is_bit_equal(name):
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     call, launches = _calls("cuda", True)[name]
     before = launches()
-    with pytest.raises(RuntimeError, match=rf"^{name}: .*no backward"):
-        call()
+    if name == WITH_BACKWARD:
+        from repro_torch.kernels import ref
+
+        # through FlashAttention: one forward launch, one backward launch,
+        # the gradients those of the plain version
+        q, k, v = (_t("cuda", 1, h, 8, 16, grad=True) for h in (2, 1, 1))
+        out = flash_attention.flash_attention(q, k, v)
+        bwd = flash_attention.BWD_LAUNCHES
+        do = torch.randn_like(out)
+        out.backward(do)
+        assert flash_attention.BWD_LAUNCHES == bwd + 1
+        want = ref.flash_attention_bwd_ref(q, k, v, out.detach(), do)
+        for got_g, want_g in zip((q.grad, k.grad, v.grad), want):
+            torch.testing.assert_close(got_g, want_g, rtol=1e-4, atol=1e-5)
+        n = launches()
+        with torch.no_grad():
+            assert torch.equal(flash_attention.flash_attention(q, k, v), out)
+        assert launches() == n + 1
+        before = launches()
+    else:
+        with pytest.raises(RuntimeError, match=rf"^{name}: .*no backward"):
+            call()
     assert launches() == before
     with torch.no_grad():
         got = call()

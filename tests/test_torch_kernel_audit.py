@@ -321,7 +321,13 @@ def test_launch_table_names_sources_symbols_and_exports():
             assert e.pointers and e.ints
     assert set(ka.KERNELS) == {
         "reid_topk_segment_masked", "reid_topk_tiles", "reid_topk_unmasked",
-        "flash_attention", "decode_attention", "mamba_scan"}
+        "flash_attention", "flash_attention_bwd", "decode_attention",
+        "mamba_scan"}
+    # the backward's two later passes are launched by its launcher
+    for key in ("flash_bwd_dkdv", "flash_bwd_dq"):
+        e = ka.LAUNCH_TABLE[key]
+        assert e.symbol is None and e.source == "csrc/flash_attention_bwd.cu"
+        assert e.replaces == ("_flash_kernel",)
 
 
 # -- repairs: lengths past the kernels' int bounds -------------------------
