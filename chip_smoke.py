@@ -408,8 +408,12 @@ Phases, one line or block each:
      KV 1, hd 128, S 256, causal; whisper-tiny's decoder S 448 causal,
      encoder S = T = 1,500 and cross attention S 448 over T 1,500, not
      causal), float32 and bfloat16, gradients within 1e-4 and 2e-2, two
-     calls bit-equal, launches counted; at the training shapes timed
-     beside its bound, the plain version and SDPA's backward; then, every
+     calls bit-equal, launches counted, given the logsumexp the forward
+     writes under grad, which must hold to the plain one within 1e-5 while
+     the ``no_grad`` output stays bit-equal; at the training shapes timed
+     beside its bound, the plain version and SDPA's backward, and each of
+     its passes' device ms (``torch.profiler`` over eager calls), and
+     so at yi-6b's attention at full width over 4K tokens; then, every
      launch count set to 0: (b) a float32 ``build_train_step`` step of the
      dense, hybrid, MoE, VLM and audio smoke configs held to the same step
      on the CPU (loss and grad_norm, the moments, the parameters), and
@@ -482,6 +486,11 @@ MODEL_TOL = 1e-4            # attention and scan at model widths
 #: rtol = atol: float32 (sums in another order; measured at most 1.4e-5
 #: on values up to 10), bfloat16 (one rounding of each output)
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: the forward's logsumexp (written under grad for the backward) against
+#: the plain one, rtol = atol, both dtypes: the scores are exact products
+#: of the same float32 or bfloat16 inputs summed in float32 in another
+#: order, the sum of exps through ex2.approx (2 ulp)
+LSE_TOL = 1e-5
 SCAN_TOL = 1e-4
 TICKS = 200                 # ticks of the tile path's profiled window
 DEVICE = "cuda"
@@ -646,6 +655,13 @@ BWD_RAGGED = (
     ("ragged hd72", dict(B=1, H=3, KV=3, S=70, T=40, hd=72, causal=True)),
     ("ragged hd256", dict(B=1, H=4, KV=2, S=33, T=31, hd=256,
                           causal=False)),
+)
+#: (a) also timed: yi-6b's attention at full width (H 32 over KV 4, hd
+#: 128) over 4K tokens, causal, where blocks per kv head (B KV T / 64 =
+#: 256) would fill 132 SMs and the heads' partials are taken all the same
+BWD_GQA = (
+    ("yi_6b 4k", dict(B=1, H=32, KV=4, S=4096, T=4096, hd=128,
+                      causal=True)),
 )
 #: (b) a float32 train step of each family that trains on the card, at its
 #: smoke config: dense, hybrid, MoE, VLM and audio; Mamba1 is refused
@@ -3866,8 +3882,10 @@ def phase_grad_guard(torch) -> None:
             if flash_attention.BWD_LAUNCHES != b0 + 1:
                 fail(f"[22 grad] {name}: backward() launched the backward "
                      f"kernel {flash_attention.BWD_LAUNCHES - b0} times")
-            want = ref.flash_attention_bwd_ref(*with_grad, out.detach(), do,
-                                               **kwargs)
+            want = ref.flash_attention_bwd_ref(
+                *with_grad, out.detach(),
+                ref.flash_attention_lse_ref(*with_grad[:2], **kwargs), do,
+                **kwargs)
             err = max(close_grad(torch, f"[22 grad] {name} d{x}", g, w,
                                  GRAD_TOL["float32"])[0]
                       for x, g, w in zip("qkv", (a.grad for a in with_grad),
@@ -4014,10 +4032,13 @@ def event_ms(torch, fn, calls: int = 2, reps: int = 3) -> float:
 def bwd_cost(shape, item: int) -> tuple[float, float]:
     """(operations, bytes) of the flash backward at ``shape``: the work
     the gradient needs, 5 products of 2 hd operations per (query, key)
-    pair the mask leaves (the scores S, dP, dv, dk and dq; the kernel
-    performs 8, recomputing the scores in each of its three passes and dP
-    in two, which the bound does not count); q, k, v, o and do read once,
-    dq, dk and dv written once."""
+    pair the mask leaves (the scores S, dP, dv, dk and dq).  The kernel
+    performs 7: its dk / dv pass forms S^T, dP^T, dv and dk, its dq pass
+    S, dP and dq, so S and dP twice; in bfloat16 the three products that
+    read P or dS take them as two bfloat16 pieces, 10 wgmma products in
+    all; the bound counts none of that.  q, k, v, o and do read once, dq,
+    dk and dv written once (the logsumexp, D and the heads' partials are
+    not counted)."""
     B, H, KV, S, T, hd = (shape[x] for x in ("B", "H", "KV", "S", "T", "hd"))
     if shape["causal"]:
         rows = min(S, T)
@@ -4049,11 +4070,113 @@ def sdpa_backward_ms(torch, q, k, v, do, causal) -> float:
     return both - device_ms(forward, calls=2, replays=5)
 
 
+#: the backward's passes by the names of their kernels
+BWD_PASS_KERNELS = ("bwd_delta", "bwd_dkdv", "bwd_sum", "bwd_dq")
+
+
+def bwd_inputs(torch, shape, dtype):
+    """q, k, v and do of the backward at ``shape``, from a seed."""
+    B, H, KV, S, T, hd = (shape[x] for x in ("B", "H", "KV", "S", "T",
+                                              "hd"))
+    gen = torch.Generator(device=DEVICE).manual_seed(S + T + hd)
+    return tuple(torch.randn(B, n, L, hd, generator=gen,
+                             device=DEVICE).to(dtype)
+                 for n, L in ((H, S), (KV, T), (KV, T), (H, S)))
+
+
+def pass_events(torch, call, calls: int) -> dict:
+    """{pass kernel: (device ms a call, launches)} that ``torch.profiler``
+    reports for ``calls`` eager calls of ``call``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(BWD_PASS_KERNELS, (0.0, 0))
+    for e in prof.key_averages():
+        for name in BWD_PASS_KERNELS:
+            if e.device_type == DeviceType.CUDA and name in e.key:
+                ms, n = out[name]
+                out[name] = (ms + e.self_device_time_total / 1e3 / calls,
+                             n + e.count)
+    return out
+
+
+def bwd_pass_child() -> None:
+    """``bwd_pass_ms``'s child process: each pass's device ms a call at
+    the training shapes and ``BWD_GQA``, both dtypes, from three eager
+    calls under ``torch.profiler`` after one unprofiled; prints them as
+    one JSON object, or FAILED where a pass that runs (the heads' sum
+    only where H > KV) was not seen once a call."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.analysis.kernel_audit import TRAIN_SHAPES
+    from repro_torch.kernels import flash_attention as fa
+
+    out = {}
+    for label, shape in TRAIN_SHAPES + BWD_GQA:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = bwd_inputs(torch, shape, dtype)
+            o, lse = fa.flash_attention_lse(q, k, v, causal=shape["causal"])
+
+            def call():
+                return fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                              causal=shape["causal"])
+
+            call()
+            got = pass_events(torch, call, 3)
+            key = f"{label} {str(dtype)[6:]}"
+            want = {n: 3 if n != "bwd_sum" or shape["H"] > shape["KV"]
+                    else 0 for n in BWD_PASS_KERNELS}
+            if {n: c for n, (_, c) in got.items()} != want:
+                fail(f"{key}: the profiler saw the passes {got}, want "
+                     f"{want} launches")
+            out[key] = {n: ms for n, (ms, _) in got.items()}
+            del q, k, v, do, o, lse
+    say(json.dumps(out))
+
+
+def bwd_pass_ms() -> dict:
+    """Each pass's device ms a call at the training shapes and
+    ``BWD_GQA`` ({"<label> <dtype>": {pass kernel: ms}}), measured by
+    ``bwd_pass_child`` in a new process: in this one, by phase 24, back-
+    to-back profiler sessions over a millisecond of device work may
+    report no device event at all (``in_process_sessions``)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c",
+                        "import chip_smoke; chip_smoke.bwd_pass_child()"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=600)
+    lines = r.stdout.strip().splitlines()
+    if r.returncode or not lines:
+        fail(f"[24 train] (a) the pass profile's process exited "
+             f"{r.returncode}: {(r.stdout + r.stderr)[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def in_process_sessions(torch, call, partials: bool,
+                        sessions: int = 4) -> int:
+    """Of ``sessions`` back-to-back ``torch.profiler`` sessions of one
+    eager call in this process, how many report its every pass kernel."""
+    call()
+    return sum(sum(n for _, n in pass_events(torch, call, 1).values())
+               == 3 + partials for _ in range(sessions))
+
+
 def phase_bwd_kernel(torch) -> dict:
     """Phase 24 (a): the flash backward kernel against its plain version
-    at ``BWD_RAGGED`` and the training shapes, float32 and bfloat16: two
-    calls bit-equal, one launch each counted; at the training shapes its
-    time beside its bound, the plain version's and SDPA's backward."""
+    at ``BWD_RAGGED`` and the training shapes, float32 and bfloat16, given
+    the logsumexp the forward writes under grad
+    (``flash_attention.flash_attention_lse``): that logsumexp within
+    ``LSE_TOL`` of the plain one and the ``no_grad`` output bit-equal with
+    and without it; two calls bit-equal, one launch each counted; at the
+    training shapes and ``BWD_GQA`` its time beside its bound, the plain
+    version's and SDPA's backward, and each pass's device ms
+    (``bwd_pass_ms``, in a child process); once, how many profiler
+    sessions in this process see the passes (``in_process_sessions``)."""
     from repro_torch.analysis.kernel_audit import TRAIN_SHAPES
     from repro_torch.benchmarks.kernels_bench import (bound_ms, device_ms,
                                                       peak_flops)
@@ -4061,61 +4184,88 @@ def phase_bwd_kernel(torch) -> dict:
     from repro_torch.kernels import ref
 
     t_phase = time.perf_counter()
-    out = dict(max_abs_err=0.0, model=[])
-    training = {label for label, _ in TRAIN_SHAPES}
-    for label, shape in BWD_RAGGED + TRAIN_SHAPES:
+    out = dict(max_abs_err=0.0, lse_err=0.0, model=[])
+    timed = {label for label, _ in TRAIN_SHAPES + BWD_GQA}
+    passes = bwd_pass_ms()
+    for label, shape in BWD_RAGGED + TRAIN_SHAPES + BWD_GQA:
         for dtype in (torch.float32, torch.bfloat16):
             name = "float32" if dtype == torch.float32 else "bfloat16"
             B, H, KV, S, T, hd, causal = (shape[x] for x in (
                 "B", "H", "KV", "S", "T", "hd", "causal"))
-            gen = torch.Generator(device=DEVICE).manual_seed(S + T + hd)
-            q, k, v, do = (torch.randn(B, n, L, hd, generator=gen,
-                                       device=DEVICE).to(dtype)
-                           for n, L in ((H, S), (KV, T), (KV, T), (H, S)))
+            q, k, v, do = bwd_inputs(torch, shape, dtype)
+            o, lse = fa.flash_attention_lse(q, k, v, causal=causal)
             with torch.no_grad():
-                o = fa.flash_attention(q, k, v, causal=causal)
+                o_plain = fa.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            if not torch.equal(o, o_plain):
+                fail(f"[24 train] (a) {label} {name}: the forward's output "
+                     f"with the logsumexp is not the no_grad output bit "
+                     f"for bit")
+            del o_plain
+            lse_err = close_enough(
+                torch, f"[24 train] (a) {label} {name} lse", lse,
+                ref.flash_attention_lse_ref(q, k, causal=causal), LSE_TOL)
+            out["lse_err"] = max(out["lse_err"], lse_err)
             n0 = fa.BWD_LAUNCHES
-            got = fa.flash_attention_bwd(q, k, v, o, do, causal=causal)
-            again = fa.flash_attention_bwd(q, k, v, o, do, causal=causal)
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                           causal=causal)
             torch.cuda.synchronize()
             if fa.BWD_LAUNCHES != n0 + 2:
                 fail(f"[24 train] (a) {label} {name}: "
                      f"{fa.BWD_LAUNCHES - n0} launches for two calls")
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 fail(f"[24 train] (a) {label} {name}: two calls differ")
-            want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal)
+            want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                               causal=causal)
             holds = [close_grad(torch, f"[24 train] (a) {label} {name} "
                                 f"d{x}", g, w, GRAD_TOL[name])
                      for x, g, w in zip("qkv", got, want)]
             err = max(e for e, _ in holds)
             out["max_abs_err"] = max(out["max_abs_err"], err)
-            line = (f"[24 train] (a) {label} {name} {shape}: agrees (max "
-                    f"abs err {err:.3g}, bit-equal "
-                    f"{min(sh for _, sh in holds):.4f}), two calls "
-                    f"bit-equal")
+            plan = fa.flash_bwd_plan(hd, dtype)
+            line = (f"[24 train] (a) {label} {name} {shape} plan {plan}: "
+                    f"lse within {lse_err:.3g} of the plain one, no_grad "
+                    f"output bit-equal; agrees (max abs err {err:.3g}, "
+                    f"bit-equal {min(sh for _, sh in holds):.4f}), two "
+                    f"calls bit-equal")
             del want
-            if label in training:
+            if label in timed:
                 flops, nbytes = bwd_cost(shape, q.element_size())
                 b_ms, b_by = bound_ms(flops, nbytes, peak_flops(
                     "flash_attention", (q,)))
+
+                def call():
+                    return fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                  causal=causal)
+
+                if "in_process" not in out:
+                    out["in_process"] = in_process_sessions(torch, call,
+                                                            H > KV)
+                    say(f"[24 train] (a) {label} {name}: of 4 back-to-back "
+                        f"torch.profiler sessions of one call in this "
+                        f"process, {out['in_process']} reported its "
+                        f"{3 + (H > KV)} pass kernels")
                 t = dict(shape, label=label, dtype=name, max_abs_err=err,
-                         ms=device_ms(lambda: fa.flash_attention_bwd(
-                             q, k, v, o, do, causal=causal), calls=2,
-                             replays=5),
+                         lse_err=lse_err, plan=str(plan),
+                         ms=device_ms(call, calls=2, replays=5),
+                         passes_ms=passes[f"{label} {name}"],
                          plain_ms=event_ms(torch, lambda: (
                              ref.flash_attention_bwd_ref(
-                                 q, k, v, o, do, causal=causal)),
+                                 q, k, v, o, lse, do, causal=causal)),
                              calls=1, reps=3),
                          library_ms=sdpa_backward_ms(torch, q, k, v, do,
                                                      causal),
                          bound_ms=b_ms, bound_by=b_by)
                 out["model"].append(t)
-                line += (f"; kernel {t['ms']:.4f} ms, plain "
-                         f"{t['plain_ms']:.4f} ms, SDPA backward "
+                line += (f"; kernel {t['ms']:.4f} ms (passes "
+                         + ", ".join(f"{p_} {ms_:.4f}" for p_, ms_ in
+                                     t["passes_ms"].items())
+                         + f"), plain {t['plain_ms']:.4f} ms, SDPA backward "
                          f"{t['library_ms']:.4f} ms, bound {b_ms:.6f} ms "
                          f"({b_by}, {t['ms'] / b_ms:.1f}x)")
             say(line)
-            del q, k, v, do, o, got, again
+            del q, k, v, do, o, lse, got, again
         torch.cuda.empty_cache()
     say(f"[24 train] (a) {time.perf_counter() - t_phase:.1f} s")
     return out

@@ -116,15 +116,17 @@ LAUNCH_TABLE = {
         ("_flash_kernel",), "csrc/flash_attention.cu", "flash_attention",
         "flash_attention_plan_ok",
         "flash_attention.flash_plan",
-        ("q", "k", "v", "o"),
+        ("q", "k", "v", "o", "lse"),
         ("B", "H", "KV", "S", "T", "hd", "bf16", "causal", "rows", "bk",
          "splits", "stages")),
     "flash_attention_bwd": Entry(
         ("_flash_kernel",), "csrc/flash_attention_bwd.cu",
         "flash_attention_bwd", "flash_attention_bwd_plan_ok",
         "flash_attention.flash_bwd_plan",
-        ("q", "k", "v", "o", "do", "dq", "dk", "dv", "lse", "delta"),
-        ("B", "H", "KV", "S", "T", "hd", "bf16", "causal", "rows", "keys")),
+        ("q", "k", "v", "o", "lse", "do", "dq", "dk", "dv", "delta", "ws_k",
+         "ws_v"),
+        ("B", "H", "KV", "S", "T", "hd", "bf16", "causal", "rows", "keys",
+         "q_keys", "stages")),
     "decode_attention": Entry(
         ("_decode_kernel",), "csrc/decode_attention.cu", "decode_attention",
         "decode_attention_plan_ok",
@@ -146,8 +148,11 @@ LAUNCH_TABLE = {
         "after a split re-id launch (S > 1): " + _REID_PLAN),
     "flash_bwd_dkdv": Entry(
         ("_flash_kernel",), "csrc/flash_attention_bwd.cu", None, None,
-        "after flash_attention_bwd's statistics pass: "
+        "after flash_attention_bwd's D pass: "
         "flash_attention.flash_bwd_plan"),
+    "flash_bwd_sum": Entry(
+        ("_flash_kernel",), "csrc/flash_attention_bwd.cu", None, None,
+        "after the dk / dv pass where H > KV: the heads' partials summed"),
     "flash_bwd_dq": Entry(
         ("_flash_kernel",), "csrc/flash_attention_bwd.cu", None, None,
         "after flash_attention_bwd's dk / dv pass: "
@@ -216,19 +221,41 @@ def _flash_stages(hdp, bf16):
                                     3) <= 116 * 1024 else 2
 
 
-# flash_attention_bwd.cu: 32-row and 32-key tiles, 256 threads; the
-# template's width, and its shared memory (smem_floats)
-_BWD_ROWS = _BWD_KEYS = 32
-_BWD_THREADS = 256
+# flash_attention_bwd.cu: 64 keys a dk / dv block, 64 rows a dq block; the
+# template's width, the streamed tiles, the column warpgroups, the layouts
+# (dkdv_smem, dq_smem) and the stages; bwd_delta's rows (warps) a block and
+# bwd_sum's threads and grid at most
+_BWD_KEYS = _BWD_QROWS = 64
+_BWD_DELTA_ROWS, _BWD_SUM_THREADS, _BWD_SUM_BLOCKS = 8, 256, 132 * 8
 
 
 def _bwd_hdp(hd):
     return 32 if hd <= 32 else 64 if hd <= 64 else 128 if hd <= 128 else 256
 
 
-def _bwd_smem(hdp):
-    return 4 * ((2 * _BWD_ROWS + 2 * _BWD_KEYS) * (hdp + 1)
-                + 2 * _BWD_ROWS * (_BWD_KEYS + 1) + 2 * _BWD_ROWS)
+def _bwd_rows(hdp, bf16):
+    return 64 if hdp <= 64 else 32 if bf16 or hdp <= 128 else 16
+
+
+def _bwd_qkeys(hdp, bf16):
+    return 64 if hdp <= 64 or (bf16 and hdp <= 128) else \
+        32 if bf16 or hdp <= 128 else 16
+
+
+def _bwd_cols(hdp):
+    return 2 if hdp > 128 else 1
+
+
+def _bwd_smem(hdp, bf16, rows, qkeys, stages):
+    item, row = (2, hdp) if bf16 else (4, hdp + 4)
+    return (item * row * (2 * _BWD_KEYS + 2 * stages * rows)
+            + 4 * 2 * stages * rows,
+            item * row * (2 * _BWD_QROWS + 2 * stages * qkeys))
+
+
+def _bwd_stages(hdp, bf16):
+    return 3 if max(_bwd_smem(hdp, bf16, _bwd_rows(hdp, bf16),
+                              _bwd_qkeys(hdp, bf16), 3)) <= 116 * 1024 else 2
 
 
 # decode_attention.cu
@@ -306,17 +333,26 @@ def launcher_accepts(kernel: str, args: dict) -> bool:
                 and a["bk"] == _flash_bk(hdp)
                 and a["splits"] == _flash_splits(hdp, bf16)
                 and a["stages"] == _flash_stages(hdp, bf16)
-                and (a["q"] | a["k"] | a["v"] | a["o"]) & 15 == 0)
+                and (a["q"] | a["k"] | a["v"] | a["o"] | a["lse"]) & 15 == 0)
     if kernel == "flash_attention_bwd":
-        hd = a["hd"]
-        return (all(a[p] != 0 and a[p] & 15 == 0
-                    for p in LAUNCH_TABLE[kernel].pointers)
-                and a["B"] >= 1 and a["H"] >= 1 and a["KV"] >= 1
+        hd, bf16 = a["hd"], a["bf16"] != 0
+        need = ("q", "k", "v", "o", "lse", "do", "dq", "dk", "dv", "delta")
+        if not all(a[p] != 0 and a[p] & 15 == 0 for p in need) or any(
+                a[p] & 15 or (a[p] == 0 and a["H"] != a["KV"])
+                for p in ("ws_k", "ws_v")):
+            return False
+        if not (a["B"] >= 1 and a["H"] >= 1 and a["KV"] >= 1
                 and a["H"] % a["KV"] == 0 and a["S"] >= 1 and a["T"] >= 1
                 and max(a["S"], a["T"]) <= INT_MAX - 127
                 and 8 <= hd <= 256 and hd % 8 == 0 and a["H"] <= GRID_YZ_MAX
-                and a["B"] <= GRID_YZ_MAX and a["rows"] == _BWD_ROWS
-                and a["keys"] == _BWD_KEYS)
+                and a["B"] <= GRID_YZ_MAX):
+            return False
+        hdp = _bwd_hdp(hd)
+        return (_cdiv(a["B"] * a["H"] * a["S"], _BWD_DELTA_ROWS) <= INT_MAX
+                and a["rows"] == _bwd_rows(hdp, bf16)
+                and a["keys"] == _BWD_KEYS
+                and a["q_keys"] == _bwd_qkeys(hdp, bf16)
+                and a["stages"] == _bwd_stages(hdp, bf16))
     if kernel == "decode_attention":
         B, H, KV, T, hd = a["B"], a["H"], a["KV"], a["T"], a["hd"]
         bf16, heads, tile = a["bf16"] != 0, a["heads"], a["tile"]
@@ -446,7 +482,10 @@ def plan_args(c: Case, n_sms: int) -> dict:
     dtype = _torch_dtype(c.dtype)
     if c.kernel == "flash_attention":
         p = flash_attention.flash_plan(s["hd"], dtype)
-        return dict(q=ADDR, k=ADDR, v=ADDR, o=ADDR, B=s["B"], H=s["H"],
+        # the launch under grad, which writes the logsumexp too (the
+        # no_grad launch passes lse null and writes o alone)
+        return dict(q=ADDR, k=ADDR, v=ADDR, o=ADDR, lse=ADDR, B=s["B"],
+                    H=s["H"],
                     KV=s["KV"], S=s["S"], T=s["T"], hd=s["hd"],
                     bf16=int(c.dtype == "bfloat16"),
                     causal=int(s["causal"]), rows=p.rows, bk=p.keys,
@@ -454,10 +493,14 @@ def plan_args(c: Case, n_sms: int) -> dict:
     if c.kernel == "flash_attention_bwd":
         p = flash_attention.flash_bwd_plan(s["hd"], dtype)
         ptrs = {name: ADDR for name in LAUNCH_TABLE[c.kernel].pointers}
-        return dict(ptrs, B=s["B"], H=s["H"], KV=s["KV"], S=s["S"],
-                    T=s["T"], hd=s["hd"], bf16=int(c.dtype == "bfloat16"),
+        ws = ADDR if s["H"] > s["KV"] else 0
+        return dict(ptrs, ws_k=ws, ws_v=ws, B=s["B"], H=s["H"], KV=s["KV"],
+                    S=s["S"], T=s["T"], hd=s["hd"],
+                    bf16=int(c.dtype == "bfloat16"),
                     causal=int(s["causal"]), rows=p.rows, keys=p.keys,
-                    hdp=p.hdp, threads=p.threads, smem=p.smem)
+                    q_keys=p.q_keys, stages=p.stages, hdp=p.hdp,
+                    threads=p.threads, smem=p.smem, q_smem=p.q_smem,
+                    plan=p)
     if c.kernel == "decode_attention":
         p = decode_attention.decode_plan(s["B"], s["H"], s["KV"], s["T"],
                                          s["hd"], dtype, n_sms)
@@ -505,15 +548,21 @@ def perturbations(kernel: str, args: dict) -> list[tuple[str, dict]]:
         change("hd 264", hd=264)
         change("H % KV != 0", KV=a["H"] + 1)
         change("o off 16 bytes", o=a["o"] + 8)
+        change("lse off 16 bytes", lse=a["lse"] + 4)
     elif kernel == "flash_attention_bwd":
         change("rows off the plan", rows=a["rows"] * 2)
         change("keys off the plan", keys=a["keys"] // 2)
+        change("dq keys off the plan", q_keys=a["q_keys"] * 2)
+        change("stages + 1", stages=a["stages"] + 1)
         change("hd 264", hd=264)
         change("H % KV != 0", KV=a["H"] + 1)
         change("T = 0", T=0)
         change("S past MAX_LEN", S=INT_MAX - 126)
         change("do off 16 bytes", do=a["do"] + 8)
-        change("missing workspace", lse=0)
+        change("missing lse", lse=0)
+        change("missing workspace", delta=0)
+        if a["H"] > a["KV"]:
+            change("missing partials", ws_v=0)
     elif kernel == "decode_attention":
         change("splits + 1", splits=a["splits"] + 1)
         change("splits - 1", splits=a["splits"] - 1)
@@ -666,80 +715,124 @@ def _flash_launches(a: dict) -> list[Launch]:
         np.full_like(q0, T)
     qrow, kvrow = (b * H + h) * S, (b * KV + kvh) * T
     L.extents = dict(q=B * H * S * hd, k=B * KV * T * hd,
-                     v=B * KV * T * hd, o=B * H * S * hd)
+                     v=B * KV * T * hd, o=B * H * S * hd, lse=B * H * S)
     L.reads = [("q", (qrow + q0) * hd, (qrow + q1) * hd),
                ("k", kvrow * hd, (kvrow + kend) * hd),
                ("v", kvrow * hd, (kvrow + kend) * hd)]
     L.writes = [("o", (qrow + q0) * hd, (qrow + q1) * hd)]
-    L.covers.append(("o (B, H, S)", (B, H, S),
-                     *_box((b, b + 1), (h, h + 1), (q0, q1)), None))
+    rows_box = _box((b, b + 1), (h, h + 1), (q0, q1))
+    L.covers.append(("o (B, H, S)", (B, H, S), *rows_box, None))
+    if a["lse"]:
+        L.writes.append(("lse", qrow + q0, qrow + q1))
+        L.covers.append(("lse (B, H, S)", (B, H, S), *rows_box, None))
     return [L]
 
 
 def _flash_bwd_launches(a: dict) -> list[Launch]:
-    """The backward's three passes: statistics and dq a (query tile, h,
-    b), dk / dv a (key tile, kv head, b)."""
+    """The backward's passes: D a warp a row (8 rows a block); dk / dv a
+    (key tile, query head h, b), writing dk and dv, or the head's float32
+    partials where H > KV; the partials' sum over each kv head's query
+    heads (a grid-stride loop of 1,024-element spans); dq a (row tile, h,
+    b), heaviest causal tile first."""
     B, H, KV, S, T, hd = a["B"], a["H"], a["KV"], a["S"], a["T"], a["hd"]
-    R, K, causal = a["rows"], a["keys"], a["causal"]
+    bf16, causal = a["bf16"] != 0, a["causal"]
+    R, K, QK = a["rows"], a["keys"], a["q_keys"]
     G = H // KV
-    layout = _bwd_smem(_bwd_hdp(hd))
-    gx, gk = _cdiv(S, R), _cdiv(T, K)
-    kend_max = min(T, gx * R) if causal else T
-    ext_q, ext_k = B * H * S * hd, B * KV * T * hd
-    rows_ints = {"q0 + ROWS (a block's row bound)": gx * R,
-                 "k0 at the key loop's end": _cdiv(kend_max, K) * K}
-    stats = Launch("flash_attention_bwd", (gx, H, B), a["threads"],
-                   a["smem"], layout, 0, _BWD_THREADS, ints=rows_ints)
-    dkdv = Launch("flash_bwd_dkdv", (gk, KV, B), a["threads"], a["smem"],
-                  layout, 0, _BWD_THREADS,
+    hdp = _bwd_hdp(hd)
+    kv_layout, q_layout = _bwd_smem(hdp, bf16, _bwd_rows(hdp, bf16),
+                                    _bwd_qkeys(hdp, bf16),
+                                    _bwd_stages(hdp, bf16))
+    bound = 128 * _bwd_cols(hdp)          # __launch_bounds__(128 * CS, 1)
+    nrows = B * H * S
+    nd = _cdiv(nrows, _BWD_DELTA_ROWS)
+    gk, gq = _cdiv(T, K), _cdiv(S, _BWD_QROWS)
+    kend_max = min(T, gq * _BWD_QROWS) if causal else T
+    ext_q, ext_k, ext_ws = B * H * S * hd, B * KV * T * hd, B * H * T * hd
+    delta = Launch("flash_attention_bwd", (nd, 1, 1), 32 * _BWD_DELTA_ROWS,
+                   0, 0, 0, 32 * _BWD_DELTA_ROWS,
+                   ints={"B H S / 8 (bwd_delta's grid)": nd})
+    dkdv = Launch("flash_bwd_dkdv", (gk, H, B), a["threads"], a["smem"],
+                  kv_layout, 0, bound,
                   ints={"k0 + KEYS (a block's key bound)": gk * K,
-                        "q0 at the row loop's end": gx * R})
-    dq = Launch("flash_bwd_dq", (gx, H, B), a["threads"], a["smem"],
-                layout, 0, _BWD_THREADS, ints=dict(rows_ints))
-    out = [stats, dkdv, dq]
-    if max(gx * H * B, gk * KV * B) > _MAX_GRID_POINTS:
+                        "q0 + rows at the row loop's end": _cdiv(S, R) * R})
+    dq = Launch("flash_bwd_dq", (gq, H, B), 128, a["q_smem"], q_layout, 0,
+                128, ints={"q0 + 64 (a block's row bound)": gq * _BWD_QROWS,
+                           "k0 + q_keys at the key loop's end":
+                           _cdiv(kend_max, QK) * QK})
+    n = B * KV * T * hd
+    want = _cdiv(n // 4, _BWD_SUM_THREADS)
+    sums = Launch("flash_bwd_sum", (min(want, _BWD_SUM_BLOCKS), 1, 1),
+                  _BWD_SUM_THREADS, 0, 0, 0, _BWD_SUM_THREADS)
+    # the sum only where H > KV
+    out = [delta, dkdv] + ([sums] if G > 1 else []) + [dq]
+    if max(nd, gk * H * B, gq * H * B, _cdiv(n, 1024)) > _MAX_GRID_POINTS:
         return out
-    i = np.arange(gx * H * B, dtype=np.int64)
-    bx, h, b = i % gx, i // gx % H, i // (gx * H)
-    q0 = bx * R
-    q1 = np.minimum(q0 + R, S)
-    kend = np.minimum(T, q0 + R) if causal else np.full_like(q0, T)
+    # D: rows [r0, r1) of o and do, into delta
+    r0 = np.arange(nd, dtype=np.int64) * _BWD_DELTA_ROWS
+    r1 = np.minimum(r0 + _BWD_DELTA_ROWS, nrows)
+    delta.extents = dict(o=ext_q, do=ext_q, delta=nrows)
+    delta.reads = [("o", r0 * hd, r1 * hd), ("do", r0 * hd, r1 * hd)]
+    delta.writes = [("delta", r0, r1)]
+    delta.covers.append(("D (B H S)", (nrows,), *_box((r0, r1)), None))
+    # dk / dv
+    j = np.arange(gk * H * B, dtype=np.int64)
+    kx, h, b = j % gk, j // gk % H, j // (gk * H)
+    k0 = kx * K
+    k1 = np.minimum(k0 + K, T)
     qrow, kvrow = (b * H + h) * S, (b * KV + h // G) * T
-    for L in (stats, dq):
-        L.extents = dict(q=ext_q, k=ext_k, v=ext_k, o=ext_q, do=ext_q,
-                         dq=ext_q, lse=B * H * S, delta=B * H * S)
-        L.reads = [("q", (qrow + q0) * hd, (qrow + q1) * hd),
-                   ("do", (qrow + q0) * hd, (qrow + q1) * hd),
-                   ("k", kvrow * hd, (kvrow + kend) * hd)]
-    stats.reads.append(("o", (qrow + q0) * hd, (qrow + q1) * hd))
-    stats.writes = [(n, qrow + q0, qrow + q1) for n in ("lse", "delta")]
-    stats.covers.append(("lse and D (B, H, S)", (B, H, S),
-                         *_box((b, b + 1), (h, h + 1), (q0, q1)), None))
-    dq.reads += [("v", kvrow * hd, (kvrow + kend) * hd),
-                 ("lse", qrow + q0, qrow + q1),
-                 ("delta", qrow + q0, qrow + q1)]
+    qstart = np.minimum(k0, S) if causal else np.zeros_like(k0)
+    dkdv.extents = dict(q=ext_q, k=ext_k, v=ext_k, do=ext_q, lse=nrows,
+                        delta=nrows, dk=ext_k, dv=ext_k, ws_k=ext_ws,
+                        ws_v=ext_ws)
+    dkdv.reads = [("k", (kvrow + k0) * hd, (kvrow + k1) * hd),
+                  ("v", (kvrow + k0) * hd, (kvrow + k1) * hd),
+                  ("q", (qrow + qstart) * hd, (qrow + S) * hd),
+                  ("do", (qrow + qstart) * hd, (qrow + S) * hd),
+                  ("lse", qrow + qstart, qrow + S),
+                  ("delta", qrow + qstart, qrow + S)]
+    if G > 1:
+        wrow = (b * H + h) * T
+        dkdv.writes = [(n_, (wrow + k0) * hd, (wrow + k1) * hd)
+                       for n_ in ("ws_k", "ws_v")]
+        dkdv.covers.append(("dk and dv partials (B, H, T)", (B, H, T),
+                            *_box((b, b + 1), (h, h + 1), (k0, k1)), None))
+    else:
+        dkdv.writes = [(n_, (kvrow + k0) * hd, (kvrow + k1) * hd)
+                       for n_ in ("dk", "dv")]
+        dkdv.covers.append(("dk and dv (B, KV, T)", (B, KV, T),
+                            *_box((b, b + 1), (h, h + 1), (k0, k1)), None))
+    if G > 1:
+        # spans [e0, e1) of dk and dv (elements), each from the G heads'
+        # partials at (u G + g) per + r, u = e // per, r = e % per
+        per = T * hd
+        e0 = np.arange(_cdiv(n, 1024), dtype=np.int64) * 1024
+        e1 = np.minimum(e0 + 1024, n)
+        u0, u1 = e0 // per, (e1 - 1) // per
+        lo = u0 * G * per + (e0 - u0 * per)
+        hi = (u1 * G + G - 1) * per + (e1 - 1 - u1 * per) + 1
+        sums.extents = dict(ws_k=ext_ws, ws_v=ext_ws, dk=ext_k, dv=ext_k)
+        sums.reads = [("ws_k", lo, hi), ("ws_v", lo, hi)]
+        sums.writes = [("dk", e0, e1), ("dv", e0, e1)]
+        sums.covers.append(("dk and dv (B KV T hd)", (n,), *_box((e0, e1)),
+                            None))
+    # dq
+    i = np.arange(gq * H * B, dtype=np.int64)
+    bx, h, b = i % gq, i // gq % H, i // (gq * H)
+    q0 = (gq - 1 - bx) * _BWD_QROWS           # heaviest first
+    q1 = np.minimum(q0 + _BWD_QROWS, S)
+    kend = np.minimum(T, q0 + _BWD_QROWS) if causal else np.full_like(q0, T)
+    qrow, kvrow = (b * H + h) * S, (b * KV + h // G) * T
+    dq.extents = dict(q=ext_q, k=ext_k, v=ext_k, do=ext_q, lse=nrows,
+                      delta=nrows, dq=ext_q)
+    dq.reads = [("q", (qrow + q0) * hd, (qrow + q1) * hd),
+                ("do", (qrow + q0) * hd, (qrow + q1) * hd),
+                ("k", kvrow * hd, (kvrow + kend) * hd),
+                ("v", kvrow * hd, (kvrow + kend) * hd),
+                ("lse", qrow + q0, qrow + q1),
+                ("delta", qrow + q0, qrow + q1)]
     dq.writes = [("dq", (qrow + q0) * hd, (qrow + q1) * hd)]
     dq.covers.append(("dq (B, H, S)", (B, H, S),
                       *_box((b, b + 1), (h, h + 1), (q0, q1)), None))
-    j = np.arange(gk * KV * B, dtype=np.int64)
-    kx, kvh, b = j % gk, j // gk % KV, j // (gk * KV)
-    k0 = kx * K
-    k1 = np.minimum(k0 + K, T)
-    kvrow = (b * KV + kvh) * T
-    qstart = np.minimum(k0 // R * R, S) if causal else np.zeros_like(k0)
-    first, last = (b * H + kvh * G) * S, (b * H + kvh * G + G - 1) * S
-    dkdv.extents = dict(q=ext_q, k=ext_k, v=ext_k, do=ext_q, dk=ext_k,
-                        dv=ext_k, lse=B * H * S, delta=B * H * S)
-    dkdv.reads = [("k", (kvrow + k0) * hd, (kvrow + k1) * hd),
-                  ("v", (kvrow + k0) * hd, (kvrow + k1) * hd),
-                  ("q", (first + qstart) * hd, (last + S) * hd),
-                  ("do", (first + qstart) * hd, (last + S) * hd),
-                  ("lse", first + qstart, last + S),
-                  ("delta", first + qstart, last + S)]
-    dkdv.writes = [(n, (kvrow + k0) * hd, (kvrow + k1) * hd)
-                   for n in ("dk", "dv")]
-    dkdv.covers.append(("dk and dv (B, KV, T)", (B, KV, T),
-                        *_box((b, b + 1), (kvh, kvh + 1), (k0, k1)), None))
     return out
 
 
@@ -1191,17 +1284,21 @@ def sweep() -> list[Case]:
                             KV=1, S=65, T=65, hd=hd, causal=True))
             out.append(case("decode_attention", dtype, "widths", B=2, H=12,
                             KV=4, T=300, hd=hd, length=(300, 7)))
-    # -- the flash backward: its tile edges (32 rows, 32 keys), every head
-    # width, and the training shapes (launch.train's scaled yi-6b; whisper
-    # at full width: the decoder's self and cross attention, the encoder)
-    for hd, dtype in ((8, "float32"), (64, "bfloat16"), (256, "float32"),
-                      (136, "bfloat16")):
-        for S in (31, 32, 33):
-            for T in (31, 32, 33, 65):
+    # -- the flash backward: its tile edges (64 keys and 64 rows a block;
+    # 16, 32 or 64 rows and keys a streamed tile), every head width, and
+    # the training shapes (launch.train's scaled yi-6b; whisper at full
+    # width: the decoder's self and cross attention, the encoder); causal
+    # with H / KV = 2 (the heads' partials), not causal with one head a
+    # kv head
+    for hd, dtype in ((8, "float32"), (64, "bfloat16"), (128, "float32"),
+                      (256, "float32"), (136, "bfloat16")):
+        for S in (31, 33, 63, 64, 65):
+            for T in (31, 63, 64, 65, 129):
                 for causal in (True, False):
                     out.append(case("flash_attention_bwd", dtype,
-                                    "tile edges", B=2, H=4, KV=2, S=S, T=T,
-                                    hd=hd, causal=causal))
+                                    "tile edges", B=2, H=4,
+                                    KV=2 if causal else 4, S=S, T=T, hd=hd,
+                                    causal=causal))
     for hd in range(8, 257, 8):
         for dtype in ("float32", "bfloat16"):
             out.append(case("flash_attention_bwd", dtype, "widths", B=1,
@@ -1653,20 +1750,25 @@ def guard_band_run(c: Case, device="cuda", seed=0) -> dict:
         (q, k_, v), _ = make_inputs(c.kernel, s, device, seed)
         inputs = dict(q=q.to(dtype), k=k_.to(dtype), v=v.to(dtype))
         del k_, v
-        outs = dict(o=(tuple(q.shape), dtype))
+        # the launch under grad: o and each row's logsumexp
+        outs = dict(o=(tuple(q.shape), dtype),
+                    lse=((s["B"], s["H"], s["S"]), torch.float32))
         work = {}
     elif c.kernel == "flash_attention_bwd":
         (q, k_, v), _ = make_inputs("flash_attention", s, device, seed)
         q, k_, v = q.to(dtype), k_.to(dtype), v.to(dtype)
         do = torch.randn(q.shape, generator=gen, device=device).to(dtype)
         inputs = dict(q=q, k=k_, v=v, o=ref.flash_attention_ref(
-            q, k_, v, causal=s["causal"]), do=do)
+            q, k_, v, causal=s["causal"]), lse=ref.flash_attention_lse_ref(
+                q, k_, causal=s["causal"]), do=do)
         del k_, v
         outs = dict(dq=(tuple(q.shape), dtype),
                     dk=(tuple(inputs["k"].shape), dtype),
                     dv=(tuple(inputs["k"].shape), dtype))
-        work = {n: ((s["B"], s["H"], s["S"]), torch.float32)
-                for n in ("lse", "delta")}
+        work = dict(delta=((s["B"], s["H"], s["S"]), torch.float32))
+        if args["ws_k"]:
+            work.update({n: ((s["B"], s["H"], s["T"], s["hd"]),
+                             torch.float32) for n in ("ws_k", "ws_v")})
     elif c.kernel == "decode_attention":
         (q, k_, v, _), _ = make_inputs(
             c.kernel, dict(s, length="full"), device, seed)
@@ -1732,10 +1834,13 @@ def _plain(c: Case, x: dict) -> tuple:
                                        x["g"], x["gal_cam"], x["gal_tag"], k)
     if c.kernel == "flash_attention":
         return (ref.flash_attention_ref(x["q"], x["k"], x["v"],
-                                        causal=c.s["causal"]),)
+                                        causal=c.s["causal"]),
+                ref.flash_attention_lse_ref(x["q"], x["k"],
+                                            causal=c.s["causal"]))
     if c.kernel == "flash_attention_bwd":
         return ref.flash_attention_bwd_ref(x["q"], x["k"], x["v"], x["o"],
-                                           x["do"], causal=c.s["causal"])
+                                           x["lse"], x["do"],
+                                           causal=c.s["causal"])
     if c.kernel == "decode_attention":
         # eight rows at a time: the plain version's float32 copies of a
         # long bfloat16 cache would not fit the card at once
@@ -1756,5 +1861,5 @@ def _plan_text(c: Case, a: dict) -> str:
         return f"rows{a['rows']} keys{a['bk']}x{a['splits']} " \
                f"stages{a['stages']}"
     if c.kernel == "flash_attention_bwd":
-        return f"rows{a['rows']} keys{a['keys']} hdp{a['hdp']}"
+        return str(a["plan"])
     return str(a["plan"])

@@ -74,20 +74,29 @@
 //   scoring every other tile of keys, their (m, l, O) merged through
 //   shared memory at the end: the benchmark's causal shape has 8 heads x
 //   16 such blocks, and the longest row's chain of tiles is halved.
+//
+// Under grad the launch also writes each row's logsumexp (natural log)
+// into a float32 (B, H, S) output, which the backward
+// (flash_attention_bwd.cu) reads instead of recomputing the scores; a
+// null pointer writes nothing, and the output is the same bits either
+// way.  The staging and the products are flash_common.cuh's, shared with
+// the backward.
 
 #include <climits>
 #include <cstdint>
 
 #include "attention.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
 using namespace attn;
-using bf16_t = __nv_bfloat16;
+using namespace flash;
 
 constexpr int SMEM_MAX = 232448;         // a block's shared memory, 227 KB
 constexpr int SMEM_PAIR = 116 * 1024;    // within this, two blocks an SM
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // The plan, as `flash_plan` computes it (kernels/flash_attention.py).
 #define HD __host__ __device__ constexpr
@@ -117,64 +126,6 @@ HD int plan_stages(int hdp, bool is_bf16) {
 }
 #undef HD
 
-// -- cp.async staging ----------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zeros when !in (src is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Stage rows [row0, row0 + ROWS) of a (n_rows, hd) array into `dst`; rows
-// past n_rows become zeros, and the chunks past hd are left alone (zeroed
-// once at the start).  bfloat16: the no-swizzle wgmma layout, 8-row x
-// 16-byte core matrices in (row group, chunk) order, so chunk e of the
-// tile lands at byte 16 e.  float32: row-major rows of HDP + 4 floats.
-template <int HDP, int ROWS, int THREADS, typename T>
-__device__ __forceinline__ void stage_tile(T* dst, const T* src, int row0,
-                                           int n_rows, int hd) {
-  constexpr int EPC = 16 / sizeof(T);    // elements a chunk
-  constexpr int CPR = HDP / EPC;         // chunks a row
-  const int live = hd / EPC;
-#pragma unroll 4
-  for (int e = threadIdx.x; e < ROWS * CPR; e += THREADS) {
-    int row, c;
-    T* d;
-    if constexpr (sizeof(T) == 2) {
-      row = (e >> 3) / CPR * 8 + (e & 7);
-      c = (e >> 3) % CPR;
-      d = dst + e * 8;
-    } else {
-      row = e / CPR;
-      c = e % CPR;
-      d = dst + row * (HDP + 4) + c * 4;
-    }
-    if (c >= live) continue;
-    const bool in = row0 + row < n_rows;
-    cp_async16(d, src + (size_t)(in ? row0 + row : 0) * hd + c * EPC, in);
-  }
-}
-
-template <int BYTES, int THREADS>
-__device__ __forceinline__ void zero_smem(void* smem) {
-  for (int i = threadIdx.x; i < BYTES / 16; i += THREADS)
-    reinterpret_cast<int4*>(smem)[i] = make_int4(0, 0, 0, 0);
-}
-
 // -- the online softmax of one tile, shared by both paths ----------------
 //
 // s holds NJ 8-column blocks of a quad's two rows in the mma accumulator
@@ -182,13 +133,6 @@ __device__ __forceinline__ void zero_smem(void* smem) {
 // scores are scaled into log2 units and masked where `edge`; m and l are
 // the two rows' running max (log2 units) and this lane's part of the sum;
 // returns the two rows' corrections and leaves p in s.
-// 2^x, flushing a result below 2^-126 to zero
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <int NJ>
 __device__ __forceinline__ float2 softmax_tile(float* s, float (&m)[2],
                                                float (&l)[2], float scale2,
@@ -242,15 +186,21 @@ __device__ __forceinline__ float2 softmax_tile(float* s, float (&m)[2],
 }
 
 // acc (NJ 8-column blocks in the accumulator layout) / max(l, 1e-30) ->
-// rows r and r + 8 of o, columns below hd
+// rows r and r + 8 of o, columns below hd; where `lse` is not null, the
+// two rows' logsumexp of the scaled scores, natural log, ln 2 (m +
+// log2 l) with m in log2 units (-inf for a row that saw no key)
 template <int NJ, typename T>
-__device__ __forceinline__ void store_rows(T* o, const float* acc,
+__device__ __forceinline__ void store_rows(T* o, float* lse,
+                                           const float* acc,
+                                           const float (&m)[2],
                                            float (&l)[2], int row, int S,
                                            int hd, int t) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    if (lse != nullptr && t == 0 && row + 8 * i < S)
+      lse[row + 8 * i] = (m[i] + log2f(l[i])) * LN2;
     l[i] = fmaxf(l[i], 1e-30f);
   }
 #pragma unroll
@@ -276,55 +226,15 @@ __device__ __forceinline__ void store_rows(T* o, const float* acc,
 
 // -- float32: 3xTF32 on mma.sync.m16n8k8 ---------------------------------
 
-struct Split {
-  uint32_t hi, lo;
-};
-
-// hi = x rounded to TF32 (10 mantissa bits, to nearest with ties away
-// from zero: the bits of cvt.rna.tf32.f32, which compiles to a longer
-// compare-and-select sequence; finite x only), lo = x - hi exactly; the
-// tensor core reads lo's top 11 bits
-__device__ __forceinline__ Split split_tf32(float x) {
-  const uint32_t hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-  return {hi, __float_as_uint(x - __uint_as_float(hi))};
-}
-
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b with a = (ah, al) and b = (b0, b1) split: the cross terms
-// first, then hi * hi
-__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], Split b0,
-                                           Split b1) {
-  mma_tf32(d, al, b0.hi, b1.hi);
-  mma_tf32(d, ah, b0.lo, b1.lo);
-  mma_tf32(d, ah, b0.hi, b1.hi);
-}
-
-__device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const Split s = split_tf32(x[i]);
-    hi[i] = s.hi;
-    lo[i] = s.lo;
-  }
-}
-
 // KS sets of ROWS / 16 warps split the keys: a stage holds KS tiles of
 // BK keys, set p scores the p-th, and the sets' (m, l, O) are merged at
 // the end.
 template <int HDP, int BK, int ROWS, int KS, int STAGES>
 __global__ void __launch_bounds__(ROWS * 2 * KS, 1)
 flash_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int H,
-                 int KV, int S, int Tn, int hd, float scale2, int causal) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int H, int KV, int S, int Tn,
+                 int hd, float scale2, int causal) {
   constexpr int THREADS = ROWS * 2 * KS;  // a warp per 16 rows and set
   constexpr int LD = HDP + 4;
   constexpr int NJ = BK / 8;           // 8-key blocks of a tile
@@ -472,180 +382,12 @@ flash_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     if (part != 0) return;
   }
-  store_rows<ND>(o + ((size_t)b * H + h) * S * hd, acc, l, row, S, hd, t);
+  store_rows<ND>(o + ((size_t)b * H + h) * S * hd,
+                 lse ? lse + ((size_t)b * H + h) * S : nullptr, acc, m, l,
+                 row, S, hd, t);
 }
 
 // -- bfloat16: wgmma -------------------------------------------------------
-
-// Shared-memory matrix descriptor, no swizzle: start address, the byte
-// offset between core matrices adjacent in K (`lbo`) and in M or N (`sbo`)
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// until at most N committed groups are pending (they complete in order)
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keep the compiler from moving accumulator reads or writes across the
-// asynchronous product
-template <int N>
-__device__ __forceinline__ void pin(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t* d) {
-  #pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// D (64 x N, float32) += A (64 x 16, K-major) B (16 x N, K-major), both
-// bfloat16 from shared memory
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db);
-// D (64 x N, float32) += A (64 x 16, bfloat16 registers) B (16 x N,
-// bfloat16 shared memory, MN-major)
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<32>(float* d, uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo_k, float hi_k) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo_k, hi_k);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// O (64 x HDP) += A V for the 16 keys of step kk, V's columns in chunks
-// of 64, 32 and 16 (wgmma's N)
-template <int HDP>
-__device__ __forceinline__ void pv_step(float* acc, const uint32_t* a,
-                                        const bf16_t* vs, int kk) {
-  constexpr uint32_t LBO = HDP * 16;   // 8 keys on: HDP / 8 core matrices
-  constexpr uint32_t SBO = 128;        // 8 columns on: the next one
-  const bf16_t* base = vs + kk * 16 * HDP;
-#pragma unroll
-  for (int c = 0; c < HDP / 64; ++c)
-    wgmma_rs<64>(acc + 32 * c, a, smem_desc(base + 64 * 8 * c, LBO, SBO));
-  constexpr int n0 = HDP / 64 * 64;
-  if constexpr (HDP % 64 >= 32)
-    wgmma_rs<32>(acc + n0 / 2, a, smem_desc(base + n0 * 8, LBO, SBO));
-  constexpr int n1 = HDP / 32 * 32;
-  if constexpr (HDP % 32 == 16)
-    wgmma_rs<16>(acc + n1 / 2, a, smem_desc(base + n1 * 8, LBO, SBO));
-}
-
-// P (the accumulator layout, float32) -> its two bfloat16 pieces as A
-// fragments: the accumulator's 16 columns of step kk are the A
-// fragment's, pair by pair
-template <int NJ>
-__device__ __forceinline__ void split_p(const float* s, uint32_t* ph,
-                                        uint32_t* pl) {
-#pragma unroll
-  for (int i = 0; i < 2 * NJ; ++i) {
-    const float a = s[2 * i], c = s[2 * i + 1];
-    ph[i] = pack_bf16(a, c);
-    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&ph[i]);
-    pl[i] = pack_bf16(a - __low2float(hi), c - __high2float(hi));
-  }
-}
 
 // O += (P_hi + P_lo) V over a tile's BK keys, issued, not committed
 template <int HDP, int BK>
@@ -654,8 +396,8 @@ __device__ __forceinline__ void issue_pv(float* acc, const uint32_t* ph,
                                          const bf16_t* vs) {
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
-    pv_step<HDP>(acc, pl + 4 * kk, vs, kk);
-    pv_step<HDP>(acc, ph + 4 * kk, vs, kk);
+    mn_step<HDP, HDP>(acc, pl + 4 * kk, vs, kk);
+    mn_step<HDP, HDP>(acc, ph + 4 * kk, vs, kk);
   }
 }
 
@@ -664,8 +406,8 @@ __global__ void __launch_bounds__(ROWS * 2, 1)
 flash_wgmma_kernel(const bf16_t* __restrict__ q,
                    const bf16_t* __restrict__ k,
                    const bf16_t* __restrict__ v, bf16_t* __restrict__ o,
-                   int H, int KV, int S, int Tn, int hd, float scale2,
-                   int causal) {
+                   float* __restrict__ lse, int H, int KV, int S, int Tn,
+                   int hd, float scale2, int causal) {
   constexpr int THREADS = ROWS * 2;       // a warpgroup per 64 rows
   constexpr int NJ = BK / 8;
   constexpr int ND = HDP / 8;
@@ -721,8 +463,7 @@ flash_wgmma_kernel(const bf16_t* __restrict__ q,
   // thread would make ptxas serialise every wgmma.
   for (int it = 0; it < ntiles; ++it) {
     cp_wait<AHEAD - 1>();  // tile it has landed, the newest may not have
-    // the generic-proxy writes (cp.async, the zeros) before wgmma reads
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_async_smem();  // cp.async's and the zeros' writes before wgmma
     __syncthreads();  // ... for every thread; tile it - 2 is consumed
     const int nxt = it + AHEAD;
     if (nxt < ntiles) {
@@ -786,13 +527,15 @@ flash_wgmma_kernel(const bf16_t* __restrict__ q,
     pin<2 * NJ>(pl);
   }
   cp_wait<0>();
-  store_rows<ND>(o + ((size_t)b * H + h) * S * hd, acc, l, row, S, hd, t);
+  store_rows<ND>(o + ((size_t)b * H + h) * S * hd,
+                 lse ? lse + ((size_t)b * H + h) * S : nullptr, acc, m, l,
+                 row, S, hd, t);
 }
 
 template <int HDP, bool BF16>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int KV, int S, int Tn, int hd, int causal,
-                   cudaStream_t stream) {
+                   float* lse, int B, int H, int KV, int S, int Tn, int hd,
+                   int causal, cudaStream_t stream) {
   constexpr int ROWS = plan_rows(HDP, BF16), BK = plan_bk(HDP);
   constexpr int KS = plan_splits(HDP, BF16);
   constexpr int STAGES = plan_stages(HDP, BF16);
@@ -807,8 +550,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     if (err != cudaSuccess) return err;
     kern<<<grid, ROWS * 2, SMEM, stream>>>(
         static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
-        static_cast<const bf16_t*>(v), static_cast<bf16_t*>(o), H, KV, S, Tn,
-        hd, scale2, causal);
+        static_cast<const bf16_t*>(v), static_cast<bf16_t*>(o), lse, H, KV,
+        S, Tn, hd, scale2, causal);
   } else {
     const auto kern = flash_mma_kernel<HDP, BK, ROWS, KS, STAGES>;
     const cudaError_t err = cudaFuncSetAttribute(
@@ -816,20 +559,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     if (err != cudaSuccess) return err;
     kern<<<grid, ROWS * 2 * KS, SMEM, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), H, KV, S, Tn,
-        hd, scale2, causal);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, H, KV, S,
+        Tn, hd, scale2, causal);
   }
   return cudaGetLastError();
 }
 
 template <bool BF16>
 cudaError_t launch_hd(int hdp, const void* q, const void* k, const void* v,
-                      void* o, int B, int H, int KV, int S, int Tn, int hd,
-                      int causal, cudaStream_t s) {
+                      void* o, float* lse, int B, int H, int KV, int S,
+                      int Tn, int hd, int causal, cudaStream_t s) {
   switch (hdp) {
 #define FLASH_HDP(N) \
   case N:            \
-    return launch<N, BF16>(q, k, v, o, B, H, KV, S, Tn, hd, causal, s);
+    return launch<N, BF16>(q, k, v, o, lse, B, H, KV, S, Tn, hd, causal, \
+                           s);
     FLASH_HDP(16) FLASH_HDP(32) FLASH_HDP(48) FLASH_HDP(64)
     FLASH_HDP(80) FLASH_HDP(96) FLASH_HDP(112) FLASH_HDP(128)
     FLASH_HDP(144) FLASH_HDP(160) FLASH_HDP(176) FLASH_HDP(192)
@@ -842,10 +586,10 @@ cudaError_t launch_hd(int hdp, const void* q, const void* k, const void* v,
 // The launcher's guard: the sizes it takes (the grid's y and z within
 // 65,535; S and T at most 127 short of INT_MAX, since q0 + ROWS and
 // kend + STEP - 1 are int), the plan it is built with for (hd, dtype),
-// and 16-byte aligned operands.
+// and 16-byte aligned operands (the lse output null, or aligned too).
 bool plan_ok(const void* q, const void* k, const void* v, const void* o,
-             int B, int H, int KV, int S, int T, int hd, int bf16, int rows,
-             int bk, int splits, int stages) {
+             const void* lse, int B, int H, int KV, int S, int T, int hd,
+             int bf16, int rows, int bk, int splits, int stages) {
   const int hdp = (hd + 15) / 16 * 16;
   return B >= 1 && H >= 1 && KV >= 1 && H % KV == 0 && S >= 1 && T >= 0 &&
          S <= INT_MAX - 127 && T <= INT_MAX - 127 && hd >= 8 && hd <= 256 &&
@@ -853,7 +597,8 @@ bool plan_ok(const void* q, const void* k, const void* v, const void* o,
          rows == plan_rows(hdp, bf16 != 0) && bk == plan_bk(hdp) &&
          splits == plan_splits(hdp, bf16 != 0) &&
          stages == plan_stages(hdp, bf16 != 0) &&
-         ((((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) &
+         ((((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o |
+            (uintptr_t)lse) &
            15) == 0);
 }
 
@@ -861,28 +606,31 @@ bool plan_ok(const void* q, const void* k, const void* v, const void* o,
 
 // All pointers are device pointers to contiguous, 16-byte aligned arrays on
 // card `device`, float32 (bf16 == 0) or bfloat16 (bf16 == 1): q and o
-// (B, H, S, hd), k and v (B, KV, T, hd).  hd is a multiple of 8 from 8 to
-// 256 and H a multiple of KV; (rows, bk, splits, stages) must be the plan the
-// kernel is built with for (hd, dtype), `flash_plan`'s.  The launch goes
-// on `stream` and does not synchronise.  Returns the CUDA error code of
-// the launch (0 on success).
+// (B, H, S, hd), k and v (B, KV, T, hd); lse, null or float32 (B, H, S),
+// receives each row's logsumexp of its scaled scores (natural log) for
+// the backward, and null writes nothing (o is the same bits either way).
+// hd is a multiple of 8 from 8 to 256 and H a multiple of KV; (rows, bk,
+// splits, stages) must be the plan the kernel is built with for (hd,
+// dtype), `flash_plan`'s.  The launch goes on `stream` and does not
+// synchronise.  Returns the CUDA error code of the launch (0 on success).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int B, int H, int KV, int S, int T,
-                               int hd, int bf16, int causal, int rows, int bk,
-                               int splits, int stages, int device,
-                               void* stream) {
-  if (!plan_ok(q, k, v, o, B, H, KV, S, T, hd, bf16, rows, bk, splits,
+                               void* o, void* lse, int B, int H, int KV,
+                               int S, int T, int hd, int bf16, int causal,
+                               int rows, int bk, int splits, int stages,
+                               int device, void* stream) {
+  if (!plan_ok(q, k, v, o, lse, B, H, KV, S, T, hd, bf16, rows, bk, splits,
                stages))
     return (int)cudaErrorInvalidValue;
   const int hdp = (hd + 15) / 16 * 16;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* L = static_cast<float*>(lse);
   if (bf16)
-    return (int)launch_hd<true>(hdp, q, k, v, o, B, H, KV, S, T, hd, causal,
-                                s);
-  return (int)launch_hd<false>(hdp, q, k, v, o, B, H, KV, S, T, hd, causal,
-                               s);
+    return (int)launch_hd<true>(hdp, q, k, v, o, L, B, H, KV, S, T, hd,
+                                causal, s);
+  return (int)launch_hd<false>(hdp, q, k, v, o, L, B, H, KV, S, T, hd,
+                               causal, s);
 }
 
 // The launcher's guard alone (plan_ok), on the launcher's own arguments
@@ -890,11 +638,12 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
 // where it would return cudaErrorInvalidValue.  `causal` takes no part
 // in it.  Launches nothing and touches no device.
 extern "C" int flash_attention_plan_ok(const void* q, const void* k,
-                                       const void* v, void* o, int B, int H,
-                                       int KV, int S, int T, int hd,
-                                       int bf16, int causal, int rows,
-                                       int bk, int splits, int stages) {
+                                       const void* v, void* o, void* lse,
+                                       int B, int H, int KV, int S, int T,
+                                       int hd, int bf16, int causal,
+                                       int rows, int bk, int splits,
+                                       int stages) {
   (void)causal;
-  return plan_ok(q, k, v, o, B, H, KV, S, T, hd, bf16, rows, bk, splits,
-                 stages);
+  return plan_ok(q, k, v, o, lse, B, H, KV, S, T, hd, bf16, rows, bk,
+                 splits, stages);
 }

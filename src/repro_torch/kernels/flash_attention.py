@@ -17,13 +17,19 @@ kernel's launches.
 
 The gradient: ``flash_attention_bwd`` runs ``csrc/flash_attention_bwd.cu``
 (the plain version ``ref.flash_attention_bwd_ref`` on the CPU), which
-returns (dq, dk, dv) from q, k, v, the forward's output and its gradient;
-``BWD_LAUNCHES`` counts its launches.  Where grad mode is on and an input
-requires grad, ``flash_attention`` runs through ``FlashAttention``, a
+returns (dq, dk, dv) from q, k, v, the forward's output, its logsumexp
+and its gradient; ``flash_bwd_plan`` chooses its tiles, and
+``BWD_LAUNCHES`` counts its launches (one a call, its passes together).
+Where grad mode is on and an input requires grad, ``flash_attention``
+runs through ``FlashAttention``, a
 ``torch.autograd.Function`` whose forward is the same launch (bit for bit
-the ``no_grad`` output) and whose backward is ``flash_attention_bwd``.
-The Pallas kernel has no backward: the reference trains through XLA's
-autodiff of jnp attention.
+the ``no_grad`` output) that also writes each row's logsumexp, and whose
+backward is ``flash_attention_bwd`` given that logsumexp.  The logsumexp
+is the natural log of each row's sum of exp(scaled score) over the keys
+it sees, float32 (B, H, S), in the kernel, the plain version
+(``ref.flash_attention_lse_ref``) and the wrapper alike.  The Pallas
+kernel has no backward: the reference trains through XLA's autodiff of
+jnp attention.
 """
 from __future__ import annotations
 
@@ -50,11 +56,9 @@ MAX_LEN = 2 ** 31 - 128
 LAUNCHES = 0
 #: backward launches since the last reset (``flash_attention_bwd``)
 BWD_LAUNCHES = 0
-#: the backward kernel's query rows and keys a tile
-#: (csrc/flash_attention_bwd.cu)
-BWD_ROWS = BWD_KEYS = 32
-#: its threads a block
-BWD_THREADS = 256
+#: the backward's keys a block of its dk / dv pass and rows a block of its
+#: dq pass, 64 each: one warpgroup (four warps) of wgmma or mma.sync
+BWD_KEYS = BWD_ROWS = 64
 
 
 class FlashPlan(NamedTuple):
@@ -153,12 +157,16 @@ def _check_lengths(S: int, T: int) -> None:
                          f"are int; each must be at most {MAX_LEN}")
 
 
-def _forward(q, k, v, causal: bool):
+def _forward(q, k, v, causal: bool, with_lse: bool = False):
     """The forward's dispatch: the plain version on the CPU, else one
-    launch of the kernel (or a raise)."""
+    launch of the kernel (or a raise).  With ``with_lse``, returns (out,
+    lse), the launch writing lse too (the plain version's on the CPU)."""
     global LAUNCHES
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal)
+        out = ref.flash_attention_ref(q, k, v, causal=causal)
+        if with_lse:
+            return out, ref.flash_attention_lse_ref(q, k, causal=causal)
+        return out
     from repro_torch.kernels import build
 
     B, H, S, hd = q.shape
@@ -168,36 +176,40 @@ def _forward(q, k, v, causal: bool):
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     fn = build.launcher("flash_attention", "flash_attention",
-                        (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 13
+                        (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 13
                         + (ctypes.c_void_p,))
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   lse.data_ptr() if with_lse else None,
                    B, H, KV, S, T, hd, int(q.dtype == torch.bfloat16),
                    int(causal), plan.rows, plan.keys, plan.splits,
                    plan.stages,
                    *build.device_and_stream(q)), "flash_attention")
     LAUNCHES += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 class FlashAttention(torch.autograd.Function):
-    """Prefill attention with a gradient: the forward's launch, saving q,
-    k, v and the output, and ``flash_attention_bwd`` as its backward."""
+    """Prefill attention with a gradient: the forward's launch writing the
+    logsumexp too, saving q, k, v, the output and the logsumexp, and
+    ``flash_attention_bwd`` as its backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
-        o = _forward(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = _forward(q, k, v, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
                                          causal=ctx.causal)
         return dq, dk, dv, None
 
@@ -212,47 +224,91 @@ def flash_attention(q, k, v, *, causal: bool = True):
     return _forward(q, k, v, causal)
 
 
+def flash_attention_lse(q, k, v, *, causal: bool = True):
+    """(out, lse): the forward as ``FlashAttention`` runs it under grad,
+    one launch that also writes each row's logsumexp (float32 (B, H, S),
+    natural log), outside autograd; ``out`` is ``flash_attention``'s bits.
+    On the CPU the plain versions."""
+    check_heads(q, k, v, 4)
+    return _forward(q, k, v, causal, with_lse=True)
+
+
 class BwdPlan(NamedTuple):
     """The launch geometry of ``csrc/flash_attention_bwd.cu``."""
     hdp: int         # the template's width: hd up to 32, 64, 128 or 256
-    rows: int        # query rows a tile
-    keys: int        # keys a tile
-    threads: int
-    smem: int        # bytes of shared memory a block, every pass alike
+    rows: int        # query rows a tile of the dk / dv pass
+    keys: int        # keys a block of the dk / dv pass (BWD_KEYS)
+    q_rows: int      # rows a block of the dq pass (BWD_ROWS)
+    q_keys: int      # keys a tile of the dq pass
+    cols: int        # warpgroups of a dk / dv block, splitting dk's and
+                     # dv's columns
+    stages: int      # buffers of each pass's cp.async ring
+    threads: int     # a dk / dv block's; a dq block has 128
+    smem: int        # bytes of shared memory a dk / dv block
+    q_smem: int      # bytes of shared memory a dq block
 
     def __str__(self):
-        return (f"rows{self.rows} keys{self.keys} hdp{self.hdp} "
-                f"{self.smem} B")
+        return (f"rows{self.rows} keys{self.keys}"
+                + (f"x{self.cols}" if self.cols > 1 else "")
+                + f" dq rows{self.q_rows} keys{self.q_keys}"
+                f" stages{self.stages} hdp{self.hdp}"
+                f" {self.smem}/{self.q_smem} B")
 
 
-def bwd_smem_bytes(hdp: int) -> int:
-    """Shared memory of a backward block, as the kernel lays it out, in
-    float32: the Q, dO, K and V tiles at rows of hdp + 1, the P and dS
-    tiles at rows of keys + 1, and the rows' lse and D."""
-    return 4 * ((2 * BWD_ROWS + 2 * BWD_KEYS) * (hdp + 1)
-                + 2 * BWD_ROWS * (BWD_KEYS + 1) + 2 * BWD_ROWS)
+def bwd_smem_bytes(hdp: int, bf16: bool, rows: int, q_keys: int,
+                   stages: int) -> tuple[int, int]:
+    """Shared memory of a (dk / dv, dq) block, as the kernel lays it out:
+    K and V of the block's keys and ``stages`` tiles of ``rows`` rows of Q
+    and dO with their lse and D floats; Q and dO of the block's rows and
+    ``stages`` tiles of ``q_keys`` keys of K and V.  bfloat16 rows of hdp,
+    float32 rows padded to hdp + 4 floats."""
+    item, row = (2, hdp) if bf16 else (4, hdp + 4)
+    return (item * row * (2 * BWD_KEYS + 2 * stages * rows)
+            + 4 * 2 * stages * rows,
+            item * row * (2 * BWD_ROWS + 2 * stages * q_keys))
 
 
 def flash_bwd_plan(hd: int, dtype) -> BwdPlan:
     """The backward kernel's plan for head width ``hd`` and ``dtype``: the
-    widths the forward takes (a multiple of 8 from 8 to 256), 32-row and
-    32-key tiles, 256 threads."""
+    widths the forward takes (a multiple of 8 from 8 to 256), in the
+    template of hdp = 32, 64, 128 or 256.  64 keys a dk / dv block and 64
+    rows a dq block, a warpgroup each; the tiles that stream past them,
+    query rows (dk / dv) and keys (dq), 64 up to hdp = 64, then narrower
+    as the accumulators (hdp / 2 registers a thread each) and the float32
+    rows (hdp + 4 floats) grow: 32 query rows and 64 keys (bfloat16) or
+    32 and 32 (float32) at hdp = 128, 32 and 32 (bfloat16) or 16 and 16
+    (float32) at hdp = 256, where two warpgroups share a dk / dv block's
+    keys, each with half of dk's and dv's columns.  Three stages where
+    both passes' blocks fit twice an SM (``SMEM_PAIR``), else two."""
     if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"hd={hd}: the kernel takes a multiple of 8 from 8 "
                          f"to {MAX_HEAD_DIM}")
     if dtype not in DTYPES:
         raise TypeError(f"no kernel for {dtype}")
+    bf16 = dtype == torch.bfloat16
     hdp = next(w for w in (32, 64, 128, 256) if hd <= w)
-    return BwdPlan(hdp, BWD_ROWS, BWD_KEYS, BWD_THREADS, bwd_smem_bytes(hdp))
+    rows = 64 if hdp <= 64 else 32 if bf16 or hdp <= 128 else 16
+    q_keys = 64 if hdp <= 64 or (bf16 and hdp <= 128) else \
+        32 if bf16 or hdp <= 128 else 16
+    cols = 2 if hdp > 128 else 1
+    stages = 3 if max(bwd_smem_bytes(hdp, bf16, rows, q_keys, 3)) \
+        <= SMEM_PAIR else 2
+    smem, q_smem = bwd_smem_bytes(hdp, bf16, rows, q_keys, stages)
+    return BwdPlan(hdp, rows, BWD_KEYS, BWD_ROWS, q_keys, cols, stages,
+                   128 * cols, smem, q_smem)
 
 
-def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True):
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
     """(dq, dk, dv) of ``flash_attention(q, k, v, causal=causal)`` = ``o``
     against its output gradient ``do`` ((B, H, S, hd) like q and o), each
     in the inputs' dtype; dk and dv sum over the query heads of each kv
-    head.  On the CPU the plain version; on a CUDA tensor one launch of
-    the backward kernel (its three passes), or the wrapper raises.  With
-    S = 0 or T = 0 the gradients are zeros and nothing launches."""
+    head.  ``lse`` is the forward's logsumexp (float32 (B, H, S), natural
+    log: ``FlashAttention`` saves it, ``ref.flash_attention_lse_ref`` is
+    its plain version); nothing here computes it.  On the CPU the plain
+    version; on a CUDA tensor one launch of the backward kernel (its
+    passes: D, dk / dv, where H > KV the heads' partials summed, dq), or
+    the wrapper raises.  With S = 0 or T = 0 the gradients are zeros and
+    nothing launches."""
     global BWD_LAUNCHES
     check_heads(q, k, v, 4)
     for name, t in (("o", o), ("do", do)):
@@ -263,8 +319,14 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True):
                              f"{q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if not isinstance(lse, torch.Tensor) or lse.shape != q.shape[:3] or \
+            lse.dtype != torch.float32 or lse.device != q.device or \
+            not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous float32 tensor "
+                         f"{tuple(q.shape[:3])} on {q.device}")
     if q.device.type == "cpu":
-        return ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal)
+        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                           causal=causal)
     from repro_torch.kernels import build
 
     B, H, S, hd = q.shape
@@ -277,17 +339,22 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True):
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
-    q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    # the heads' float32 partials of dk and dv, summed by the kernel's
+    # third pass, where a kv head has more than one query head
+    ws = [torch.empty((B, H, T, hd), dtype=torch.float32, device=q.device)
+          if H > KV else None for _ in range(2)]
+    q, k, v, o, lse, do = (_aligned(t) for t in (q, k, v, o, lse, do))
     fn = build.launcher("flash_attention_bwd", "flash_attention_bwd",
-                        (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 11
+                        (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 13
                         + (ctypes.c_void_p,))
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                   do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                   dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                   lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                   dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+                   *(w.data_ptr() if w is not None else None for w in ws),
                    B, H, KV, S, T, hd, int(q.dtype == torch.bfloat16),
-                   int(causal), plan.rows, plan.keys,
-                   *build.device_and_stream(q)), "flash_attention_bwd")
+                   int(causal), plan.rows, plan.keys, plan.q_keys,
+                   plan.stages, *build.device_and_stream(q)),
+                "flash_attention_bwd")
     BWD_LAUNCHES += 1
     return dq, dk, dv

@@ -141,12 +141,9 @@ def reid_topk_ref(queries, gallery, k: int):
     return _topk_rows(s, k)
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True):
-    """Prefill attention.  q (B, H, S, hd); k, v (B, KV, T, hd) with
-    H % KV == 0, q head h reading kv head h // (H / KV); softmax in float32
-    with scale hd**-0.5; ``causal`` masks key positions past the query's
-    (both counted from 0) with NEG_INF.  Returns (B, H, S, hd) in q's
-    dtype."""
+def _flash_scores(q, k, causal: bool):
+    """The scores of prefill attention, (B, KV, H / KV, S, T) float32:
+    q . k * hd**-0.5, NEG_INF where ``causal`` masks the key."""
     B, H, S, hd = q.shape
     KV, T = k.shape[1], k.shape[2]
     qr = q.reshape(B, KV, H // KV, S, hd).to(torch.float32)
@@ -156,18 +153,39 @@ def flash_attention_ref(q, k, v, *, causal: bool = True):
         mask = torch.arange(S, device=q.device)[:, None] >= \
             torch.arange(T, device=q.device)[None, :]
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
+    return s
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """Prefill attention.  q (B, H, S, hd); k, v (B, KV, T, hd) with
+    H % KV == 0, q head h reading kv head h // (H / KV); softmax in float32
+    with scale hd**-0.5; ``causal`` masks key positions past the query's
+    (both counted from 0) with NEG_INF.  Returns (B, H, S, hd) in q's
+    dtype."""
+    B, H, S, hd = q.shape
+    p = torch.softmax(_flash_scores(q, k, causal), dim=-1)
     o = torch.einsum("bkgqt,bkth->bkgqh", p, v.to(torch.float32))
     return o.reshape(B, H, S, hd).to(q.dtype)
 
 
-def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True):
+def flash_attention_lse_ref(q, k, *, causal: bool = True):
+    """Each row's logsumexp of ``flash_attention_ref``'s scaled, masked
+    scores, the natural log, float32 (B, H, S): what the kernel's forward
+    writes for the backward (``flash_attention.FlashAttention``)."""
+    B, H, S, _ = q.shape
+    return torch.logsumexp(_flash_scores(q, k, causal),
+                           dim=-1).reshape(B, H, S)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True):
     """The gradients (dq, dk, dv) of ``flash_attention_ref`` at (q, k, v)
     against the output gradient ``do``: ``torch.autograd.grad`` of the
     plain forward on float32 copies of q, k, v and ``do``, cast to the
     inputs' dtype.  dk and dv sum over the H / KV query heads that read
-    each kv head.  ``o`` (the forward's output) is not read: the plain
-    version recomputes it."""
+    each kv head.  ``o`` (the forward's output) and ``lse`` (its
+    logsumexp, ``flash_attention_lse_ref``'s, which the kernel reads) are
+    the kernel's arguments and are not read: the plain version recomputes
+    the forward."""
     with torch.enable_grad():
         q32, k32, v32 = (t.detach().to(torch.float32).requires_grad_()
                          for t in (q, k, v))

@@ -213,7 +213,8 @@ def test_cuda_wrapper_refuses_grad_and_no_grad_is_bit_equal(name):
         do = torch.randn_like(out)
         out.backward(do)
         assert flash_attention.BWD_LAUNCHES == bwd + 1
-        want = ref.flash_attention_bwd_ref(q, k, v, out.detach(), do)
+        want = ref.flash_attention_bwd_ref(
+            q, k, v, out.detach(), ref.flash_attention_lse_ref(q, k), do)
         for got_g, want_g in zip((q.grad, k.grad, v.grad), want):
             torch.testing.assert_close(got_g, want_g, rtol=1e-4, atol=1e-5)
         n = launches()

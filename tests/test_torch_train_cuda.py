@@ -46,12 +46,11 @@ def test_backward_kernel_against_the_plain_version(card, dtype, shape):
     q, k, v = (torch.randn(B, n, L, hd, generator=gen, device=card).to(dtype)
                for n, L in ((H, S), (KV, T_), (KV, T_)))
     do = torch.randn(q.shape, generator=gen, device=card).to(dtype)
-    with torch.no_grad():
-        o = fa.flash_attention(q, k, v, causal=causal)
+    o, lse = fa.flash_attention_lse(q, k, v, causal=causal)
     before = fa.BWD_LAUNCHES
-    got = fa.flash_attention_bwd(q, k, v, o, do, causal=causal)
-    again = fa.flash_attention_bwd(q, k, v, o, do, causal=causal)
-    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
     torch.cuda.synchronize()
     assert fa.BWD_LAUNCHES == before + 2
     for g, a, w in zip(got, again, want):

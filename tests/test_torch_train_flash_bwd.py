@@ -57,7 +57,8 @@ def _close(got, want, what):
 def _port(q, k, v, do, causal):
     t = [torch.from_numpy(a) for a in (q, k, v, do)]
     o = ref.flash_attention_ref(*t[:3], causal=causal)
-    return ref.flash_attention_bwd_ref(*t[:3], o, t[3], causal=causal)
+    lse = ref.flash_attention_lse_ref(*t[:2], causal=causal)
+    return ref.flash_attention_bwd_ref(*t[:3], o, lse, t[3], causal=causal)
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
@@ -118,22 +119,25 @@ def test_autograd_function_on_the_cpu_gives_the_plain_gradients(causal):
 def test_wrapper_backward_checks_and_dispatch():
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(SHAPES[0]))
     o = ref.flash_attention_ref(q, k, v)
-    got = fa.flash_attention_bwd(q, k, v, o, do)
-    want = ref.flash_attention_bwd_ref(q, k, v, o, do)
+    lse = ref.flash_attention_lse_ref(q, k)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     with pytest.raises(ValueError, match="do must be"):
-        fa.flash_attention_bwd(q, k, v, o, do[:, :, :-1].contiguous())
+        fa.flash_attention_bwd(q, k, v, o, lse, do[:, :, :-1].contiguous())
     with pytest.raises(ValueError, match="o must be"):
-        fa.flash_attention_bwd(q, k, v, o.to(torch.bfloat16), do)
-    meta = [t.to("meta") for t in (q, k, v, o, do)]
+        fa.flash_attention_bwd(q, k, v, o.to(torch.bfloat16), lse, do)
+    with pytest.raises(ValueError, match="lse must be"):
+        fa.flash_attention_bwd(q, k, v, o, lse[:, :, :-1], do)
+    meta = [t.to("meta") for t in (q, k, v, o, lse, do)]
     with pytest.raises(ValueError, match="no kernel for device"):
         fa.flash_attention_bwd(*meta)
     with pytest.raises(ValueError, match="multiple of 8"):
         fa.flash_bwd_plan(12, torch.float32)
     assert fa.flash_bwd_plan(72, torch.bfloat16).hdp == 128
-    bf16 = [t.to(torch.bfloat16) for t in (q, k, v, o, do)]
-    assert all(g.dtype == torch.bfloat16
-               for g in fa.flash_attention_bwd(*bf16))
+    bf16 = [t.to(torch.bfloat16) for t in (q, k, v, o)]
+    assert all(g.dtype == torch.bfloat16 for g in fa.flash_attention_bwd(
+        *bf16, lse, do.to(torch.bfloat16)))
 
 
 def test_backward_refuses_lengths_past_its_int_bounds(monkeypatch):
@@ -148,8 +152,9 @@ def test_backward_refuses_lengths_past_its_int_bounds(monkeypatch):
     top = fa.MAX_LEN
     q = torch.empty((1, 1, top + 1, 64), device="meta")
     kv = torch.empty((1, 1, 8, 64), device="meta")
+    lse = torch.empty((1, 1, top + 1), device="meta")
     with pytest.raises(ValueError, match="row and key bounds"):
-        fa.flash_attention_bwd(q, kv, kv, q, q)
+        fa.flash_attention_bwd(q, kv, kv, q, lse, q)
     for dtype in ("float32", "bfloat16"):
         shape = dict(B=1, H=1, KV=1, S=top, T=top, hd=64, causal=False)
         findings = ka.check_launch("flash_attention_bwd", shape, dtype)
